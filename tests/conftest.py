@@ -12,6 +12,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the PyTorch port's CUDA "
+        "kernels); skips without one")
+
+
 @pytest.fixture(scope="session")
 def tokenizer():
     from repro.core.tokenizer import ByteTokenizer
