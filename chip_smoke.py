@@ -11,18 +11,28 @@ no result line):
    the build seconds;
 3. model check: syncode-demo in fp32 on the card (kernels) against the
    same weights on the CPU (plain versions): prefill and decode logits;
-4. kernel phase at the served shapes: `fused_select` (B=8, V=49152, real
-   json mask-store rows) and `flash_attention` ([1,S,15,64] q, [1,S,5,64]
-   k/v, bf16, S in 7/32/300/2048) against their plain versions on the
-   card, plus an fp32 mask-exactness check of the attention kernel; each
-   timed with CUDA events (median of 25) beside its plain version, its
-   bound and, for attention, torch's scaled_dot_product_attention;
-5. end-to-end: `build_engine("smollm-360m", ("json", "jsonmsg"))` at full
-   width (random weights from a seed), 16 requests (half greedy, half
-   sampled), 64 new tokens each; every eos-finished output must parse,
-   and the kernels' launch counters, zeroed just before the run, must
-   show the path went through both kernels; then a devtime run for the
-   engine's device forward / mask+sample seconds;
+4. kernel phase at the served shapes, each kernel against its plain
+   version on the card and timed with CUDA events (median of 25) beside
+   the plain version, its bound and, where one PyTorch call computes the
+   same function, that call:
+   `fused_select` (B=8, V=49152, real json mask-store rows),
+   `flash_attention` ([1,S,15,64] q, [1,S,5,64] k/v, bf16, S in
+   7/32/300/2048, plus an fp32 mask-exactness check),
+   `masked_logits` and `masked_logits_span` (B=8 and the sequential
+   path's B=1, K=8 spans, V=49152, real json rows, constrained=False
+   rows and a row at A=384; bitwise, bf16 and fp32),
+   `paged_attention_span` (B=8, 15/5 heads, Dh 64, 16-token pages, 32
+   pages per slot, a 256-page pool with holes and shared pages, S in
+   1/8/32, bf16 and fp32; its decode form `paged_attention_decode` at
+   S=1);
+5. end-to-end at smollm-360m full width (random weights from a seed),
+   json + jsonmsg, each run with the kernels' launch counters zeroed
+   just before it and read just after, every eos-finished output
+   parsed: dense `generate()` (16 requests, half greedy, half sampled,
+   64 new tokens), then a devtime run of it; `generate_speculative`
+   over dense caches (the same 16); paged `generate()` (the same 16 plus
+   8 sharing a >= 256-token prefix); `generate_speculative` over pages
+   (8 requests x 32 new tokens); `generate_sequential` (4 x 32);
 6. decode forward breakdown at full width: host dispatch, synced wall
    and profiler-measured device busy time per step, and the kernels that
    take most of it.
@@ -298,6 +308,191 @@ def phase_attention(torch, np, main_S):
     return row
 
 
+def phase_masked_logits(torch, np, engine):
+    """Both entry points, bitwise against the plain version, bf16 and
+    fp32, on real json rows; timed at the sequential path's B=1, at B=8,
+    and as the K=8 span."""
+    from repro_torch.core.constrain import GrammarConstraint, MAX_ACCEPT
+    from repro_torch.kernels.masked_logits.ops import (
+        apply_grammar_mask, apply_grammar_mask_span)
+    from repro_torch.kernels.masked_logits.ref import (
+        masked_logits_ref, masked_logits_span_ref)
+    dev = torch.device("cuda")
+    g, tab, store_np = engine.bundles["json"]
+    store = torch.from_numpy(store_np.packed.view(np.int32)).to(dev)
+    R, W = store.shape
+    V = engine.model.cfg.vocab_size
+    texts = [b"", b"{", b'{"a', b'{"key": ', b"[1, 2", b'"str', b"tru",
+             b'{"a": [1, {"b": nu']
+    cons_on = np.array([True, True, True, False, True, True, False, True])
+    cons = [GrammarConstraint(g, tab, store_np, engine.tok) if c else None
+            for c in cons_on]
+    rows, eos, _, groups = GrammarConstraint.ci_rows_batch(
+        cons, texts, max_accept=MAX_ACCEPT)
+    cd = GrammarConstraint.cd_overlay_batch(cons, groups, W)
+    A = 8 * MAX_ACCEPT                    # a row at a wide accept bucket
+    wide = np.full((8, A), -1, np.int32)
+    wide[:, :rows.shape[1]] = rows
+    wide[7] = np.random.default_rng(5).integers(0, R, A)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rng = np.random.default_rng(6)
+    out, max_err = {}, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for B in (1, 8):
+            logits = t(rng.normal(scale=3.0, size=(B, V)).astype(
+                np.float32)).to(dtype)
+            args = (logits, store, t(wide[:B]), t(eos[:B]))
+            kw = {"constrained": t(cons_on[:B]),
+                  "cd": t(cd[:B].view(np.int32))}
+            mk = apply_grammar_mask(*args, **kw)
+            mr = masked_logits_ref(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(mk.view(bits), mr.view(bits)):
+                raise AssertionError(f"masked_logits B={B} {dtype}: "
+                                     f"differs from the plain version")
+            max_err = max(max_err, (mk.float() - mr.float()).abs().max()
+                          .item())
+            ms = cuda_ms(torch, lambda: apply_grammar_mask(*args, **kw))
+            plain = cuda_ms(torch, lambda: masked_logits_ref(*args, **kw))
+            out[("row", B, dtype)] = (ms, plain, _mask_bytes(
+                np, B * V * logits.element_size(), wide[:B], cons_on[:B],
+                W))
+        K = 8
+        logits = t(rng.normal(scale=3.0, size=(8, K, V)).astype(
+            np.float32)).to(dtype)
+        srows = np.repeat(wide[:, None], K, axis=1)
+        scons = np.repeat(cons_on[:, None], K, axis=1)
+        scons[:, K // 2:] &= rng.random((8, K - K // 2)) < 0.5
+        sargs = (logits, store, t(srows), t(np.repeat(eos[:, None], K,
+                                                      axis=1)))
+        skw = {"constrained": t(scons),
+               "cd": t(np.repeat(cd[:, None], K, axis=1).view(np.int32))}
+        mk = apply_grammar_mask_span(*sargs, **skw)
+        mr = masked_logits_span_ref(*sargs, **skw)
+        torch.cuda.synchronize()
+        if not torch.equal(mk.view(bits), mr.view(bits)):
+            raise AssertionError(f"masked_logits_span {dtype}: differs "
+                                 f"from the plain version")
+        ms = cuda_ms(torch, lambda: apply_grammar_mask_span(*sargs, **skw))
+        plain = cuda_ms(torch, lambda: masked_logits_span_ref(*sargs,
+                                                              **skw))
+        out[("span", 8, dtype)] = (ms, plain, _mask_bytes(
+            np, 8 * K * V * logits.element_size(), srows.reshape(8 * K, A),
+            scons.reshape(-1), W))
+    for (form, B, dtype), (ms, plain, nbytes) in out.items():
+        log(f"masked_logits {form} B={B}{' K=8' if form == 'span' else ''} "
+            f"{str(dtype)[6:]}: bitwise equal; {ms:.4f} ms; plain "
+            f"{plain:.4f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} "
+            f"ms ({nbytes} bytes)")
+    row = lambda name, key, src_line: {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/masked_logits.cu",
+        "replaces": f"src/repro/kernels/masked_logits/kernel.py:{src_line}",
+        "launches": 0, "max_abs_err": max_err, "ms": out[key][0],
+        "plain_ms": out[key][1],
+        "bound_ms": out[key][2] / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None}
+    return (row("masked_logits", ("row", 1, torch.bfloat16), 164),
+            row("masked_logits_span", ("span", 8, torch.bfloat16), 112))
+
+
+def _mask_bytes(np, logit_bytes, rows, cons, W):
+    """Least bytes of one mask call: the logits read and written once,
+    each distinct store row the constrained rows union read once, their
+    residue words, and the row ids and flags."""
+    need = rows[cons]
+    distinct = np.unique(need[need >= 0]).size
+    n = rows.shape[0]
+    return (2 * logit_bytes + distinct * W * 4 + int(cons.sum()) * W * 4
+            + rows.size * 4 + 2 * n)
+
+
+def phase_paged_attention(torch, np):
+    """paged_attention_span at smollm-360m's attention shapes against the
+    plain version, with sdpa on the gathered dense view as yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_decode)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    dev = torch.device("cuda")
+    B, H, K, Dh, ps, nP, P = 8, 15, 5, 64, 16, 32, 256
+    L = nP * ps
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    pt = rng.permutation(P)[:B * nP].reshape(B, nP).astype(np.int32)
+    pt[:, 1:][rng.random((B, nP - 1)) < 0.15] = -1    # holes
+    pt[1:4, :4] = pt[0, :4]                           # shared prefix pages
+    row = None
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-5
+        kp = t(rng.normal(size=(P, ps, K, Dh)).astype(np.float32)).to(dtype)
+        vp = t(rng.normal(size=(P, ps, K, Dh)).astype(np.float32)).to(dtype)
+        for S in (1, 8, 32):
+            q = t(rng.normal(size=(B, S, H, Dh)).astype(np.float32)).to(
+                dtype)
+            pos = rng.integers(S, L - S, size=B).astype(np.int32)
+            args = (q, kp, vp, t(pt), t(pos))
+            ok = paged_attention(*args)
+            orf = paged_attention_ref(*args)
+            err = (ok.float() - orf.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"paged_attention S={S} {dtype}: max "
+                                     f"abs err {err} > {tol}")
+            ms = cuda_ms(torch, lambda: paged_attention(*args))
+            plain = cuda_ms(torch, lambda: paged_attention_ref(*args))
+            safe = t(pt).clamp(min=0).long()
+            kc = kp[safe].reshape(B, L, K, Dh).transpose(1, 2)
+            vc = vp[safe].reshape(B, L, K, Dh).transpose(1, 2)
+            qpos = t(pos)[:, None] + torch.arange(S, device=dev)[None, :]
+            mapped = (t(pt) >= 0).repeat_interleave(ps, dim=1)
+            mask = mapped[:, None, :] & (torch.arange(
+                L, device=dev)[None, None, :] <= qpos[:, :, None])
+            qt = q.transpose(1, 2)
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
+            # this run's work: the mapped pages each slot reads up to its
+            # last query, q and out once; 4 operations per (query head,
+            # valid position, channel)
+            m = mask.cpu().numpy()
+            last = pos + S - 1
+            pages = {int(pt[b, j]) for b in range(B) for j in range(nP)
+                     if pt[b, j] >= 0 and j * ps <= last[b]}
+            esz = q.element_size()
+            nbytes = (2 * len(pages) * ps * K * Dh * esz
+                      + 2 * B * S * H * Dh * esz + B * nP * 4 + B * 4)
+            flops = 4 * int(m.sum()) * H * Dh
+            peak = PEAK_FLOPS[str(dtype)[6:]]
+            t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            log(f"paged_attention S={S} {str(dtype)[6:]}: max abs err "
+                f"{err:.3e} (tol {tol}); {ms:.4f} ms; plain {plain:.4f} ms;"
+                f" sdpa on the gathered view {lib:.4f} ms; bound "
+                f"{bound:.6f} ms ({by})")
+            if S == 1:
+                # the [B, H, Dh] decode form launches the same kernel
+                dargs = (q[:, 0], *args[1:])
+                od = paged_attention_decode(*dargs)
+                if not torch.equal(od, ok[:, 0]):
+                    raise AssertionError(f"paged_attention_decode {dtype}: "
+                                         f"differs from the span form")
+                ms_d = cuda_ms(torch, lambda: paged_attention_decode(*dargs))
+                log(f"paged_attention_decode {str(dtype)[6:]}: equal to the "
+                    f"span form at S=1; {ms_d:.4f} ms")
+            if S == 1 and dtype == torch.bfloat16:
+                row = {"name": "paged_attention_span", "route": "cuda",
+                       "source": "src/repro_torch/csrc/paged_attention.cu",
+                       "replaces": "src/repro/kernels/paged_attention/"
+                                   "kernel.py:83",
+                       "launches": 0, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain, "bound_ms": bound,
+                       "bound_by": by, "library_ms": lib}
+    log("  (sdpa's time leaves out the page gather: it reads the already "
+        "gathered dense view)")
+    return row
+
+
 def e2e_requests():
     from repro_torch.core.decoding import DecodeConfig
     from repro_torch.serving.engine import Request
@@ -313,16 +508,10 @@ def e2e_requests():
     return reqs
 
 
-def phase_e2e(torch, engine, bundles, counters):
+def check_outputs(states, bundles):
+    """Every eos-finished output parses, every other one is a prefix of
+    the language. -> (complete, valid)."""
     from repro_torch.core.parser import IncrementalParser
-    from repro_torch.serving.engine import Engine
-    for fn in counters:
-        fn.launches = 0
-    torch.cuda.synchronize()
-    states, stats = engine.generate(e2e_requests())
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    n_layers = engine.model.cfg.num_layers
     complete, valid = 0, 0
     for st in states:
         g, tab, _ = bundles[st.req.grammar]
@@ -335,14 +524,47 @@ def phase_e2e(torch, engine, bundles, counters):
             valid += 1
         else:
             IncrementalParser(g, tab).partial_parse(st.generated)
-    log(f"e2e smollm-360m (json+jsonmsg, 8 slots, 16 requests x 64 new "
-        f"tokens): {stats.tokens} tokens in {stats.wall:.3f} s = "
-        f"{stats.tokens_per_sec:.2f} tok/s; {stats.decode_steps} decode "
-        f"steps; overlap hits {stats.overlap_hits}/"
-        f"{stats.overlap_dispatched}; complete {complete}/{len(states)}, "
-        f"valid among complete {valid}/{complete}; finish reasons "
-        f"{sorted({s.finish_reason for s in states})}")
-    log(f"e2e kernel launches: {launches}")
+    return complete, valid
+
+
+def run_counted(torch, counters, fn):
+    """Zero every kernel's launch counter, run, read the counters."""
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    states, stats = fn()
+    torch.cuda.synchronize()
+    return states, stats, {c.__name__: c.launches for c in counters}
+
+
+def report(name, states, stats, bundles, launches, extra=""):
+    complete, valid = check_outputs(states, bundles)
+    reasons = {}
+    for st in states:
+        reasons[st.finish_reason] = reasons.get(st.finish_reason, 0) + 1
+    log(f"e2e {name}: {stats.tokens} tokens in {stats.wall:.3f} s = "
+        f"{stats.tokens_per_sec:.2f} tok/s; {stats.decode_steps} steps; "
+        f"complete {complete}/{len(states)}, valid among complete "
+        f"{valid}/{complete}; finish reasons {reasons}{extra}")
+    log(f"  kernel launches: {launches}")
+
+
+def greedy_agreement(a_states, b_states):
+    """Greedy requests of two runs whose token streams agree."""
+    b = {s.req.rid: s.token_ids for s in b_states}
+    greedy = [s for s in a_states if s.req.decode.method == "greedy"]
+    same = sum(s.token_ids == b.get(s.req.rid) for s in greedy)
+    return f"{same}/{len(greedy)}"
+
+
+def phase_e2e(torch, engine, bundles, counters):
+    from repro_torch.serving.engine import Engine
+    states, stats, launches = run_counted(
+        torch, counters, lambda: engine.generate(e2e_requests()))
+    n_layers = engine.model.cfg.num_layers
+    report("dense generate (json+jsonmsg, 8 slots, 16 requests x 64 new "
+           "tokens)", states, stats, bundles, launches,
+           f"; overlap hits {stats.overlap_hits}/{stats.overlap_dispatched}")
     if launches["fused_mask_select"] < stats.decode_steps:
         raise AssertionError("fused_select launched fewer times than the "
                              "engine stepped")
@@ -360,7 +582,108 @@ def phase_e2e(torch, engine, bundles, counters):
         f"device_mask_sample_s {dstats.device_mask_sample_s:.4f}; decode "
         f"steps {dstats.decode_steps}; attribution seconds "
         f"{json.dumps(dstats.attribution['seconds'])}")
-    return launches
+    return launches, states
+
+
+def shared_prefix_requests(engine):
+    """8 requests whose prompts share one >= 256-token prefix."""
+    from repro_torch.core.decoding import DecodeConfig
+    from repro_torch.serving.engine import Request
+    prefix = "".join(f"field_{i:03d}: value {i * 7919 % 1000:03d}; "
+                     for i in range(28)).encode()
+    n = len(engine.tok.encode(prefix))
+    if n < 256:
+        raise AssertionError(f"shared prefix is {n} tokens, want >= 256")
+    return [Request(rid=100 + i, prompt=prefix + f" Q{i}: emit. A:"
+                    .encode(), grammar=("json", "jsonmsg")[i % 2],
+                    max_new_tokens=64,
+                    decode=(DecodeConfig(method="greedy") if i % 2 == 0
+                            else DecodeConfig(method="sample",
+                                              temperature=0.8, top_k=40,
+                                              top_p=0.95)),
+                    seed=100 + i) for i in range(8)], n
+
+
+def phase_new_paths(torch, engine, bundles, counters, dense_states):
+    """Speculation (dense and paged caches), paged serving and the
+    sequential path, each with the counters zeroed just before it."""
+    from repro_torch.serving.engine import Engine
+    n_layers = engine.model.cfg.num_layers
+    found = {}
+
+    # ---- speculative, dense caches ----------------------------------
+    states, stats, launches = run_counted(
+        torch, counters, lambda: engine.generate_speculative(
+            e2e_requests()))
+    report("speculative, dense caches (16 requests x 64 new tokens)",
+           states, stats, bundles, launches,
+           f"; jump tokens {stats.jump_tokens}; drafts accepted "
+           f"{stats.draft_accepted}/{stats.draft_proposed}; greedy "
+           f"requests agreeing with dense generate() "
+           f"{greedy_agreement(states, dense_states)}")
+    if launches["apply_grammar_mask_span"] != stats.decode_steps or \
+            stats.decode_steps == 0:
+        raise AssertionError(
+            f"masked_logits_span launched "
+            f"{launches['apply_grammar_mask_span']} times in "
+            f"{stats.decode_steps} span steps (want one per step)")
+    found["masked_logits_span"] = launches["apply_grammar_mask_span"]
+
+    # ---- paged, with prefix sharing and chunked prefill -------------
+    paged = Engine(engine.model, engine.params, engine.tok, bundles,
+                   max_len=engine.max_len, slots=engine.slots, paged=True,
+                   page_size=16, device="cuda")
+    shared, n_prefix = shared_prefix_requests(engine)
+    states, stats, launches = run_counted(
+        torch, counters, lambda: paged.generate(e2e_requests() + shared))
+    report(f"paged (page_size 16, 16 requests + 8 sharing a {n_prefix}-"
+           f"token prefix)", states, stats, bundles, launches,
+           f"; prefix hit rate {stats.prefix_hit_rate:.4f}; peak pages "
+           f"{stats.kv_peak_utilization * paged.num_pages:.0f}/"
+           f"{paged.num_pages}; COW copies {stats.kv_cow_copies}; page "
+           f"allocations {stats.kv_page_allocs}; greedy requests agreeing "
+           f"with dense generate() "
+           f"{greedy_agreement([s for s in states if s.req.rid < 100],
+                               dense_states)}")
+    if launches["paged_attention"] != stats.decode_steps * n_layers:
+        raise AssertionError(
+            f"paged_attention launched {launches['paged_attention']} "
+            f"times, want {stats.decode_steps} steps x {n_layers} layers")
+    if not stats.prefix_hit_rate > 0:
+        raise AssertionError("paged run shared no prefix page")
+    found["paged_attention_span"] = launches["paged_attention"]
+
+    # ---- speculative over paged caches ------------------------------
+    short = e2e_requests()[:8]
+    for r in short:
+        r.max_new_tokens = 32
+    states, stats, launches = run_counted(
+        torch, counters, lambda: paged.generate_speculative(short))
+    report("speculative over paged caches (8 requests x 32 new tokens)",
+           states, stats, bundles, launches,
+           f"; jump tokens {stats.jump_tokens}; drafts accepted "
+           f"{stats.draft_accepted}/{stats.draft_proposed}")
+    if launches["paged_attention"] != stats.decode_steps * n_layers or \
+            launches["apply_grammar_mask_span"] != stats.decode_steps:
+        raise AssertionError("speculative paged run: launches do not "
+                             "match its span steps")
+
+    # ---- sequential -------------------------------------------------
+    seq = e2e_requests()[:4]
+    for r in seq:
+        r.max_new_tokens = 32
+    states, stats, launches = run_counted(
+        torch, counters, lambda: engine.generate_sequential(seq))
+    report("sequential (4 requests x 32 new tokens)", states, stats,
+           bundles, launches,
+           f"; constrained steps {stats.mask_computations}")
+    if launches["apply_grammar_mask"] != stats.mask_computations or \
+            stats.mask_computations == 0:
+        raise AssertionError(
+            f"masked_logits launched {launches['apply_grammar_mask']} "
+            f"times for {stats.mask_computations} constrained steps")
+    found["masked_logits"] = launches["apply_grammar_mask"]
+    return found
 
 
 def phase_forward_breakdown(torch, engine, steps=20):
@@ -417,7 +740,12 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.fused_select.ops import fused_mask_select
+    from repro_torch.kernels.masked_logits.ops import (
+        apply_grammar_mask, apply_grammar_mask_span)
+    from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.launch.serve import build_engine
+    counters = (fused_mask_select, attention, apply_grammar_mask,
+                apply_grammar_mask_span, paged_attention)
 
     smi = smi_line()
     log(f"device: {smi}; torch {torch.__version__}; CUDA "
@@ -446,11 +774,15 @@ def main():
     main_S = engine._bucketed_prompt(list(range(n)))[0].shape[1]
 
     rows = [phase_fused_select(torch, np, engine),
-            phase_attention(torch, np, main_S)]
-    launches = phase_e2e(torch, engine, bundles,
-                         (fused_mask_select, attention))
+            phase_attention(torch, np, main_S),
+            *phase_masked_logits(torch, np, engine),
+            phase_paged_attention(torch, np)]
+    launches, dense_states = phase_e2e(torch, engine, bundles, counters)
     rows[0]["launches"] = launches["fused_mask_select"]
     rows[1]["launches"] = launches["attention"]
+    found = phase_new_paths(torch, engine, bundles, counters, dense_states)
+    for r in rows[2:]:
+        r["launches"] = found[r["name"]]
     phase_forward_breakdown(torch, engine)
 
     log(smi)

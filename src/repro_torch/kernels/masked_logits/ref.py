@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the mask half of the fused select (the
-reference's `kernels/masked_logits/ref.py::masked_logits_ref`).
+"""Plain PyTorch version of the grammar mask (the reference's
+`kernels/masked_logits/ref.py`).
 
 Semantics: for each batch row b, union the packed mask-store rows
 `rows[b, :]` (int32 row ids, -1 = padding) seeded with the residue words
@@ -7,8 +7,9 @@ Semantics: for each batch row b, union the packed mask-store rows
 mask with NEG_INF. `eos_allowed[b]` additionally opens the EOS position;
 rows whose `constrained[b]` is False pass through unmasked.
 
-Its Hopper kernel comes with the speculative and sequential paths; today
-`fused_select` composes this plain version as its reference.
+`kernels/masked_logits/ops.py` takes these for CPU tensors and launches
+`csrc/masked_logits.cu` for CUDA tensors; `fused_select` composes the
+[B, V] form as the mask half of its plain version.
 """
 from __future__ import annotations
 
@@ -33,3 +34,19 @@ def masked_logits_ref(logits, store, rows, eos_allowed, eos_id: int = 1,
     if constrained is not None:
         mask |= ~constrained[:, None]
     return logits.masked_fill(~mask, NEG_INF)
+
+
+def masked_logits_span_ref(logits, store, rows, eos_allowed,
+                           eos_id: int = 1, constrained=None, cd=None):
+    """[B,K,V] span form (draft-verify speculation): position k of slot b
+    has its own rows [B,K,A], eos flag [B,K], constrained flag [B,K] and
+    cd overlay [B,K,W]. Delegates to the [B,V] form on the flattened
+    (b, k) axis, so the two stay identical by construction."""
+    B, K, V = logits.shape
+    out = masked_logits_ref(
+        logits.reshape(B * K, V), store, rows.reshape(B * K, -1),
+        eos_allowed.reshape(B * K), eos_id=eos_id,
+        constrained=None if constrained is None
+        else constrained.reshape(B * K),
+        cd=None if cd is None else cd.reshape(B * K, -1))
+    return out.reshape(B, K, V)

@@ -1,11 +1,13 @@
 """Serving launcher for the PyTorch port: grammar-constrained generation
-with the dense continuous-batching Engine.
+with the continuous-batching Engine.
 
 Usage (on the card; `--device cpu` runs the same path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --grammar json -n 8 --slots 8 [--max-new 80] [--temperature 0.8] \
       [--greedy] [--grammar-mode grammar_mask|grammar_strict] \
-      [--no-overlap] [--devtime]
+      [--paged [--page-size 16] [--num-pages N]] \
+      [--speculative [--draft-k 4] [--max-jump 16] [--proposer sam|ngram]
+       [--literal-jump]] [--sequential] [--no-overlap] [--devtime]
 
 Weights are random, drawn from `--seed` by a torch.Generator on the
 device: the repository ships no checkpoint. The summary line matches the
@@ -26,15 +28,17 @@ from ..core.tokenizer import ByteTokenizer
 from ..device import resolve_device
 from ..models.model import build_model
 from ..serving.engine import Engine, Request
+from ..spec import SpecConfig
 
 
 def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
-                 seed=0, slots=4, overlap=True, grammar_mode="grammar_mask",
-                 telemetry=True, devtime=False, noise_fn=None,
-                 device="cuda", params=None):
+                 seed=0, slots=4, paged=False, page_size=16,
+                 num_pages=None, prefill_chunk=32, overlap=True,
+                 grammar_mode="grammar_mask", telemetry=True, devtime=False,
+                 noise_fn=None, device="cuda", params=None):
     """-> (engine, bundles, tokenizer). `params` (a port param tree on
     `device`) replaces the seeded random init, e.g. bridged reference
-    weights in the parity tests."""
+    weights in the parity tests. The other keywords are the Engine's."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     tok = ByteTokenizer(cfg.vocab_size)
@@ -48,7 +52,9 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
         gen.manual_seed(seed)
         params = model.init(gen)
     return Engine(model, params, tok, bundles, max_len=max_len,
-                  slots=slots, overlap=overlap, grammar_mode=grammar_mode,
+                  slots=slots, paged=paged, page_size=page_size,
+                  num_pages=num_pages, prefill_chunk=prefill_chunk,
+                  overlap=overlap, grammar_mode=grammar_mode,
                   telemetry=telemetry, devtime=devtime, noise_fn=noise_fn,
                   device=dev), bundles, tok
 
@@ -66,6 +72,27 @@ def main(argv=None):
     ap.add_argument("--prompt", default="Q: produce output. A:")
     ap.add_argument("-B", "--slots", type=int, default=4,
                     help="continuous-batching decode pool width")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: page-table attention, prefix "
+                         "sharing, chunked prefill")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (paged mode)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="KV pool pages (default: the dense KV budget)")
+    ap.add_argument("--sequential", action="store_true",
+                    help="round-robin baseline (one request per call)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="grammar-aware speculative decoding "
+                         "(jump-forward + draft-verify)")
+    ap.add_argument("--literal-jump", action="store_true",
+                    help="jump grammar-forced byte literals, canonically "
+                         "re-tokenized (longer jumps)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="draft tokens per slot per speculative step")
+    ap.add_argument("--max-jump", type=int, default=16,
+                    help="max forced tokens committed per jump")
+    ap.add_argument("--proposer", default="sam", choices=("sam", "ngram"),
+                    help="draft proposer (suffix automaton | n-gram)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
     ap.add_argument("--device", default="cuda",
@@ -80,7 +107,8 @@ def main(argv=None):
 
     engine, bundles, tok = build_engine(
         args.arch, grammars=(args.grammar,), slots=args.slots,
-        seed=args.seed, overlap=not args.no_overlap,
+        seed=args.seed, paged=args.paged, page_size=args.page_size,
+        num_pages=args.num_pages, overlap=not args.no_overlap,
         grammar_mode=args.grammar_mode, telemetry=not args.no_telemetry,
         devtime=args.devtime, device=args.device)
 
@@ -89,7 +117,16 @@ def main(argv=None):
     reqs = [Request(rid=i, prompt=args.prompt.encode(),
                     grammar=args.grammar, max_new_tokens=args.max_new,
                     decode=dc, seed=i) for i in range(args.num_requests)]
-    states, stats = engine.generate(reqs, verbose=True)
+    if args.speculative:
+        spec = SpecConfig(literal_jump=args.literal_jump,
+                          draft_k=args.draft_k, max_jump=args.max_jump,
+                          proposer=args.proposer)
+        states, stats = engine.generate_speculative(reqs, spec=spec,
+                                                    verbose=True)
+    else:
+        run = (engine.generate_sequential if args.sequential
+               else engine.generate)
+        states, stats = run(reqs, verbose=True)
 
     g, tab, _ = bundles[args.grammar]
     p = IncrementalParser(g, tab)
@@ -98,6 +135,16 @@ def main(argv=None):
     print(f"\n{stats.tokens} tokens @ {stats.tokens_per_sec:.1f} tok/s "
           f"({stats.decode_steps} decode steps x {stats.batch_slots} slots)"
           f" | mask {stats.mask_time:.2f}s/{stats.mask_computations}")
+    if args.speculative:
+        print(f"speculation: jump {stats.jump_tokens} tokens "
+              f"({stats.jump_fraction:.0%} of output), drafts "
+              f"{stats.draft_accepted}/{stats.draft_proposed} accepted "
+              f"({stats.acceptance_rate:.0%}), plan {stats.plan_time:.2f}s")
+    if args.paged:
+        print(f"kv paging: {stats.kv_pages_in_use} pages in use, peak "
+              f"util {stats.kv_peak_utilization:.0%}, prefix hit rate "
+              f"{stats.prefix_hit_rate:.0%}, {stats.kv_evictions} "
+              f"evictions, {stats.kv_cow_copies} COW copies")
     print(f"complete: {len(complete)}/{len(states)}, "
           f"valid among complete: {valid}/{len(complete)}")
 

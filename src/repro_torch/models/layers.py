@@ -8,14 +8,18 @@ q_pos - kv_pos < window).
 
 Unlike the functional reference, decode writes the new K/V into the
 cache IN PLACE (the cache dict passed in is the one returned), which
-saves a full cache copy per layer per step.
+saves a full cache copy per layer per step. The same holds for the paged
+KV pools: a span feed scatters its K/V into the shared pool leaves in
+place.
 """
 from __future__ import annotations
 
 import torch
 
-from .common import NEG_INF, apply_rope, attn_out, ffn, qkv_proj, rms_norm
+from .common import apply_rope, attn_out, ffn, qkv_proj, rms_norm
 from ..kernels.flash_attention.ops import attention
+from ..kernels.paged_attention.ops import paged_attention
+from ..kernels.paged_attention.ref import attend
 
 
 def _window_of(cfg, ctx):
@@ -70,13 +74,57 @@ def _self_attention_prefill(p, x, cfg, ctx):
     return attn_out(p, o), cache
 
 
+def _paged_attention_decode(p, x, cache, cfg, ctx):
+    """Paged twin of `_self_attention_decode`: the cache is a global page
+    pool {"k","v": [P, ps, K, Dh]} shared by every slot, and
+    ctx["page_table"] [B, nP] (int32, -1 = unmapped) names each slot's
+    pages. Span position i of slot b writes its K/V at
+    (page_table[b, (pos+i)//ps], (pos+i)%ps) in place; a position whose
+    page is unmapped, whose page index falls past the table (padding of
+    a span near max_len) or whose feed_mask is False writes nothing.
+    Attention reads back through the page table
+    (`kernels.paged_attention`). Rejected speculative writes roll back as
+    in the dense path: positions past the commit frontier are masked
+    (idx <= q_pos) and overwritten on re-feed."""
+    B, S, D = x.shape
+    dev = x.device
+    kp, vp = cache["k"], cache["v"]                         # [P,ps,K,Dh]
+    P, ps, K, Dh = kp.shape
+    pos = torch.as_tensor(ctx["pos"], dtype=torch.int32,
+                          device=dev).expand(B)
+    qpos = pos[:, None] + torch.arange(S, dtype=torch.int32,
+                                       device=dev)[None, :]     # [B,S]
+    q, k, v = qkv_proj(p, x, cfg)
+    q = apply_rope(q, qpos, cfg.rope_theta)
+    k = apply_rope(k, qpos, cfg.rope_theta)
+    pt = ctx["page_table"]
+    nP = pt.shape[1]
+    pidx = (qpos // ps).long()
+    inb = pidx < nP
+    page = torch.where(inb, torch.gather(pt, 1, pidx.clamp(max=nP - 1)),
+                       -1)                                      # [B,S]
+    ok = page >= 0
+    feed = ctx.get("feed_mask")
+    if feed is not None:
+        ok &= feed
+    dest = (page.long() * ps + (qpos % ps).long())[ok]
+    kp.view(P * ps, K, Dh)[dest] = k[ok].to(kp.dtype)
+    vp.view(P * ps, K, Dh)[dest] = v[ok].to(vp.dtype)
+    o = paged_attention(q, kp, vp, pt, pos)
+    return attn_out(p, o), cache
+
+
 def _self_attention_decode(p, x, cache, cfg, ctx):
-    """x [B,S,D] (S = 1 plain decode); ctx['pos'] is a scalar or [B]
-    int tensor of absolute START positions — span query i sits at
-    absolute position pos + i. ctx['feed_mask'] [B,S] bool (optional)
-    gates cache writes per position. Writes go into `cache` in place;
-    position-addressed masking (kv_pos <= q_pos) makes a rewrite of a
-    position idempotent."""
+    """x [B,S,D] (S = 1 plain decode; S > 1 a speculative or prefill
+    span); ctx['pos'] is a scalar or [B] int tensor of absolute START
+    positions — span query i sits at absolute position pos + i.
+    ctx['feed_mask'] [B,S] bool (optional) gates cache writes per
+    position. Writes go into `cache` in place; position-addressed masking
+    (kv_pos <= q_pos) makes a rewrite of a position idempotent. With a
+    page table in ctx the slot's KV lives in the shared paged pool
+    instead (`_paged_attention_decode`)."""
+    if "page_table" in ctx:
+        return _paged_attention_decode(p, x, cache, cfg, ctx)
     B, S, D = x.shape
     dev = x.device
     pos = torch.as_tensor(ctx["pos"], dtype=torch.int32,
@@ -104,18 +152,7 @@ def _self_attention_decode(p, x, cache, cfg, ctx):
     valid = (kvp[:, None, :] >= 0) & (kvp[:, None, :] <= qpos[:, :, None])
     if w:
         valid &= kvp[:, None, :] > (qpos[:, :, None] - w)
-    Dh = q.shape[-1]
-    K = kc.shape[2]
-    G = cfg.num_heads // K
-    qg = (q * torch.tensor(1.0 / Dh ** 0.5, dtype=q.dtype)).reshape(
-        B, S, K, G, Dh)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kc.float())
-    s = torch.where(valid[:, None, None, :, :], s, NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", pr.to(vc.dtype).float(),
-                     vc.float())
-    o = o.reshape(B, S, cfg.num_heads, Dh).to(x.dtype)
-    return attn_out(p, o), cache
+    return attn_out(p, attend(q, kc, vc, valid)), cache
 
 
 # ---- "attn": self-attention + dense FFN (pre-norm residual) ----

@@ -11,7 +11,12 @@ Public API (functions over a params tree):
   model.prefill(params, batch, cache_len, true_len)
                                                  -> (logits [B,S,V], caches)
   model.decode_step(params, caches, token, pos)  -> (logits [B,V], caches)
-Decode updates `caches` in place and returns the same object.
+  model.decode_span(params, caches, tokens, pos, feed_mask, batch_ctx)
+                                                 -> (logits [B,S,V], caches)
+Decode updates `caches` in place and returns the same object. Paged KV
+pools (`init_paged_caches`) keep the reference's leaf layout
+{"k","v": [count, P, ps, K, Dh]}; a page table in `batch_ctx` routes the
+attention layers to them.
 """
 from __future__ import annotations
 
@@ -41,8 +46,13 @@ def _slice(tree, i):
 
 @dataclass
 class Model:
+    """`device` is resolved like every entry point's: "cuda" unless the
+    caller asks for the CPU, raising when there is no card."""
     cfg: ModelConfig
-    device: torch.device = torch.device("cpu")
+    device: object = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
     # ------------------------------ init ---------------------------------
     def init(self, gen: torch.Generator):
@@ -95,20 +105,38 @@ class Model:
         return lm_logits(params["embed_block"], x, cfg), caches
 
     # ------------------------------ decode -------------------------------
-    def decode_step(self, params, caches, token, pos, batch_ctx=None):
-        """token [B] int, pos [B] or scalar int -> (logits [B,V], caches);
-        the caches are written in place."""
+    def _decode_trunk(self, params, caches, tokens, ctx):
+        """Embed [B,S] tokens and run every layer's decode against the
+        caches (written in place) -> logits [B,S,V]."""
         cfg = self.cfg
-        ctx = dict(batch_ctx or {})
-        ctx["pos"] = pos
-        x = embed_tokens(params["embed_block"], token[:, None])
+        x = embed_tokens(params["embed_block"], tokens)
         for (pat, count), gp, gc in zip(layer_groups(cfg), params["groups"],
                                         caches):
             for i in range(count):
                 for j, kind in enumerate(pat):
                     x, _ = KIND_DECODE[kind](_slice(gp[j], i), x,
                                              _slice(gc[j], i), cfg, ctx)
-        return lm_logits(params["embed_block"], x, cfg)[:, 0], caches
+        return lm_logits(params["embed_block"], x, cfg)
+
+    def decode_step(self, params, caches, token, pos, batch_ctx=None):
+        """token [B] int, pos [B] or scalar int -> (logits [B,V], caches);
+        the caches are written in place."""
+        ctx = dict(batch_ctx or {})
+        ctx["pos"] = pos
+        return self._decode_trunk(params, caches, token[:, None],
+                                  ctx)[:, 0], caches
+
+    def decode_span(self, params, caches, tokens, pos, feed_mask=None,
+                    batch_ctx=None):
+        """Span decode: tokens [B,S] at absolute positions pos[b] + i ->
+        (logits [B,S,V], caches). One call scores a whole draft window or
+        prefill chunk; feed_mask [B,S] bool gates per-position cache
+        writes for ragged spans. Requires supports_span_decode."""
+        ctx = dict(batch_ctx or {})
+        ctx["pos"] = pos
+        if feed_mask is not None:
+            ctx["feed_mask"] = feed_mask
+        return self._decode_trunk(params, caches, tokens, ctx), caches
 
     @property
     def prefill_padding_safe(self) -> bool:
@@ -136,5 +164,31 @@ class Model:
                 for pat, count in layer_groups(cfg)]
 
 
+    def init_paged_caches(self, num_pages: int, page_size: int):
+        """Global paged KV pool for the engine's paged mode: every
+        attention layer holds {"k","v": [count, num_pages, page_size, K,
+        Dh]} shared across all decode slots; per-slot page tables ride in
+        via batch_ctx["page_table"] on each decode/span call. Requires
+        position-addressed, window-free attention throughout."""
+        cfg = self.cfg
+        if not self.supports_span_decode:
+            raise ValueError(
+                "paged KV caches need position-addressed decode caches "
+                "(attn/moe layer kinds); this arch has recurrent or "
+                "side-input state")
+        if cfg.sliding_window:
+            raise ValueError(
+                "paged KV caches do not support sliding-window attention")
+        dtype = dtype_of(cfg)
+        K, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+        shape = lambda count: (count, num_pages, page_size, K, Dh)
+        return [tuple({"k": torch.zeros(shape(count), dtype=dtype,
+                                        device=self.device),
+                       "v": torch.zeros(shape(count), dtype=dtype,
+                                        device=self.device)}
+                      for _ in pat)
+                for pat, count in layer_groups(cfg)]
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    return Model(cfg, resolve_device(device))
+    return Model(cfg, device)

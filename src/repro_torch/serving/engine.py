@@ -20,34 +20,48 @@ Continuous batching over a fixed pool of `B = slots` decode slots:
   * finished requests free their slot and the next queued request is
     admitted immediately.
 
-The step body lives in `serving/loop.py` (DenseMode, with host/device
-overlap). Sampling draws standard-Gumbel noise through an injectable
-`noise_fn(keys [B, 2] uint32, V) -> [B, V] f32 tensor`; the default
-draws on the device from a torch.Generator per slot seeded by the slot's
-(seed, step, attempt) key, so a slot's stream depends only on its own
-progress.
+The step bodies live in `serving/loop.py`: DenseMode (with host/device
+overlap), PagedMode (page-table KV with prefix sharing and chunked
+prefill; `paged=True`) and SpecMode (grammar-aware speculation over
+dense or paged caches; `generate_speculative`). `generate_sequential`
+keeps the round-robin one-request-at-a-time path (paper Algorithm 3),
+the baseline the batched engine is measured against.
 
-Not ported here: mesh/tensor-parallel serving, paged KV, speculation,
-the sequential path and opportunistic masking.
+Sampling draws standard-Gumbel noise through an injectable
+`noise_fn(keys [N, 2] uint32, V) -> [N, V] f32 tensor`; the default
+draws on the device from a torch.Generator per row seeded by the row's
+key, so a slot's stream depends only on its own progress.
+
+Not ported here: mesh/tensor-parallel serving, the async front-end and
+opportunistic masking.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..core.constrain import GrammarConstraint, MAX_ACCEPT
-from ..core.decoding import DecodeConfig, NEG_INF
+from ..core.constrain import GrammarConstraint, MAX_ACCEPT, accept_width
+from ..core.decoding import DecodeConfig, NEG_INF, select_span
 from ..core.tokenizer import BOS_ID, ByteTokenizer, EOS_ID
 from ..device import resolve_device
 from ..kernels.fused_select.ops import fused_mask_select, gumbel_noise
+from ..kernels.masked_logits.ops import (apply_grammar_mask,
+                                         apply_grammar_mask_span)
 from ..obs import Telemetry
+from ..spec.scheduler import SPAN_BUCKETS, SlotPhase, SpecConfig
+from .kvpool import PagedAllocator, PoolExhausted
 
 # shared disabled telemetry: the `obs=None` default of the selection
 # helpers — span() returns the no-op NULL_SPAN
 _OBS_OFF = Telemetry(enabled=False)
+
+# span widths of the paged feed (chunked prefill drains prompt backlog
+# through these; decode-only steps ride width 1)
+FEED_BUCKETS = (1, 2, 4, 8, 16, 32)
 
 
 @dataclass
@@ -67,17 +81,28 @@ class Request:
 @dataclass
 class RequestState:
     req: Request
+    caches: object = None                   # sequential path only
     pos: int = 0
     generated: bytes = b""
     token_ids: list = field(default_factory=list)
     constraint: Optional[GrammarConstraint] = None
     done: bool = False
     finish_reason: str = ""
+    pending_logits: object = None           # sequential path only
     mask_time: float = 0.0
     mask_computations: int = 0
     steps: int = 0
     slot: int = -1
+    # --- speculation (generate_speculative) ---
+    phase: str = SlotPhase.DECODING.value
+    jump_tokens: int = 0                    # grammar-forced, no model call
+    draft_proposed: int = 0
+    draft_accepted: int = 0
+    # --- paged KV ---
     prompt_len: int = 0
+    write_from: int = 0         # first position this slot may write into
+                                # its pages (below = shared prefix pages)
+    kv_pages: int = 0           # pages held when the request finished
     deadline_at: Optional[float] = None     # perf_counter() expiry
     admit_t: Optional[float] = None         # perf_counter() at admission
 
@@ -93,6 +118,18 @@ class EngineStats:
     batch_slots: int = 0
     overlap_dispatched: int = 0             # speculative forwards launched
     overlap_hits: int = 0                   # ...that the next step consumed
+    # --- speculation (generate_speculative) ---
+    jump_tokens: int = 0                    # emitted with zero model calls
+    draft_proposed: int = 0
+    draft_accepted: int = 0
+    plan_time: float = 0.0                  # host planning (jump + draft)
+    # --- paged KV ---
+    kv_pages_in_use: int = 0                # pages still referenced at end
+    kv_peak_utilization: float = 0.0        # peak pages-in-use / pool size
+    prefix_hit_rate: float = 0.0            # shared / total prompt tokens
+    kv_page_allocs: int = 0                 # page allocations over the run
+    kv_evictions: int = 0                   # cold pages evicted
+    kv_cow_copies: int = 0                  # copy-on-write device copies
     device_forward_s: float = 0.0           # synced forward intervals
     device_mask_sample_s: float = 0.0       # synced mask+sample intervals
     overlap_hidden_s: float = 0.0
@@ -101,6 +138,14 @@ class EngineStats:
     @property
     def tokens_per_sec(self):
         return self.tokens / max(self.wall, 1e-9)
+
+    @property
+    def jump_fraction(self):
+        return self.jump_tokens / max(self.tokens, 1)
+
+    @property
+    def acceptance_rate(self):
+        return self.draft_accepted / max(self.draft_proposed, 1)
 
     @property
     def overlap_hit_rate(self):
@@ -128,17 +173,24 @@ class _SelectCtx:
 class Engine:
     def __init__(self, model, params, tokenizer: ByteTokenizer,
                  grammar_bundles: dict, max_len: int = 512,
-                 slots: int = 4, overlap: bool = True,
-                 grammar_mode: str = "grammar_mask",
+                 slots: int = 4, paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None, prefill_chunk: int = 32,
+                 overlap: bool = True, grammar_mode: str = "grammar_mask",
                  telemetry: bool = True, devtime: bool = False,
                  noise_fn: Optional[Callable] = None, device="cuda"):
         """grammar_bundles: name -> (grammar, table, store).
-        slots: decode-pool width B. overlap: dispatch step k+1's forward
+        slots: decode-pool width B. paged: serve KV through the shared
+        page pool (page-table attention, refcounted prefix sharing,
+        chunked prefill of up to `prefill_chunk` tokens per step);
+        num_pages defaults to slots * ceil(max_len / page_size), the
+        dense engine's KV budget. overlap: dispatch step k+1's forward
         with the on-device ids before the host validates step k
-        (serving/loop.py); token-for-token identical either way.
+        (serving/loop.py, dense mode); token-for-token identical either
+        way.
         devtime: bench/profile mode — device spans synchronize on exit.
-        noise_fn(keys [B,2] uint32 numpy, V) -> [B,V] f32 tensor on the
-        engine's device; default `gumbel_noise` on that device.
+        noise_fn(keys [N,2] uint32 numpy, V) -> [N,V] f32 tensor on the
+        engine's device (N = B per step, B*S per speculative span, 1 per
+        sequential draw); default `gumbel_noise` on that device.
         device: where params live and the engine runs ("cuda" by
         default; raises without a card unless "cpu" is asked for)."""
         if grammar_mode not in GrammarConstraint.MODES:
@@ -156,6 +208,20 @@ class Engine:
         self.grammar_mode = grammar_mode
         self.max_len = max_len
         self.slots = max(1, int(slots))
+        self.paged = bool(paged)
+        self.page_size = max(1, int(page_size))
+        self.max_pages = -(-max_len // self.page_size)
+        self.num_pages = int(num_pages or self.slots * self.max_pages)
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        if self.paged and not model.supports_span_decode:
+            raise ValueError(
+                "paged KV serving needs position-addressed decode caches "
+                "(attn/moe layer kinds); this arch has recurrent or "
+                "side-input state")
+        if self.paged and model.cfg.sliding_window:
+            raise ValueError(
+                "paged KV serving does not support sliding-window "
+                "attention")
         self.overlap = bool(overlap)
         self.telemetry_enabled = bool(telemetry)
         self.devtime_enabled = bool(devtime)
@@ -226,6 +292,54 @@ class Engine:
 
     def _noise(self, keys: np.ndarray) -> torch.Tensor:
         return self.noise_fn(keys, self._vocab)
+
+    def _span_decode(self, caches, tokens, pos, fmask, page_table=None):
+        """[B, S] span decode against dense caches, or through the page
+        tables when given; writes `caches` in place -> logits [B,S,V]."""
+        ctx = None if page_table is None else {"page_table": page_table}
+        logits, _ = self.model.decode_span(self.params, caches, tokens, pos,
+                                           feed_mask=fmask, batch_ctx=ctx)
+        return logits
+
+    def span_feed_paged(self, caches, tokens, pos, fmask, page_table, sel):
+        """Paged feed of the plain engine: decode a [B, S] span through
+        the page tables and return each slot's logits at its selection
+        index (clamped; rows that select nothing are ignored by the
+        caller), the same [B, V] a dense decode step gives."""
+        logits = self._span_decode(caches, tokens, pos, fmask, page_table)
+        B, S = tokens.shape
+        return logits[torch.arange(B, device=logits.device),
+                      sel.clamp(0, S - 1).long()]
+
+    @staticmethod
+    def copy_page(caches, s: int, d: int):
+        """Apply one allocator-directed copy-on-write to the page pools,
+        in place (leaves are [count, P, ps, K, Dh])."""
+        for group in caches:
+            for leaves in group:
+                for a in leaves.values():
+                    a[:, d] = a[:, s]
+        return caches
+
+    def span_mask_select(self, logits, rows, cd, eos, constrained, greedy,
+                         temp, top_k, top_p, keys):
+        """Speculative verify: grammar-mask a [B, S, V] span (constrained
+        positions through their store rows + residue words, the rest pass
+        through) and select a token at every position. Host arrays ship
+        as private copies. keys [B, S, 2] seed one noise row per (slot,
+        position). -> (masked [B,S,V], ids [B,S] int32, ok [B,S] bool)."""
+        B, S, V = logits.shape
+        masked = apply_grammar_mask_span(
+            logits, self._store_cat, self._h2d(rows), self._h2d(eos),
+            constrained=self._h2d(constrained),
+            cd=self._h2d(cd.view(np.int32)))
+        noise = None
+        if not bool(np.all(greedy)):
+            noise = self._noise(keys.reshape(B * S, 2)).reshape(B, S, V)
+        ids = select_span(masked, noise, self._h2d(greedy), self._h2d(temp),
+                          self._h2d(top_k), self._h2d(top_p))
+        ok = (masked > NEG_INF / 2).any(dim=-1)
+        return masked, ids, ok
 
     # ------------------------------ lifecycle -----------------------------
 
@@ -482,12 +596,320 @@ class Engine:
                 pending.discard(b)
         return committed, ctr
 
+    def _select_tokens(self, logits, slot_state, pending: set,
+                       seeds, greedy, temp, top_k, top_p, obs=None):
+        """Token selection without overlap (the paged feed loop): dispatch
+        then resolve on a [B, V] logits matrix -> (committed, counters)."""
+        ctx = self._select_dispatch(logits, slot_state, pending, seeds,
+                                    greedy, temp, top_k, top_p, obs=obs)
+        return self._select_resolve(ctx, slot_state, seeds, greedy, temp,
+                                    top_k, top_p, obs=obs)
+
     def generate(self, requests: list[Request], verbose: bool = False):
         """Continuous batching over `self.slots` slots: per engine step
         ONE [B, V] decode, ONE fused mask+sample call and only [B]-sized
         transfers back to the host. With `overlap` the next step's
-        forward is queued with the on-device ids before the host syncs."""
+        forward is queued with the on-device ids before the host syncs.
+        In paged mode the same selection runs behind the paged feed loop
+        (chunked prefill, prefix sharing, page-table attention)."""
         from .loop import ListSource, StepLoop, make_mode
         loop = StepLoop(self, make_mode(self), ListSource(requests),
                         verbose=verbose)
         return loop.run()
+
+    # ============================= paged path =============================
+    # One global page pool per attention layer replaces the dense per-slot
+    # caches; slots read and write through refcounted page tables.
+    # Admission chain-hashes the prompt at page granularity and attaches
+    # matching shared pages instead of prefilling them again; the rest
+    # drains as chunked prefill through the per-step span feed that
+    # decoding slots ride at width 1.
+
+    def _paged_setup(self, B):
+        """Fresh allocator + zeroed page pools for one run."""
+        alloc = PagedAllocator(self.num_pages, self.page_size, B,
+                               self.max_pages)
+        return alloc, self.model.init_paged_caches(self.num_pages,
+                                                   self.page_size)
+
+    def _admit_paged(self, req: Request, b: int, alloc, ids=None):
+        """Paged admission: no prefill call here. The prompt attaches
+        shared pages where its page-aligned prefix chain-hash hits; the
+        rest becomes feed backlog for the chunked-prefill span steps."""
+        st = RequestState(req=req, slot=b)
+        st.constraint = self._make_constraint(req)
+        if ids is None:
+            ids = self._request_ids(req)
+        st.token_ids = list(ids)
+        st.pos = len(ids)
+        st.prompt_len = len(ids)
+        plan = alloc.admit(b, ids)
+        st.write_from = plan.write_from
+        return st, plan
+
+    def _paged_can_admit(self, alloc, req, ids_cache) -> bool:
+        """Admit a request only when its whole prompt's pages can be
+        reserved (prefix hits reduce the need). Token ids are cached by
+        rid, so a request blocked for many steps is tokenized once."""
+        ids = ids_cache.get(req.rid)
+        if ids is None:
+            ids = ids_cache[req.rid] = self._request_ids(req)
+        return alloc.can_admit(len(ids))
+
+    def _paged_wake(self, alloc, b, st, feed_pos, waiting) -> bool:
+        """Re-check a slot waiting on shared prefix pages another slot is
+        still filling; on wake adopt the (possibly lowered) feed and write
+        cursors. True = slot live."""
+        if not waiting[b]:
+            return True
+        r = alloc.ready(b)
+        if r is None:
+            return False
+        waiting[b] = False
+        feed_pos[b], st.write_from = r
+        return True
+
+    def _feed_width(self, pend: list) -> int:
+        """Smallest feed bucket covering the widest per-slot backlog,
+        capped at prefill_chunk (steady-state decode rides width 1)."""
+        cands = [s for s in FEED_BUCKETS if s <= self.prefill_chunk] or [1]
+        top = max(pend)
+        for S in cands:
+            if S >= top:
+                return S
+        return cands[-1]
+
+    def _prepare_feed(self, alloc, caches, b, st, fs, k):
+        """Reserve/COW pages for slot b's feed of positions [fs, fs+k)
+        (only [max(fs, write_from), fs+k) is written) and apply the
+        copy-on-write page copies in place. Returns the caches, or None
+        when the pool is exhausted: the request then finishes 'kv_oom'."""
+        ws = max(fs, st.write_from)
+        if fs + k > ws:
+            try:
+                for s_, d_ in alloc.prepare_write(b, ws, fs + k):
+                    self.copy_page(caches, s_, d_)
+            except PoolExhausted:
+                st.done = True
+                st.finish_reason = "kv_oom"
+                return None
+        return caches
+
+    def _kv_stats(self, stats: EngineStats, alloc) -> EngineStats:
+        stats.kv_pages_in_use = alloc.pages_in_use
+        stats.kv_peak_utilization = alloc.peak_in_use / max(alloc.P, 1)
+        stats.prefix_hit_rate = alloc.prefix_hit_rate
+        stats.kv_page_allocs = alloc.total_allocs
+        stats.kv_evictions = alloc.evictions
+        stats.kv_cow_copies = alloc.cow_copies
+        return stats
+
+    # ========================== speculative path ==========================
+    # Jump-forward (grammar-forced tokens committed with no model call) +
+    # draft-verify (host proposer drafts, one [B, S, V] span decode + mask
+    # + select verifies the window). Greedy speculation gives generate()'s
+    # tokens: forced tokens are the masked argmax's only support point,
+    # accepted drafts equal the plain engine's selections, and the demote
+    # path replays the same order.
+
+    def _resolve_span_selection(self, st: RequestState, masked_dev, b: int,
+                                idx: int, proposed: int, row_ok: bool,
+                                salt: int) -> Optional[int]:
+        """Validate one span selection against the exact oracle, demoting
+        invalid picks in generate()'s order (4 demote rounds, then the
+        exact-filter fallback). The [V] masked row comes to the host only
+        when the first pick fails."""
+        gc = st.constraint
+        if gc is None:
+            return proposed
+        row = None
+        t = proposed
+        if row_ok:
+            for attempt in range(4):
+                if t == EOS_ID or gc.is_valid_extension(st.generated, t):
+                    return t
+                if row is None:
+                    row = masked_dev[b, idx].float().cpu().numpy()
+                row[t] = NEG_INF
+                if not (row > NEG_INF / 2).any():
+                    break
+                if st.req.decode.method == "greedy":
+                    t = int(np.argmax(row))
+                else:
+                    # host-side redraw over the demoted row (the
+                    # reference's own numpy stream)
+                    temp = max(st.req.decode.temperature, 1e-6)
+                    r = row.astype(np.float64)
+                    finite = r > NEG_INF / 2
+                    p = np.where(finite, np.exp((r - r[finite].max())
+                                                / temp), 0.0)
+                    p /= p.sum()
+                    rng = np.random.default_rng(
+                        (st.req.seed * 1000003 + st.steps * 31
+                         + salt * 7 + attempt) & 0xFFFFFFFF)
+                    t = int(rng.choice(len(r), p=p))
+        if row is None:
+            row = masked_dev[b, idx].float().cpu().numpy()
+        return self._fallback_exact(st, row, salt)
+
+    @staticmethod
+    def _choose_span(desired: list) -> int:
+        """Span bucket maximizing committed tokens per unit of compute: a
+        width-S span costs ~B*S model work and serves min(d, S) positions
+        per slot; the +0.3 models the fixed per-step overhead."""
+        top = max(desired)
+        best, best_score = 1, -1.0
+        for S in SPAN_BUCKETS:
+            score = sum(min(d, S) for d in desired) / (S + 0.3)
+            if score > best_score:
+                best, best_score = S, score
+            if S >= top:
+                break
+        return best
+
+    def _span_keys(self, seeds: np.ndarray,
+                   salts: np.ndarray, S: int) -> np.ndarray:
+        """[B, S, 2] uint32 key data: one stream per (slot, span
+        position), advanced by the slot's own step counter, so a slot's
+        sample stream depends only on its own progress. Greedy rows
+        ignore keys."""
+        B = seeds.shape[0]
+        k = np.empty((B, S, 2), np.uint32)
+        k[:, :, 0] = seeds[:, None]
+        k[:, :, 1] = ((salts.astype(np.uint32)[:, None] << np.uint32(6))
+                      + np.arange(S, dtype=np.uint32)[None, :])
+        return k
+
+    def generate_speculative(self, requests: list[Request],
+                             spec: Optional[SpecConfig] = None,
+                             verbose: bool = False):
+        """Continuous batching with grammar-aware speculation: per step
+        each slot chases grammar-forced tokens, then drafts up to
+        `spec.draft_k` oracle-vetted tokens; one span decode replays the
+        forced tokens and scores the drafts of every slot at once, one
+        span mask + select (`masked_logits_span`) picks at every
+        position, and each slot accepts its longest matching draft prefix
+        plus a bonus token. Over paged caches when `paged=True`."""
+        from .loop import ListSource, SpecMode, StepLoop
+        loop = StepLoop(self, SpecMode(self, spec), ListSource(requests),
+                        verbose=verbose)
+        return loop.run()
+
+    # =========================== sequential path ==========================
+    # The original one-request-at-a-time engine (paper Algorithm 3,
+    # round-robin): the baseline the batched engine is measured against.
+
+    def _start(self, req: Request) -> RequestState:
+        st = RequestState(req=req)
+        st.constraint = self._make_constraint(req)
+        ids = self._prompt_ids(req)
+        prompt, n = self._bucketed_prompt(ids)
+        logits, st.caches = self._prefill(prompt, n)
+        st.pos = n
+        st.token_ids = list(ids)
+        st.pending_logits = logits[:, n - 1]    # prediction for next token
+        return st
+
+    def _logits(self, st: RequestState):
+        if st.pending_logits is not None:
+            lg, st.pending_logits = st.pending_logits, None
+            return lg
+        tok = self._h2d(np.array([st.token_ids[-1]], np.int32))
+        pos = self._h2d(np.array([st.pos - 1], np.int32))
+        lg, _ = self.model.decode_step(self.params, st.caches, tok, pos)
+        return lg       # [1, V] on the device
+
+    def _select(self, st: RequestState, logits, attempt: int) -> int:
+        """One draw of the request's decode config; sampled draws take the
+        noise of key (seed, step, attempt), one key per request step and
+        draw."""
+        noise = None
+        if st.req.decode.method != "greedy":
+            noise = self._noise(self._step_keys(
+                np.array([st.req.seed & 0xFFFFFFFF], np.uint32),
+                np.array([st.steps], np.uint32), attempt))
+        return int(st.req.decode.select(logits, noise)[0])
+
+    def _step(self, st: RequestState, obs=None) -> None:
+        if obs is None:
+            obs = _OBS_OFF
+        logits = self._logits(st)
+        st.steps += 1
+        req = st.req
+        if st.constraint is None:
+            self._commit(st, self._select(st, logits, 0))
+            return
+
+        gc = st.constraint
+        text = st.generated
+        with obs.span("ci_lookup") as sp_rows:
+            sg = gc.step_groups(text)
+            rlist = gc.group_rows(sg.groups)
+            off = self._row_offset[req.grammar]
+            rows = np.full((1, accept_width(len(rlist), gc.max_accept)),
+                           -1, np.int32)
+            rows[0, :len(rlist)] = [r + off for r in rlist]
+            eos = np.array([sg.eos_allowed])
+        with obs.span("cd_check") as sp_cd:
+            cdw = gc.cd_overlay(sg.groups)
+            cd = None if cdw is None else self._h2d(
+                cdw[None, :].view(np.int32))
+        with obs.span("mask_dispatch") as sp_disp:
+            masked = apply_grammar_mask(logits, self._store_cat,
+                                        self._h2d(rows), self._h2d(eos),
+                                        cd=cd)
+        st.mask_time += sp_rows.dur + sp_cd.dur + sp_disp.dur
+        st.mask_computations += 1
+
+        # rejection wrapper (see _select_resolve for the batched variant);
+        # `masked` is a host buffer demoted in place below, so each draw
+        # ships a private copy
+        masked = masked.float().cpu().numpy()
+        for attempt in range(1, 5):
+            # reprolint: dispatch
+            nxt = self._select(st, self._h2d(masked.copy()), attempt)
+            if masked[0, nxt] <= NEG_INF / 2:
+                break
+            if nxt == EOS_ID or gc.is_valid_extension(text, nxt):
+                self._commit(st, nxt)
+                return
+            masked[0, nxt] = NEG_INF
+
+        allowed = np.where(masked[0] > NEG_INF / 2)[0]
+        for t in allowed:
+            if not (t == EOS_ID or gc.is_valid_extension(text, int(t))):
+                masked[0, t] = NEG_INF
+        if (masked[0] > NEG_INF / 2).any():
+            # reprolint: dispatch
+            nxt = self._select(st, self._h2d(masked.copy()), 5)
+            self._commit(st, nxt)
+            return
+        # nothing valid (should not happen for C_k in L_p(G)) — stop
+        st.done = True
+        st.finish_reason = "mask_exhausted"
+
+    def generate_sequential(self, requests: list[Request],
+                            verbose: bool = False):
+        """Round-robin stepping, one request per device call."""
+        obs = Telemetry(enabled=self.telemetry_enabled)
+        t0 = time.perf_counter()
+        states = [self._start(r) for r in requests]
+        active = list(states)
+        while active:
+            for st in list(active):
+                self._step(st, obs)
+                if st.done:
+                    active.remove(st)
+                    if verbose:
+                        print(f"[req {st.req.rid}] {st.finish_reason}: "
+                              f"{st.generated[:70]!r}")
+        stats = EngineStats(
+            requests=len(states),
+            tokens=sum(s.steps for s in states),
+            wall=time.perf_counter() - t0,
+            mask_time=sum(s.mask_time for s in states),
+            mask_computations=sum(s.mask_computations for s in states),
+            decode_steps=sum(s.steps for s in states),
+            batch_slots=1,
+        )
+        return states, stats

@@ -1,30 +1,46 @@
-"""The step-loop core of the dense serving mode (port of the dense subset
-of `repro.serving.loop`).
+"""The step-loop core of the serving modes (port of
+`repro.serving.loop`, without the async front-end).
 
-`StepLoop` owns admission, the deadline sweep, finish
-bookkeeping and stats; `DenseMode` plugs in the per-step body: one
-[B, V] decode + one fused mask/sample per step, with host/device
-OVERLAP: after the fused mask+sample of step k is queued, step k+1's
-unmasked forward is queued immediately with the on-device sampled ids
-(the token never leaves the device); the host then copies the ids back
-(`.cpu()`, the step's one sync), validates step k against the exact
-oracle and builds step k+1's mask rows while the card is already busy.
-When the host changes the outcome (oracle ban, exact fallback, a
-finished slot, an admission) the speculative forward is discarded and
-the corrected step re-dispatched — position-addressed KV caches make the
-rewrite idempotent (`kv_pos <= q_pos` masking hides the stale write), so
-the result is token-for-token identical to the non-overlapped engine.
+`StepLoop` owns admission, the deadline sweep, finish bookkeeping and
+stats; the mode objects plug in the per-step body:
+
+  * `DenseMode` — one [B, V] decode + one fused mask/sample per step,
+    with host/device OVERLAP: after the fused mask+sample of step k is
+    queued, step k+1's unmasked forward is queued immediately with the
+    on-device sampled ids (the token never leaves the device); the host
+    then copies the ids back (`.cpu()`, the step's one sync), validates
+    step k against the exact oracle and builds step k+1's mask rows
+    while the card is already busy. When the host changes the outcome
+    (oracle ban, exact fallback, a finished slot, an admission) the
+    speculative forward is discarded and the corrected step
+    re-dispatched — position-addressed KV caches make the rewrite
+    idempotent (`kv_pos <= q_pos` masking hides the stale write), so the
+    result is token-for-token identical to the non-overlapped engine.
+  * `PagedMode` — the paged feed loop (chunked prefill through bucketed
+    [B, S] spans, prefix-share waking, copy-on-write page prepare)
+    feeding the same selection machinery.
+  * `SpecMode` — grammar-aware speculation (jump-forward + draft spans)
+    over dense or paged caches.
+
+Host arrays that are changed in place after a dispatch (`feed_pos`, the
+token and mask buffers, page tables, the decode configs that `admit()`
+rewrites) ship to the device as private copies at every dispatch site.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
+from typing import Optional
 
 import numpy as np
+import torch
 
+from ..core.constrain import MAX_ACCEPT
 from ..core.decoding import DecodeConfig
 from ..obs import Telemetry
+from ..spec.scheduler import SlotPhase, SlotPlan, SpecConfig, SpecScheduler
 from .devbridge import attach as _attach_devbridge
+from .kvpool import PoolExhausted
 
 
 # --------------------------- request sources ---------------------------
@@ -40,6 +56,10 @@ class ListSource:
 
     def try_pop(self):
         return self._q.popleft() if self._q else None
+
+    def push_front(self, req) -> None:
+        """Return a popped request that the admission gate refused."""
+        self._q.appendleft(req)
 
 
 # ------------------------------ the loop -------------------------------
@@ -64,11 +84,14 @@ class StepLoop:
         self.B = B
         self.slot_state = [None] * B
         self.feed_pos = np.zeros(B, np.int32)
+        self.waiting = np.zeros(B, bool)
         self.seeds = np.zeros(B, np.uint32)
         self.greedy = np.ones(B, bool)
         self.temp = np.ones(B, np.float32)
         self.top_k = np.zeros(B, np.int32)
         self.top_p = np.ones(B, np.float32)
+        self.ids_cache: dict[int, list] = {}
+        self.stall = 0
 
         self.t0 = time.perf_counter()
         self.all_states: list = []
@@ -84,6 +107,15 @@ class StepLoop:
             "repro_decode_steps_total", "device decode/span calls")
         self.c_mask_comp = reg.counter(
             "repro_mask_computations_total", "grammar mask rows computed")
+        self.c_jump = reg.counter(
+            "repro_jump_tokens_total",
+            "grammar-forced tokens committed with no model call")
+        self.c_draft_prop = reg.counter(
+            "repro_draft_tokens_total", "speculative draft tokens",
+            {"kind": "proposed"})
+        self.c_draft_acc = reg.counter(
+            "repro_draft_tokens_total", "speculative draft tokens",
+            {"kind": "accepted"})
         self.c_overlap_disp = reg.counter(
             "repro_overlap_forwards_total", "overlap gate outcomes",
             {"outcome": "dispatched"})
@@ -127,6 +159,7 @@ class StepLoop:
         st = self.slot_state[b]
         self.mode.release(self, b, st)
         self.slot_state[b] = None
+        self.waiting[b] = False
         self.feed_pos[b] = 0
         if self.verbose:
             print(f"[req {st.req.rid}] {st.finish_reason}: "
@@ -178,9 +211,17 @@ class StepLoop:
                 req = self.source.try_pop()
                 if req is None:
                     break
+                if not self.mode.can_admit_req(self, req):
+                    self.source.push_front(req)
+                    break
                 self.admit(b, req)
             active = self.active()
             if not active:
+                if len(self.source):
+                    # no slot can ever take the next request (the paged
+                    # pool is too small for its prompt)
+                    raise PoolExhausted(
+                        "KV pool too small for the next request's prompt")
                 break
             self.mode.step(self, active)
         return self.all_states, self.stats()
@@ -202,6 +243,10 @@ class StepLoop:
             mask_computations=int(self.c_mask_comp.value),
             decode_steps=int(self.c_decode_steps.value),
             batch_slots=self.B,
+            jump_tokens=int(self.c_jump.value),
+            draft_proposed=int(self.c_draft_prop.value),
+            draft_accepted=int(self.c_draft_acc.value),
+            plan_time=tele.phase_seconds("plan"),
             overlap_dispatched=int(self.c_overlap_disp.value),
             overlap_hits=int(self.c_overlap_hit.value),
             device_forward_s=(tele.devtime.seconds("forward")
@@ -219,6 +264,9 @@ class StepLoop:
 # ------------------------------- modes ---------------------------------
 
 class _ModeBase:
+    def can_admit_req(self, loop, req) -> bool:
+        return True
+
     def release(self, loop, b, st) -> None:
         pass
 
@@ -351,6 +399,384 @@ class DenseMode(_ModeBase):
         return False
 
 
+class PagedMode(_ModeBase):
+    """Paged-KV continuous batching: chunked prefill drained through
+    bucketed [B, S] span feeds, prefix-share waking, copy-on-write page
+    prepare — then the same selection machinery as DenseMode."""
+
+    def __init__(self, engine):
+        self.eng = engine
+        self.alloc = None
+        self.caches = None
+
+    def setup(self, loop):
+        self.alloc, self.caches = self.eng._paged_setup(self.eng.slots)
+        if loop.tele.enabled:
+            loop.tele.register_kv(self.alloc)
+
+    def can_admit_req(self, loop, req) -> bool:
+        return self.eng._paged_can_admit(self.alloc, req, loop.ids_cache)
+
+    def admit(self, loop, b, req):
+        st, plan = self.eng._admit_paged(
+            req, b, self.alloc, loop.ids_cache.pop(req.rid, None))
+        loop.feed_pos[b] = plan.feed_from
+        loop.waiting[b] = True      # shared pages may still be filling
+        if not self.eng._paged_wake(self.alloc, b, st, loop.feed_pos,
+                                    loop.waiting):
+            st.phase = SlotPhase.PREFILLING.value
+        return st
+
+    def release(self, loop, b, st) -> None:
+        st.kv_pages = len(self.alloc.tables[b])
+        self.alloc.release(b)
+
+    def stats_extra(self, loop, stats):
+        return self.eng._kv_stats(stats, self.alloc)
+
+    def step(self, loop, active):
+        eng = self.eng
+        alloc, B = self.alloc, loop.B
+
+        # ---- wake waiters whose shared prefix finished filling ------
+        live = [b for b in active
+                if eng._paged_wake(alloc, b, loop.slot_state[b],
+                                   loop.feed_pos, loop.waiting)]
+        if not live:
+            loop.stall += 1
+            if loop.stall > 4 * B + 16:
+                raise RuntimeError("paged scheduler stalled")
+            return
+        loop.stall = 0
+
+        # ---- ONE [B, S] paged span feed for the whole pool ----------
+        with loop.tele.span("feed_build"):
+            pend = {b: loop.slot_state[b].pos - int(loop.feed_pos[b])
+                    for b in live}
+            S = eng._feed_width(list(pend.values()))
+            tokens = np.zeros((B, S), np.int32)
+            fmask = np.zeros((B, S), bool)
+            sel = np.full(B, -1, np.int32)
+            feed_n: dict[int, int] = {}
+            for b in live:
+                st = loop.slot_state[b]
+                fs = int(loop.feed_pos[b])
+                k = min(pend[b], S)
+                if eng._prepare_feed(alloc, self.caches, b, st, fs,
+                                     k) is None:
+                    continue                 # kv_oom: no feed
+                if pend[b] <= S:
+                    sel[b] = k - 1           # selection this step
+                tokens[b, :k] = st.token_ids[fs:fs + k]
+                for i in range(k):
+                    fmask[b, i] = (fs + i) >= st.write_from
+                feed_n[b] = k
+        live = [b for b in live if b in feed_n]
+        if live:
+            # feed_pos is advanced in place right after this dispatch
+            # (prefill-drain steps never sync): every host buffer ships
+            # as a private copy
+            with loop.tele.device_span("forward") as dv:
+                with loop.tele.span("forward"):
+                    # reprolint: dispatch
+                    logits = eng.span_feed_paged(
+                        self.caches, eng._h2d(tokens.copy()),
+                        eng._h2d(loop.feed_pos.copy()),
+                        eng._h2d(fmask.copy()),
+                        eng._h2d(alloc.table_rows(np)),
+                        eng._h2d(sel.copy()))
+                dv.done(logits)
+            loop.c_decode_steps.inc()
+            for b in live:
+                st = loop.slot_state[b]
+                alloc.note_fill(b, min(int(loop.feed_pos[b]) + feed_n[b],
+                                       st.prompt_len))
+                if sel[b] < 0:               # chunked prefill drain
+                    loop.feed_pos[b] += feed_n[b]
+                    st.phase = SlotPhase.PREFILLING.value
+            selecting = [b for b in live if sel[b] >= 0]
+            for b in selecting:
+                loop.slot_state[b].steps += 1
+                loop.slot_state[b].phase = SlotPhase.DECODING.value
+            loop.note_steps(len(selecting))
+            if selecting:
+                committed, ctr = eng._select_tokens(
+                    logits, loop.slot_state, set(selecting), loop.seeds,
+                    loop.greedy, loop.temp, loop.top_k, loop.top_p,
+                    obs=loop.tele)
+                loop.add_select_ctr(ctr)
+                for b, t in committed.items():
+                    st = loop.slot_state[b]
+                    loop.commit(st, t)
+                    loop.feed_pos[b] = st.pos - 1
+        for b in active:
+            st = loop.slot_state[b]
+            if st is not None and st.done:
+                loop.finish(b)
+
+
+class SpecMode(_ModeBase):
+    """Grammar-aware speculation (jump-forward + draft-verify spans)
+    over dense or paged caches — generate_speculative's step body."""
+
+    def __init__(self, engine, spec: Optional[SpecConfig] = None):
+        self.eng = engine
+        self.spec = spec or SpecConfig()
+        self.paged = engine.paged
+        self.sched = None
+        self.alloc = None
+        self.caches = None
+
+    def setup(self, loop):
+        eng = self.eng
+        if not eng.model.supports_span_decode:
+            raise ValueError(
+                "speculative decoding needs position-addressed decode "
+                "caches (attn/moe layer kinds); this arch has recurrent "
+                "or side-input state")
+        self.sched = SpecScheduler(
+            self.spec, eng.tok,
+            telemetry=loop.tele if loop.tele.enabled else None)
+        if self.paged:
+            self.alloc, self.caches = eng._paged_setup(eng.slots)
+            if loop.tele.enabled:
+                loop.tele.register_kv(self.alloc)
+        else:
+            self.caches = eng.model.init_decode_caches(eng.slots,
+                                                       eng.max_len)
+
+    def can_admit_req(self, loop, req) -> bool:
+        if not self.paged:
+            return True
+        return self.eng._paged_can_admit(self.alloc, req, loop.ids_cache)
+
+    def admit(self, loop, b, req):
+        eng = self.eng
+        if self.paged:
+            st, plan = eng._admit_paged(
+                req, b, self.alloc, loop.ids_cache.pop(req.rid, None))
+            loop.feed_pos[b] = plan.feed_from
+            loop.waiting[b] = True
+            if not eng._paged_wake(self.alloc, b, st, loop.feed_pos,
+                                   loop.waiting):
+                st.phase = SlotPhase.PREFILLING.value
+        else:
+            st = eng._admit_common(req, b, self.caches)
+            loop.feed_pos[b] = st.pos - 1
+        self.sched.on_admit(st)
+        return st
+
+    def release(self, loop, b, st) -> None:
+        if self.paged:
+            st.kv_pages = len(self.alloc.tables[b])
+            self.alloc.release(b)
+        self.sched.on_finish(st)
+
+    def stats_extra(self, loop, stats):
+        if self.paged:
+            return self.eng._kv_stats(stats, self.alloc)
+        return stats
+
+    def step(self, loop, active):
+        eng = self.eng
+        B = loop.B
+        slot_state = loop.slot_state
+        feed_pos = loop.feed_pos
+        # reprolint: mutated-inflight=loop.greedy,loop.temp,loop.top_k,loop.top_p admit() rewrites the decode configs while the span dispatch is in flight
+
+        def commit_one(st, token):
+            st.steps += 1
+            loop.note_steps(1)
+            loop.commit(st, token)
+
+        # ---- wake waiters whose shared prefix finished filling ------
+        if self.paged:
+            for b in active:
+                eng._paged_wake(self.alloc, b, slot_state[b], feed_pos,
+                                loop.waiting)
+
+        # ---- host planning: jump-forward commits + drafting ---------
+        plans = {}
+        with loop.tele.span("plan"):
+            for b in active:
+                st = slot_state[b]
+                if loop.waiting[b]:
+                    plans[b] = SlotPlan()
+                    continue
+                backlog = (st.pos - 1) - int(feed_pos[b])
+                pre = st.jump_tokens
+                plans[b] = self.sched.plan_slot(st, commit_one,
+                                                eng.max_len,
+                                                backlog=backlog)
+                loop.c_jump.inc(st.jump_tokens - pre)
+                st.phase = plans[b].phase.value
+        for b in active:
+            st = slot_state[b]
+            if st.done:      # finished mid-jump: nothing left to feed
+                self.sched.on_commit(st, plans[b].jumped)
+                loop.finish(b)
+        live = [b for b in active
+                if slot_state[b] is not None and not loop.waiting[b]]
+        if not live:
+            loop.stall += 1
+            if loop.stall > 4 * B + 16:
+                raise RuntimeError("paged scheduler stalled")
+            return
+        loop.stall = 0
+
+        # ---- span width: maximize commits per unit of compute -------
+        pend_n = {b: slot_state[b].pos - int(feed_pos[b]) for b in live}
+        S = eng._choose_span(
+            [pend_n[b] + len(plans[b].drafts) for b in live])
+        tokens = np.zeros((B, S), np.int32)
+        fmask = np.zeros((B, S), bool)
+        sel0 = {}        # b -> span index of first selection (-1 none)
+        fed = {}         # b -> tokens fed this span
+        for b in list(live):
+            st = slot_state[b]
+            fs = int(feed_pos[b])
+            pend = st.token_ids[fs: st.pos]
+            if len(pend) > S:          # backlog drain: feed only
+                feed = pend[:S]
+                sel0[b] = -1
+                plans[b].drafts = []
+            else:
+                plans[b].drafts = plans[b].drafts[: S - len(pend)]
+                feed = pend + plans[b].drafts
+                sel0[b] = len(pend) - 1
+            if self.paged:
+                if eng._prepare_feed(self.alloc, self.caches, b, st, fs,
+                                     len(feed)) is None:
+                    loop.finish(b)     # kv_oom under true pressure
+                    live.remove(b)
+                    continue
+                for i in range(len(feed)):
+                    fmask[b, i] = (fs + i) >= st.write_from
+            else:
+                fmask[b, : len(feed)] = True
+            tokens[b, : len(feed)] = feed
+            fed[b] = len(feed)
+            if plans[b].drafts:
+                st.phase = SlotPhase.VERIFYING.value
+        if not live:
+            return
+        # feed_pos is advanced in place after dispatch: ship copies
+        with loop.tele.device_span("forward") as dv:
+            with loop.tele.span("forward"):
+                page_tab = (eng._h2d(self.alloc.table_rows(np))
+                            if self.paged else None)
+                # reprolint: dispatch
+                logits = eng._span_decode(
+                    self.caches, eng._h2d(tokens.copy()),
+                    eng._h2d(feed_pos.copy()), eng._h2d(fmask.copy()),
+                    page_tab)
+            dv.done(logits)
+        loop.c_decode_steps.inc()
+        if self.paged:
+            for b in live:
+                st = slot_state[b]
+                self.alloc.note_fill(b, min(int(feed_pos[b]) + fed[b],
+                                            st.prompt_len))
+
+        # ---- mask rows for every selection position -----------------
+        with loop.tele.span("ci_lookup"):
+            span_sms: dict[tuple, tuple] = {}  # (b, f) -> (StepMask, off)
+            eosm = np.zeros((B, S), bool)
+            consm = np.zeros((B, S), bool)
+            for b in live:
+                st = slot_state[b]
+                pl = plans[b]
+                if st.constraint is None or sel0[b] < 0:
+                    continue
+                off = eng._row_offset[st.req.grammar]
+                text = st.generated
+                for i in range(len(pl.drafts) + 1):
+                    if i > 0:
+                        text = text + eng.tok.id_to_bytes[pl.drafts[i - 1]]
+                    if i == 0 and pl.stop_mask is not None:
+                        sm = pl.stop_mask  # reuse jump analyzer's mask
+                    else:
+                        sm = st.constraint.step_rows(text)
+                    f = sel0[b] + i
+                    span_sms[(b, f)] = (sm, off)
+                    eosm[b, f] = sm.eos_allowed
+                    consm[b, f] = True
+                    st.mask_computations += 1
+                    loop.c_mask_comp.inc()
+            # row width grows in accept_width buckets on overflow
+            A = max([MAX_ACCEPT] + [sm.rows.shape[0]
+                                    for sm, _ in span_sms.values()])
+            rows = np.full((B, S, A), -1, np.int32)
+            for (b, f), (sm, off) in span_sms.items():
+                r = np.where(sm.rows >= 0, sm.rows + off, sm.rows)
+                rows[b, f, :r.shape[0]] = r
+        with loop.tele.span("cd_check"):
+            W = int(eng._store_cat.shape[1])
+            cdm = np.zeros((B, S, W), np.uint32)
+            for (b, f), (sm, _) in span_sms.items():
+                if sm.cd_words is not None:
+                    cdm[b, f] = sm.cd_words
+        with loop.tele.device_span("mask_sample") as dv:
+            with loop.tele.span("mask_dispatch"):
+                salts = np.array([slot_state[b].steps if slot_state[b]
+                                  else 0 for b in range(B)], np.uint32)
+                keys = eng._span_keys(loop.seeds, salts, S)
+                # span_mask_select ships every host array as a copy; the
+                # admit()-mutated decode configs are copied here too
+                masked, ids, ok = eng.span_mask_select(  # reprolint: dispatch
+                    logits, rows, cdm, eosm, consm,
+                    loop.greedy.copy(), loop.temp.copy(),
+                    loop.top_k.copy(), loop.top_p.copy(), keys)
+            dv.done((ids, ok))
+        with loop.tele.span("select_resolve"):
+            both = torch.stack((ids, ok.to(torch.int32))).cpu()
+            ids_h, ok_h = both[0].numpy(), both[1].numpy().astype(bool)
+
+        # ---- accept: longest valid draft prefix + bonus token -------
+        with loop.tele.span("host_oracle"):
+            for b in live:
+                st = slot_state[b]
+                pl = plans[b]
+                if sel0[b] < 0:
+                    # pure backlog drain (jump replay or chunked
+                    # prefill): advance the feed cursor; the step's jump
+                    # commits must still reach the proposer history
+                    self.sched.on_commit(st, pl.jumped)
+                    feed_pos[b] += fed[b]
+                    if self.paged and feed_pos[b] < st.prompt_len:
+                        st.phase = SlotPhase.PREFILLING.value
+                    continue
+                idx = sel0[b]
+                committed = []
+                for d in pl.drafts:
+                    if st.done or int(ids_h[b, idx]) != d:
+                        break
+                    commit_one(st, d)
+                    committed.append(d)
+                    idx += 1
+                st.draft_proposed += len(pl.drafts)
+                st.draft_accepted += len(committed)
+                loop.c_draft_prop.inc(len(pl.drafts))
+                loop.c_draft_acc.inc(len(committed))
+                self.sched.on_verify(st, len(pl.drafts), len(committed))
+                if not st.done:
+                    nxt = eng._resolve_span_selection(
+                        st, masked, b, idx, int(ids_h[b, idx]),
+                        bool(ok_h[b, idx]), st.steps)
+                    if nxt is None:
+                        st.done = True
+                        st.finish_reason = "mask_exhausted"
+                    else:
+                        commit_one(st, nxt)
+                        committed.append(nxt)
+                self.sched.on_commit(st, pl.jumped + committed)
+                if st.done:
+                    loop.finish(b)
+                else:
+                    feed_pos[b] = st.pos - 1
+                    st.phase = SlotPhase.DECODING.value
+
+
 def make_mode(engine):
-    """Mode factory: the dense mode is the only one ported."""
-    return DenseMode(engine)
+    """The mode of `Engine.generate()`: paged or dense."""
+    return PagedMode(engine) if engine.paged else DenseMode(engine)

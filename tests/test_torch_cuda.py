@@ -143,3 +143,100 @@ def test_model_on_card_matches_cpu(dev):
     dg, _ = gpu.decode_step(gparams, cg, toks[:, n].to(dev), pos.to(dev))
     assert (dc - dg.cpu()).abs().max().item() <= 1e-4
     assert torch.equal(cc[0][0]["kv_pos"], cg[0][0]["kv_pos"].cpu())
+
+
+def _mask_inputs(rng, dev, N, V, R, A, W=None):
+    W = W or -(-V // 32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    store = t(rng.integers(0, 2 ** 32, size=(R, W), dtype=np.uint32)
+              .view(np.int32))
+    rows = rng.integers(-1, R, size=(N, A)).astype(np.int32)
+    rows[0, :] = -1                                  # an empty union
+    cdn = rng.integers(0, 2 ** 32, size=(N, W), dtype=np.uint32)
+    cdn[rng.random(N) < 0.5] = 0
+    eos = rng.random(N) < 0.5
+    cons = rng.random(N) < 0.7
+    return store, t(rows), t(cdn.view(np.int32)), t(eos), t(cons)
+
+
+@pytest.mark.parametrize("N,V,R,A", [(1, 49152, 200, 48), (8, 49152, 300, 96),
+                                     (3, 1000, 40, 5), (5, 2080, 64, 300),
+                                     (2, 4096, 16, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_logits_kernel_matches_plain(dev, N, V, R, A, dtype):
+    """[B, V] form, bitwise: cd, EOS, -1 pads, constrained pass-through,
+    V not a multiple of the kernel's tile (or of 32), A past one staged
+    chunk of row ids."""
+    from repro_torch.kernels.masked_logits.ops import apply_grammar_mask
+    from repro_torch.kernels.masked_logits.ref import masked_logits_ref
+    rng = np.random.default_rng(N * V + A)
+    store, rows, cd, eos, cons = _mask_inputs(rng, dev, N, V, R, A)
+    logits = torch.from_numpy((rng.normal(size=(N, V)) * 3).astype(
+        np.float32)).to(dev).to(dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for kw in ({"constrained": cons, "cd": cd}, {}):
+        before = apply_grammar_mask.launches
+        out = apply_grammar_mask(logits, store, rows, eos, **kw)
+        assert apply_grammar_mask.launches == before + 1
+        want = masked_logits_ref(logits, store, rows, eos, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == logits.shape
+        assert torch.equal(out.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("B,K,V,A", [(8, 8, 49152, 48), (2, 3, 1000, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_logits_span_kernel_matches_plain(dev, B, K, V, A, dtype):
+    from repro_torch.kernels.masked_logits.ops import apply_grammar_mask_span
+    from repro_torch.kernels.masked_logits.ref import masked_logits_span_ref
+    rng = np.random.default_rng(B * K * V)
+    store, rows, cd, eos, cons = _mask_inputs(rng, dev, B * K, V, 100, A)
+    rows, cd = rows.reshape(B, K, A), cd.reshape(B, K, -1)
+    eos, cons = eos.reshape(B, K), cons.reshape(B, K)
+    logits = torch.from_numpy((rng.normal(size=(B, K, V)) * 3).astype(
+        np.float32)).to(dev).to(dtype)
+    before = apply_grammar_mask_span.launches
+    out = apply_grammar_mask_span(logits, store, rows, eos,
+                                  constrained=cons, cd=cd)
+    assert apply_grammar_mask_span.launches == before + 1
+    want = masked_logits_span_ref(logits, store, rows, eos,
+                                  constrained=cons, cd=cd)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("B,S,H,K,Dh,ps,nP,P", [
+    (8, 1, 15, 5, 64, 16, 32, 256), (8, 8, 15, 5, 64, 16, 32, 256),
+    (8, 32, 15, 5, 64, 16, 32, 256), (3, 5, 4, 2, 32, 8, 6, 20),
+    (2, 3, 8, 8, 128, 4, 9, 30)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain(dev, B, S, H, K, Dh, ps, nP,
+                                              P, dtype):
+    """Page tables with -1 holes, pages shared between slots, a slot with
+    no mapped page (its rows take the plain version's uniform weights)."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_decode)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    rng = np.random.default_rng(B * S * nP + Dh)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    q = t(rng.normal(size=(B, S, H, Dh)).astype(np.float32)).to(dtype)
+    kp = t(rng.normal(size=(P, ps, K, Dh)).astype(np.float32)).to(dtype)
+    vp = t(rng.normal(size=(P, ps, K, Dh)).astype(np.float32)).to(dtype)
+    pt = rng.integers(0, P, size=(B, nP)).astype(np.int32)
+    pt[rng.random((B, nP)) < 0.2] = -1
+    pt[-1] = -1
+    if B > 1:
+        pt[1, :2] = pt[0, :2]                        # shared prefix pages
+    L = nP * ps
+    pos = rng.integers(0, L - S + 1, size=B).astype(np.int32)
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, t(pt), t(pos))
+    assert paged_attention.launches == before + 1
+    want = paged_attention_ref(q, kp, vp, t(pt), t(pos))
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -5
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= atol, err
+    if S == 1:
+        d = paged_attention_decode(q[:, 0], kp, vp, t(pt), t(pos))
+        assert torch.equal(d, out[:, 0])

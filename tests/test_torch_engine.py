@@ -35,8 +35,12 @@ from repro_torch.core.mask_store import build_mask_store as torch_build_store
 from repro_torch.core.parser import IncrementalParser
 from repro_torch.core.tokenizer import ByteTokenizer as TorchByteTokenizer
 from repro_torch.launch import serve
+from repro_torch.models.model import Model
 from repro_torch.models.model import build_model as torch_build_model
 from repro_torch.serving.engine import Engine, Request
+
+# one intra-op thread per xdist worker (see tests/_torch_parity.py)
+torch.set_num_threads(1)
 
 MAX_LEN = 96
 
@@ -144,14 +148,18 @@ def test_sampled_matches_reference_with_shared_noise(sides, overlap):
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked_for():
-    """build_engine, build_model and the CLI default to the card and
-    raise without one; they never fall back to the CPU."""
+    """build_engine, build_model, Model and the CLI default to the card
+    and raise without one; they never fall back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build_engine("syncode-demo", grammars=("json",))
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_build_model(torch_get_config("syncode-demo"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(torch_get_config("syncode-demo"))
+    assert Model(torch_get_config("syncode-demo"),
+                 device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--grammar", "json", "-n", "1"])
 

@@ -25,6 +25,9 @@ COPIED = [
     "obs/lifecycle.py", "obs/trace.py", "obs/buildinfo.py",
     "obs/devtime.py", "obs/telemetry.py", "models/config.py",
     "configs/syncode_demo.py", "configs/smollm_360m.py",
+    "spec/__init__.py", "spec/jump.py", "spec/proposer.py",
+    "spec/scheduler.py", "serving/kvpool/__init__.py",
+    "serving/kvpool/allocator.py",
 ]
 
 

@@ -31,6 +31,9 @@ from repro_torch.configs import get_config as torch_get_config
 from repro_torch.models import common as tcommon
 from repro_torch.models.model import build_model as torch_build_model
 
+# one intra-op thread per xdist worker (see tests/_torch_parity.py)
+torch.set_num_threads(1)
+
 TOL = {"float32": dict(atol=1e-4, rtol=2e-6),
        "bfloat16": dict(atol=2.0 ** -3, rtol=0)}
 
