@@ -24,7 +24,9 @@ no result line):
    `paged_attention_span` (B=8, 15/5 heads, Dh 64, 16-token pages, 32
    pages per slot, a 256-page pool with holes and shared pages, S in
    1/8/32, bf16 and fp32; its decode form `paged_attention_decode` at
-   S=1);
+   S=1); every kernel and yardstick also gets its own device time per
+   call (`device_ms`: torch.profiler's summed kernel time), which leaves
+   out the wrapper's host work that the event window holds;
 5. end-to-end at smollm-360m full width (random weights from a seed),
    json + jsonmsg, each run with the kernels' launch counters zeroed
    just before it and read just after, every eos-finished output
@@ -33,9 +35,10 @@ no result line):
    over dense caches (the same 16); paged `generate()` (the same 16 plus
    8 sharing a >= 256-token prefix); `generate_speculative` over pages
    (8 requests x 32 new tokens); `generate_sequential` (4 x 32);
-6. decode forward breakdown at full width: host dispatch, synced wall
-   and profiler-measured device busy time per step, and the kernels that
-   take most of it.
+6. decode forward breakdown at full width, for a dense decode step and
+   a paged one (B=8, 32 pages per slot): host dispatch, synced wall and
+   profiler-measured device busy time per step, the kernels that take
+   most of it, and paged_attention's share of the paged step.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -82,6 +85,45 @@ def cuda_ms(torch, fn, reps=REPS, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps=REPS, warmup=3):
+    """Device milliseconds per call of the kernels `fn` launches, from
+    torch.profiler over `reps` calls: for each kernel name its mean time
+    times its launches per call (its count over `reps`, rounded, at least
+    one, so that an event the profiler drops does not read as a faster
+    call), summed over the names. Unlike `cuda_ms` it leaves out the host
+    work before each launch. If the profiler sees no device time in two
+    tries, a burst of 100 back-to-back calls between two CUDA events
+    stands in (and says so): that holds the host time wherever the host
+    is slower than the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total / e.count
+                 * max(1, round(e.count / reps))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count)
+        if us > 0:
+            return us / 1e3
+    log("  device_ms: the profiler saw no device time; timing a burst of "
+        "100 back-to-back calls between two CUDA events instead")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(100):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / 100
 
 
 # ------------------------------------------------------------------ phases
@@ -216,20 +258,23 @@ def phase_fused_select(torch, np, engine):
     args = (logits, store, rows_t, cd_t, eos_t, cons_t, greedy, temp,
             top_k, top_p)
     ms = cuda_ms(torch, lambda: fused_mask_select(*args, noise=noise))
+    dev_ms = device_ms(torch, lambda: fused_mask_select(*args, noise=noise))
     ms_greedy = cuda_ms(torch, lambda: fused_mask_select(*args))
     plain = cuda_ms(torch, lambda: fused_select_ref(*args, noise=noise))
     n_rows = int((rows >= 0)[np.array(cons_on)].sum())
     nbytes = (B * V * 2 * 2 + B * V * 4 + n_rows * W * 4 + B * W * 4
               + rows.size * 4 + B * (3 + 4 * 3 + 4 + 1))
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"fused_select (sample mode) {ms:.4f} ms; greedy mode "
-        f"{ms_greedy:.4f} ms; plain {plain:.4f} ms; bound {bound:.6f} ms "
-        f"({nbytes} bytes)")
+    log(f"fused_select (sample mode) {ms:.4f} ms, device {dev_ms:.4f} "
+        f"ms; greedy mode {ms_greedy:.4f} ms; plain {plain:.4f} ms; bound "
+        f"{bound:.6f} ms ({nbytes} bytes)")
     return {"name": "fused_select", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_select.cu",
             "replaces": "src/repro/kernels/fused_select/kernel.py:96",
-            "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None,
+            "library_device_ms": None}
 
 
 def phase_attention(torch, np, main_S):
@@ -267,7 +312,7 @@ def phase_attention(torch, np, main_S):
         "right-aligned Sq < Sk)")
 
     tol = 2.0 ** -5
-    row = None
+    row = long_prompt = None
     for S in sorted({7, 32, 300, 2048, main_S}):
         q = torch.from_numpy(rng.normal(size=(1, S, H, Dh)).astype(
             np.float32)).to(dev).bfloat16()
@@ -283,28 +328,39 @@ def phase_attention(torch, np, main_S):
             raise AssertionError(f"flash_attention S={S}: max abs err "
                                  f"{err} > {tol}")
         ms = cuda_ms(torch, lambda: attention(q, k, v, causal=True))
+        dev_ms = device_ms(torch, lambda: attention(q, k, v, causal=True))
         plain = cuda_ms(torch, lambda: chunked_attention(
             q, k, v, causal=True, q_offset=0, chunk=1024))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib = cuda_ms(torch, sdpa)
+        lib_dev = device_ms(torch, sdpa)
         flops = 2 * 2 * S * S * H * Dh / 2
         nbytes = (2 * S * H * Dh + 2 * S * K * Dh) * 2
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
         log(f"flash_attention S={S}: max abs err {err:.3e} (tol {tol}); "
-            f"{ms:.4f} ms; plain {plain:.4f} ms; sdpa {lib:.4f} ms; bound "
-            f"{bound:.6f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})")
+            f"{ms:.4f} ms, device {dev_ms:.4f} ms; plain {plain:.4f} ms; "
+            f"sdpa {lib:.4f} ms, device {lib_dev:.4f} ms; bound "
+            f"{bound:.6f} ms ({by})")
         if S == main_S:
             row = {"name": "flash_attention", "route": "cuda",
                    "source": "src/repro_torch/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention/"
                                "kernel.py:71",
                    "launches": 0, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain, "bound_ms": bound,
-                   "bound_by": "operations" if t_ops >= t_bytes
-                   else "bytes", "library_ms": lib}
+                   "device_ms": dev_ms, "plain_ms": plain,
+                   "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                   "library_device_ms": lib_dev}
+        if S == 2048:
+            long_prompt = {"S": S, "max_abs_err": err, "ms": ms,
+                           "device_ms": dev_ms, "plain_ms": plain,
+                           "bound_ms": bound, "bound_by": by,
+                           "library_ms": lib, "library_device_ms": lib_dev}
+    row["long_prompt"] = long_prompt
     return row
 
 
@@ -354,8 +410,10 @@ def phase_masked_logits(torch, np, engine):
             max_err = max(max_err, (mk.float() - mr.float()).abs().max()
                           .item())
             ms = cuda_ms(torch, lambda: apply_grammar_mask(*args, **kw))
+            dev_ms = device_ms(torch, lambda: apply_grammar_mask(*args,
+                                                                 **kw))
             plain = cuda_ms(torch, lambda: masked_logits_ref(*args, **kw))
-            out[("row", B, dtype)] = (ms, plain, _mask_bytes(
+            out[("row", B, dtype)] = (ms, dev_ms, plain, _mask_bytes(
                 np, B * V * logits.element_size(), wide[:B], cons_on[:B],
                 W))
         K = 8
@@ -375,24 +433,26 @@ def phase_masked_logits(torch, np, engine):
             raise AssertionError(f"masked_logits_span {dtype}: differs "
                                  f"from the plain version")
         ms = cuda_ms(torch, lambda: apply_grammar_mask_span(*sargs, **skw))
+        dev_ms = device_ms(torch, lambda: apply_grammar_mask_span(*sargs,
+                                                                  **skw))
         plain = cuda_ms(torch, lambda: masked_logits_span_ref(*sargs,
                                                               **skw))
-        out[("span", 8, dtype)] = (ms, plain, _mask_bytes(
+        out[("span", 8, dtype)] = (ms, dev_ms, plain, _mask_bytes(
             np, 8 * K * V * logits.element_size(), srows.reshape(8 * K, A),
             scons.reshape(-1), W))
-    for (form, B, dtype), (ms, plain, nbytes) in out.items():
+    for (form, B, dtype), (ms, dev_ms, plain, nbytes) in out.items():
         log(f"masked_logits {form} B={B}{' K=8' if form == 'span' else ''} "
-            f"{str(dtype)[6:]}: bitwise equal; {ms:.4f} ms; plain "
-            f"{plain:.4f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} "
-            f"ms ({nbytes} bytes)")
+            f"{str(dtype)[6:]}: bitwise equal; {ms:.4f} ms, device "
+            f"{dev_ms:.4f} ms; plain {plain:.4f} ms; bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} bytes)")
     row = lambda name, key, src_line: {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/masked_logits.cu",
         "replaces": f"src/repro/kernels/masked_logits/kernel.py:{src_line}",
         "launches": 0, "max_abs_err": max_err, "ms": out[key][0],
-        "plain_ms": out[key][1],
-        "bound_ms": out[key][2] / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None}
+        "device_ms": out[key][1], "plain_ms": out[key][2],
+        "bound_ms": out[key][3] / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None, "library_device_ms": None}
     return (row("masked_logits", ("row", 1, torch.bfloat16), 164),
             row("masked_logits_span", ("span", 8, torch.bfloat16), 112))
 
@@ -440,6 +500,7 @@ def phase_paged_attention(torch, np):
                 raise AssertionError(f"paged_attention S={S} {dtype}: max "
                                      f"abs err {err} > {tol}")
             ms = cuda_ms(torch, lambda: paged_attention(*args))
+            dev_ms = device_ms(torch, lambda: paged_attention(*args))
             plain = cuda_ms(torch, lambda: paged_attention_ref(*args))
             safe = t(pt).clamp(min=0).long()
             kc = kp[safe].reshape(B, L, K, Dh).transpose(1, 2)
@@ -449,8 +510,10 @@ def phase_paged_attention(torch, np):
             mask = mapped[:, None, :] & (torch.arange(
                 L, device=dev)[None, None, :] <= qpos[:, :, None])
             qt = q.transpose(1, 2)
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=mask[:, None], enable_gqa=True)
+            lib = cuda_ms(torch, sdpa)
+            lib_dev = device_ms(torch, sdpa)
             # this run's work: the mapped pages each slot reads up to its
             # last query, q and out once; 4 operations per (query head,
             # valid position, channel)
@@ -467,8 +530,9 @@ def phase_paged_attention(torch, np):
             bound = max(t_ops, t_bytes)
             by = "operations" if t_ops >= t_bytes else "bytes"
             log(f"paged_attention S={S} {str(dtype)[6:]}: max abs err "
-                f"{err:.3e} (tol {tol}); {ms:.4f} ms; plain {plain:.4f} ms;"
-                f" sdpa on the gathered view {lib:.4f} ms; bound "
+                f"{err:.3e} (tol {tol}); {ms:.4f} ms, device {dev_ms:.4f} "
+                f"ms; plain {plain:.4f} ms; sdpa on the gathered view "
+                f"{lib:.4f} ms, device {lib_dev:.4f} ms; bound "
                 f"{bound:.6f} ms ({by})")
             if S == 1:
                 # the [B, H, Dh] decode form launches the same kernel
@@ -478,16 +542,20 @@ def phase_paged_attention(torch, np):
                     raise AssertionError(f"paged_attention_decode {dtype}: "
                                          f"differs from the span form")
                 ms_d = cuda_ms(torch, lambda: paged_attention_decode(*dargs))
+                dev_d = device_ms(torch,
+                                  lambda: paged_attention_decode(*dargs))
                 log(f"paged_attention_decode {str(dtype)[6:]}: equal to the "
-                    f"span form at S=1; {ms_d:.4f} ms")
+                    f"span form at S=1; {ms_d:.4f} ms, device {dev_d:.4f} "
+                    f"ms")
             if S == 1 and dtype == torch.bfloat16:
                 row = {"name": "paged_attention_span", "route": "cuda",
                        "source": "src/repro_torch/csrc/paged_attention.cu",
                        "replaces": "src/repro/kernels/paged_attention/"
                                    "kernel.py:83",
                        "launches": 0, "max_abs_err": err, "ms": ms,
-                       "plain_ms": plain, "bound_ms": bound,
-                       "bound_by": by, "library_ms": lib}
+                       "device_ms": dev_ms, "plain_ms": plain,
+                       "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                       "library_device_ms": lib_dev}
     log("  (sdpa's time leaves out the page gather: it reads the already "
         "gathered dense view)")
     return row
@@ -686,31 +754,27 @@ def phase_new_paths(torch, engine, bundles, counters, dense_states):
     return found
 
 
-def phase_forward_breakdown(torch, engine, steps=20):
-    """Where one [B, V] decode forward's time goes at full width: the
-    host's dispatch time (no sync), the synced wall time, and the device
-    busy time summed over the kernels the profiler saw in the window;
-    busy / wall is the card's busy share."""
+def _step_breakdown(torch, label, step, steps=20, share_of=None):
+    """Where one decode step's time goes: the host's dispatch time (no
+    sync), the synced wall time, and the device busy time summed over the
+    kernels the profiler saw in the window; busy / wall is the card's busy
+    share. `share_of` names a kernel whose share of the busy time is
+    printed too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    B = engine.slots
-    dev = torch.device("cuda")
-    caches = engine.model.init_decode_caches(B, engine.max_len)
-    tok = torch.full((B,), 7, dtype=torch.int32, device=dev)
-    pos = torch.full((B,), 40, dtype=torch.int32, device=dev)
     for _ in range(3):
-        engine._decode(caches, tok, pos)
+        step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        engine._decode(caches, tok, pos)
+        step()
     dispatch = (time.perf_counter() - t0) / steps
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            engine._decode(caches, tok, pos)
+            step()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
@@ -719,14 +783,46 @@ def phase_forward_breakdown(torch, engine, steps=20):
     busy = (f"device busy {busy_us / 1e3:.4f} ms/step, busy share "
             f"{busy_us / 1e3 / (wall * 1e3):.3f}" if busy_us > 0 else
             "device busy not measured (the profiler saw no device time)")
-    log(f"decode forward breakdown (B={B}, {engine.model.cfg.name}, "
-        f"{engine.model.cfg.num_layers} layers, {steps} steps): wall "
-        f"{wall * 1e3:.4f} ms/step, host dispatch {dispatch * 1e3:.4f} "
-        f"ms/step; {busy}; {launches:.0f} kernels/step")
+    log(f"{label} ({steps} steps): wall {wall * 1e3:.4f} ms/step, host "
+        f"dispatch {dispatch * 1e3:.4f} ms/step; {busy}; {launches:.0f} "
+        f"kernels/step")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     log("  top kernels (ms/step): " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / steps / 1e3:.4f}"
         for e in top))
+    if share_of and busy_us > 0:
+        mine = [e for e in kern if share_of in e.key]
+        us = sum(e.self_device_time_total for e in mine) / steps
+        n = sum(e.count for e in mine) / steps
+        log(f"  {share_of}: {n:.0f} launches/step, {us / 1e3:.4f} ms/step "
+            f"device, {us / busy_us:.3f} of device busy")
+
+
+def phase_forward_breakdown(torch, engine):
+    """One [B, V] decode forward at full width, dense caches, then the
+    same step through page tables (32 pages of 16 per slot, the paged
+    run's shapes, each slot at position 300)."""
+    B = engine.slots
+    cfg = engine.model.cfg
+    dev = torch.device("cuda")
+    caches = engine.model.init_decode_caches(B, engine.max_len)
+    tok = torch.full((B,), 7, dtype=torch.int32, device=dev)
+    pos = torch.full((B,), 40, dtype=torch.int32, device=dev)
+    _step_breakdown(torch, f"decode forward breakdown (B={B}, {cfg.name}, "
+                    f"{cfg.num_layers} layers, dense caches)",
+                    lambda: engine._decode(caches, tok, pos))
+    ps = 16
+    nP = -(-engine.max_len // ps)
+    pools = engine.model.init_paged_caches(B * nP, ps)
+    table = torch.arange(B * nP, dtype=torch.int32, device=dev).reshape(
+        B, nP)
+    ppos = torch.full((B,), 300, dtype=torch.int32, device=dev)
+    _step_breakdown(torch, f"paged decode step breakdown (B={B}, "
+                    f"{cfg.name}, {cfg.num_layers} layers, {nP} pages of "
+                    f"{ps} per slot)",
+                    lambda: engine._span_decode(pools, tok[:, None], ppos,
+                                                None, table),
+                    share_of="paged_attention")
 
 
 def main():

@@ -13,30 +13,106 @@ plain-version calls); the decode form launches through it.
 from __future__ import annotations
 
 import ctypes
-import math
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
+from ..flash_attention.ops import aligned, qscale
 from .ref import paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
              + [ctypes.c_float, ctypes.c_void_p])
-_SMEM_MAX = 200 * 1024      # of the 227 KB a Hopper block may use
-_MAX_ROW_ELEMS = 4096       # rows x Dh accumulators per block (16/thread)
+SMEM_MAX = 200 * 1024       # of the 227 KB a Hopper block may use
+MAX_CLUSTER = 8             # the portable thread-block cluster size
+MAX_ROWS = 32               # query rows per cluster
+MMA_ROWS = 16               # bf16 spans of at least one mma row tile
+                            # take tiles of exactly one
+_LAUNCH: dict = {}          # "fn" -> the C entry point, typed once
 
 
-def _rows_per_block(rows, L, ps, Dh):
-    """Query rows per block: as many as the score buffer (rows x L fp32)
-    and the per-thread accumulators allow, at most 32."""
-    fixed = (ps * (Dh + 1) + 8) * 4
-    fit = (_SMEM_MAX - fixed) // ((Dh + L + 1) * 4)
-    R = min(32, rows, fit, _MAX_ROW_ELEMS // Dh)
-    if R < 1:
-        raise ValueError(f"paged_attention: L={L} positions do not fit one "
-                         f"block's shared memory")
-    return R
+class Plan(NamedTuple):
+    """One launch: a cluster of `C` blocks per (slot, kv head, tile of
+    `R` query rows), `tiles` tiles; block `rank` of a cluster takes pages
+    `pages_of(plan, rank, nP)` in chunks of `cpp` pages; `mma` runs both
+    products on tensor cores; `smem` dynamic bytes per block."""
+    C: int
+    ppb: int
+    cpp: int
+    R: int
+    tiles: int
+    mma: bool
+    smem: int
+
+
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def block_smem(R: int, ppb: int, cpp: int, ps: int, Dh: int, esz: int,
+               mma: bool = False) -> int:
+    """Dynamic shared memory of one block, laid out as the kernel lays it
+    out: a chunk of K or V pages in their dtype (rows padded to 16 for
+    mma), then the q rows (fp32; bf16 with the bf16 P rows for mma),
+    fp32 P.V partials, scores over the block's positions, four per-row
+    statistics, and the block's page ids."""
+    if mma:
+        kv = _up16(cpp * ps) * Dh * esz
+        qp = _up16(R) * (Dh + _up16(ppb * ps)) * esz
+    else:
+        kv = cpp * ps * Dh * esz
+        qp = R * Dh * 4
+    return kv + qp + R * Dh * 4 + R * ppb * ps * 4 + 4 * R * 4 + ppb * 4
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(S: int, H: int, K: int, Dh: int, ps: int, nP: int,
+                esz: int) -> Plan:
+    """Split the slot's nP pages over a cluster of at most MAX_CLUSTER
+    blocks (ceil(nP / C) contiguous pages each, no block left empty) and
+    pick the query rows per cluster (at most MAX_ROWS) and the pages per
+    shared-memory chunk so that a block fits SMEM_MAX. bf16 spans of at
+    least MMA_ROWS rows (Dh a multiple of 16) whose pages fit one chunk
+    take the tensor-core products in tiles of MMA_ROWS rows (faster than
+    tiles of 24-96 rows at 32 and 128 pages on an NVIDIA H100 80GB HBM3 at
+    700 W; PERF.md)."""
+    rows = S * (H // K)
+    C = min(MAX_CLUSTER, nP)
+    ppb = -(-nP // C)
+    C = -(-nP // ppb)
+    if esz == 2 and Dh % 16 == 0 and rows >= MMA_ROWS:
+        smem = block_smem(MMA_ROWS, ppb, ppb, ps, Dh, esz, True)
+        if smem <= SMEM_MAX:
+            return Plan(C, ppb, ppb, MMA_ROWS, -(-rows // MMA_ROWS), True,
+                        smem)
+    for R in range(min(MAX_ROWS, rows), 0, -1):
+        room = SMEM_MAX - block_smem(R, ppb, 0, ps, Dh, esz)
+        cpp = min(ppb, room // (ps * Dh * esz))
+        if cpp >= 1:
+            return Plan(C, ppb, cpp, R, -(-rows // R), False,
+                        block_smem(R, ppb, cpp, ps, Dh, esz))
+    raise ValueError(f"paged_attention: {nP} pages of {ps} positions do "
+                     f"not fit one block's shared memory")
+
+
+def pages_of(plan: Plan, rank: int, nP: int) -> range:
+    """The pages that block `rank` of a cluster reads (as the kernel)."""
+    beg = min(nP, rank * plan.ppb)
+    return range(beg, min(nP, beg + plan.ppb))
+
+
+def _launcher():
+    fn = _LAUNCH.get("fn")
+    if fn is None:
+        lib = _build.load()
+        fn = lib.paged_attention_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _LAUNCH["lib"] = lib
+        _LAUNCH["fn"] = fn
+    return _LAUNCH["lib"], fn
 
 
 def paged_attention(q, k_pool, v_pool, page_table, pos):
@@ -56,32 +132,32 @@ def paged_attention(q, k_pool, v_pool, page_table, pos):
     B, S, H, Dh = q.shape
     P, ps, K, _ = k_pool.shape
     nP = page_table.shape[1]
+    esz = q.element_size()
+    nch = Dh * esz // 16
     if tuple(k_pool.shape) != (P, ps, K, Dh) or \
             tuple(v_pool.shape) != (P, ps, K, Dh) or H % K or Dh > 256 or \
-            tuple(page_table.shape) != (B, nP) or \
+            Dh * esz % 16 or not (nch in (1, 2, 4) or nch % 8 == 0) or \
+            tuple(page_table.shape) != (B, nP) or nP < 1 or \
             page_table.dtype != torch.int32 or B > 65535:
         raise ValueError(f"paged_attention: unsupported shapes q "
                          f"{tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
                          f"page table {tuple(page_table.shape)} "
                          f"{page_table.dtype}")
+    plan = launch_plan(S, H, K, Dh, ps, nP, esz)
+    if K * plan.tiles > 65535:
+        raise ValueError(f"paged_attention: {S} span rows x {K} kv heads "
+                         f"exceed the grid")
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
-    q, k_pool, v_pool, page_table, pos = (
-        t.contiguous() for t in (q, k_pool, v_pool, page_table, pos))
-    L = nP * ps
-    rows = S * (H // K)
-    R = _rows_per_block(rows, L, ps, Dh)
-    smem = (R * Dh + ps * (Dh + 1) + R * L + 8) * 4
-    lib = _build.load()
-    fn = lib.paged_attention_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    q, page_table, pos = (t.contiguous() for t in (q, page_table, pos))
+    k_pool, v_pool = aligned(k_pool), aligned(v_pool)
+    lib, fn = _launcher()
     out = torch.empty_like(q)
-    qscale = float(torch.tensor(1.0 / math.sqrt(Dh), dtype=q.dtype))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    rc = fn(ptr(q), ptr(k_pool), ptr(v_pool), ptr(page_table), ptr(pos),
-            ptr(out), _DTYPES[q.dtype], B, S, H, K, Dh, ps, nP, R, smem,
-            qscale, ctypes.c_void_p(stream))
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, S, H, K, Dh, ps, nP, plan.R, plan.C,
+            plan.ppb, plan.cpp, int(plan.mma), plan.smem,
+            qscale(q.dtype, Dh), stream)
     _build.check(lib, rc, "paged_attention launch")
     paged_attention.launches += 1
     return out

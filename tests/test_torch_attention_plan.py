@@ -1,0 +1,87 @@
+"""The attention wrappers' launch planning, pure Python (no card needed).
+
+For every span width the paged engine feeds (`FEED_BUCKETS`), the page
+counts of smollm-360m and syncode-demo at max_len 512 and 2048 (16-token
+pages, the engine's default), head_dims 32/64/128 and both dtypes, the
+paged plan must fit a Hopper block's shared memory (227 KB), keep the
+cluster within the portable size (8 blocks), give every page of a slot
+to exactly one block of its cluster, and cover every query row; the
+flash plan must fit shared memory and cover every query row.
+"""
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention.ops import launch_plan as flash_plan
+from repro_torch.kernels.paged_attention.ops import (
+    MAX_CLUSTER, block_smem, launch_plan, pages_of)
+from repro_torch.serving.engine import FEED_BUCKETS
+
+SMEM_LIMIT = 227 * 1024         # a Hopper block's shared memory
+PAGE_SIZE = 16
+
+
+def _check_paged(S, H, K, Dh, ps, nP, esz):
+    plan = launch_plan(S, H, K, Dh, ps, nP, esz)
+    assert plan.smem <= SMEM_LIMIT
+    assert plan.smem == block_smem(plan.R, plan.ppb, plan.cpp, ps, Dh, esz,
+                                   plan.mma)
+    assert not plan.mma or (esz == 2 and plan.cpp == plan.ppb
+                            and Dh % 16 == 0)
+    assert 1 <= plan.C <= MAX_CLUSTER
+    assert 1 <= plan.cpp <= plan.ppb
+    owners = [r for p in range(nP) for r in range(plan.C)
+              if p in pages_of(plan, r, nP)]
+    assert len(owners) == nP                   # each page exactly once
+    assert all(len(pages_of(plan, r, nP)) > 0 for r in range(plan.C))
+    rows = S * (H // K)
+    assert 1 <= plan.R <= 32 and plan.tiles * plan.R >= rows
+    assert (plan.tiles - 1) * plan.R < rows    # no empty tile
+    return plan
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("S", FEED_BUCKETS)
+@pytest.mark.parametrize("max_len", [512, 2048])
+@pytest.mark.parametrize("arch", ["smollm-360m", "syncode-demo"])
+def test_paged_plan_fits_and_covers_every_page(arch, max_len, S, Dh):
+    cfg = get_config(arch)
+    nP = -(-max_len // PAGE_SIZE)
+    for esz in (2, 4):
+        _check_paged(S, cfg.num_heads, cfg.num_kv_heads, Dh, PAGE_SIZE, nP,
+                     esz)
+
+
+@pytest.mark.parametrize("nP", [1, 3, 7, 9, 33, 127, 1000])
+@pytest.mark.parametrize("ps", [8, 32])
+def test_paged_plan_odd_page_counts(nP, ps):
+    """Page counts the split does not divide, and a 16000-position slot
+    that needs chunks of pages."""
+    for esz in (2, 4):
+        plan = _check_paged(8, 15, 5, 128, ps, nP, esz)
+        if nP * ps >= 16000 and esz == 4:
+            assert plan.cpp < plan.ppb
+
+
+def test_paged_plan_served_shape():
+    """smollm-360m's paged run: 32 pages of 16, one cluster of 8 blocks
+    of 4 pages per (slot, kv head); S = 32 spans (96 rows) in six tiles of
+    16 rows on tensor cores in bf16."""
+    plan = launch_plan(1, 15, 5, 64, 16, 32, 2)
+    assert (plan.C, plan.ppb, plan.cpp, plan.R, plan.tiles, plan.mma) == (
+        8, 4, 4, 3, 1, False)
+    plan = launch_plan(32, 15, 5, 64, 16, 32, 2)
+    assert (plan.R, plan.tiles, plan.mma) == (16, 6, True)
+    assert not launch_plan(32, 15, 5, 64, 16, 32, 4).mma   # fp32: FMA
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Sq", [1, 16, 17, 300, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plan_fits_and_covers_every_row(Sq, Dh, dtype):
+    plan = flash_plan(dtype, 2, Sq, 15, Dh)
+    assert plan.smem <= SMEM_LIMIT
+    assert plan.threads == 128
+    tiles = plan.grid[1] if dtype == torch.bfloat16 else plan.grid[0]
+    assert tiles * 64 >= Sq > (tiles - 1) * 64
+    assert sorted(plan.grid) == sorted((tiles, 15, 2)) and plan.grid[2] == 2

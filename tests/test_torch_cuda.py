@@ -119,6 +119,51 @@ def test_flash_attention_kernel_matches_plain(dev, B, Sq, Sk, H, K, Dh,
     assert err <= atol, err
 
 
+def _flash_check(dev, B, Sq, Sk, H, K, Dh, window, causal, dtype):
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import chunked_attention
+    g = torch.Generator(dev).manual_seed(Sq * 1000 + Sk + Dh + H)
+    q = torch.randn((B, Sq, H, Dh), device=dev, generator=g).to(dtype)
+    k = torch.randn((B, Sk, K, Dh), device=dev, generator=g).to(dtype)
+    v = torch.randn((B, Sk, K, Dh), device=dev, generator=g).to(dtype)
+    before = attention.launches
+    out = attention(q, k, v, causal=causal, window=window)
+    assert attention.launches == before + 1
+    want = chunked_attention(q, k, v, causal=causal, q_offset=Sk - Sq,
+                             window=window)
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    assert out.dtype == dtype and out.shape == q.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= atol, err
+
+
+@pytest.mark.parametrize("Sq", [1, 15, 16, 17, 65])
+@pytest.mark.parametrize("Sk", [0, 300, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_ragged_queries(dev, Sq, Sk, dtype):
+    """Ragged q tiles right-aligned to up to 2048 keys (Sk = 0: Sk = Sq);
+    the main path's S = 16 prompt bucket is a quarter of a 64-row tile."""
+    _flash_check(dev, 1, Sq, Sk or Sq, 15, 5, 64, 0, True, dtype)
+
+
+@pytest.mark.parametrize("Sq,window", [(2048, 700), (300, 700),
+                                       (65, 700)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_at_long_prompts(dev, Sq, window, dtype):
+    """A 700-key window over 2048 keys: tiles left of the window are
+    skipped and the window's edge falls inside a key tile."""
+    _flash_check(dev, 1, Sq, 2048, 15, 5, 64, window, True, dtype)
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dims_and_groups(dev, Dh, G, dtype):
+    """Every head_dim instantiation under GQA group sizes 1, 3 and 8
+    (query head h reads KV head h // G), two sequences of 130 tokens."""
+    _flash_check(dev, 2, 130, 130, 2 * G, 2, Dh, 0, True, dtype)
+
+
 def test_model_on_card_matches_cpu(dev):
     """syncode-demo in fp32: prefill (bucket-padded) and decode logits and
     the caches on the card against the same weights on the CPU."""
@@ -240,3 +285,129 @@ def test_paged_attention_kernel_matches_plain(dev, B, S, H, K, Dh, ps, nP,
     if S == 1:
         d = paged_attention_decode(q[:, 0], kp, vp, t(pt), t(pos))
         assert torch.equal(d, out[:, 0])
+
+
+def _paged_check(dev, q, kp, vp, pt, pos, dtype):
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_decode)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = (q, kp, vp, t(pt), t(pos))
+    before = paged_attention.launches
+    out = paged_attention(*args)
+    assert paged_attention.launches == before + 1
+    want = paged_attention_ref(*args)
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -5
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= atol, err
+    if q.shape[1] == 1:
+        d = paged_attention_decode(q[:, 0], *args[1:])
+        assert torch.equal(d, out[:, 0])
+
+
+def _paged_inputs(dev, seed, B, S, H, K, Dh, ps, nP, P, dtype):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    q = t(rng.normal(size=(B, S, H, Dh)).astype(np.float32)).to(dtype)
+    kp = t(rng.normal(size=(P, ps, K, Dh)).astype(np.float32)).to(dtype)
+    vp = t(rng.normal(size=(P, ps, K, Dh)).astype(np.float32)).to(dtype)
+    pt = rng.permutation(P)[:B * nP].reshape(B, nP).astype(np.int32) \
+        if B * nP <= P else rng.integers(0, P, size=(B, nP)).astype(np.int32)
+    L = nP * ps
+    pos = rng.integers(0, L - S + 1, size=B).astype(np.int32)
+    return rng, q, kp, vp, pt, pos
+
+
+@pytest.mark.parametrize("nP", [1, 3, 33])
+@pytest.mark.parametrize("S", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_page_counts_off_the_split(dev, nP, S, dtype):
+    """Page counts that the cluster split does not divide evenly (33
+    pages: six blocks of 5 and one of 3), with holes."""
+    rng, q, kp, vp, pt, pos = _paged_inputs(dev, nP * 10 + S, 4, S, 15, 5,
+                                            64, 16, nP, 160, dtype)
+    if nP > 1:
+        pt[:, 1:][rng.random((4, nP - 1)) < 0.2] = -1
+    _paged_check(dev, q, kp, vp, pt, pos, dtype)
+
+
+@pytest.mark.parametrize("S", [1, 8, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_split_with_no_mapped_page(dev, S, dtype):
+    """One block of a slot's cluster (pages 4-7 of 32) is all unmapped,
+    another slot's pages past its queries are unmapped: those blocks
+    still join every cluster barrier and add nothing."""
+    from repro_torch.kernels.paged_attention.ops import launch_plan
+    B, nP, ps = 4, 32, 16
+    rng, q, kp, vp, pt, pos = _paged_inputs(dev, 40 + S, B, S, 15, 5, 64,
+                                            ps, nP, 256, dtype)
+    plan = launch_plan(S, 15, 5, 64, ps, nP, q.element_size())
+    assert plan.ppb == 4 and plan.C == 8
+    pt[0, 4:8] = -1
+    pos[0] = 20 * ps
+    pt[1, 10:] = -1
+    pos[1] = 9 * ps
+    _paged_check(dev, q, kp, vp, pt, pos, dtype)
+
+
+@pytest.mark.parametrize("S", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_slot_with_every_page_unmapped(dev, S, dtype):
+    """A slot whose pages are all unmapped: its rows have no valid
+    position and take uniform weights over all L positions, reading page
+    0 in every block of the cluster."""
+    rng, q, kp, vp, pt, pos = _paged_inputs(dev, 50 + S, 3, S, 15, 5, 64,
+                                            16, 32, 128, dtype)
+    pt[1] = -1
+    _paged_check(dev, q, kp, vp, pt, pos, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_span_at_the_end(dev, dtype):
+    """S = 32 with pos at L - S: the span's last query sees every
+    position of the slot."""
+    B, S, nP, ps = 8, 32, 32, 16
+    rng, q, kp, vp, pt, pos = _paged_inputs(dev, 60, B, S, 15, 5, 64, ps,
+                                            nP, 256, dtype)
+    pos[:] = nP * ps - S
+    pt[2, 5] = -1
+    _paged_check(dev, q, kp, vp, pt, pos, dtype)
+
+
+@pytest.mark.parametrize("ps", [8, 32])
+@pytest.mark.parametrize("S", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_page_sizes(dev, ps, S, dtype):
+    """Pages of 8 and 32 positions over 512 positions per slot."""
+    nP = 512 // ps
+    rng, q, kp, vp, pt, pos = _paged_inputs(dev, ps * 7 + S, 8, S, 15, 5,
+                                            64, ps, nP, 8 * nP + 8, dtype)
+    pt[:, 1:][rng.random((8, nP - 1)) < 0.15] = -1
+    _paged_check(dev, q, kp, vp, pt, pos, dtype)
+
+
+def test_flash_attention_plan_matches_the_kernel(dev):
+    """The wrapper's launch plan asks for the shared memory that the
+    kernel of each (dtype, head_dim) uses."""
+    from repro_torch.kernels.flash_attention.ops import _launcher, launch_plan
+    lib, _ = _launcher()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for Dh in (32, 64, 128):
+            assert lib.flash_attention_smem_bytes(code, Dh) == \
+                launch_plan(dtype, 1, 16, 15, Dh).smem
+
+
+@pytest.mark.parametrize("S", [1, 8])
+def test_paged_attention_pages_in_chunks(dev, S):
+    """fp32 with Dh = 128 and 120 pages of 32 positions: a block's 15
+    pages do not fit its shared memory at once and go in chunks; a slot
+    with no mapped page makes its clusters read every chunk's pages."""
+    from repro_torch.kernels.paged_attention.ops import launch_plan
+    B, nP, ps = 3, 120, 32
+    rng, q, kp, vp, pt, pos = _paged_inputs(dev, 70 + S, B, S, 15, 5, 128,
+                                            ps, nP, B * nP, torch.float32)
+    plan = launch_plan(S, 15, 5, 128, ps, nP, 4)
+    assert plan.cpp < plan.ppb
+    pt[0, 1:][rng.random(nP - 1) < 0.2] = -1
+    pt[2] = -1
+    _paged_check(dev, q, kp, vp, pt, pos, torch.float32)
