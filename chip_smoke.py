@@ -15,7 +15,9 @@ no result line):
    version on the card and timed with CUDA events (median of 25) beside
    the plain version, its bound and, where one PyTorch call computes the
    same function, that call:
-   `fused_select` (B=8, V=49152, real json mask-store rows),
+   `fused_select` (B=8, V=49152, real json mask-store rows; sample and
+   greedy mode, and every row sampled at top_p 0.95 with top_k 40 or
+   with top_k 0),
    `flash_attention` ([1,S,15,64] q, [1,S,5,64] k/v, bf16, S in
    7/32/300/2048, plus an fp32 mask-exactness check),
    `masked_logits` and `masked_logits_span` (B=8 and the sequential
@@ -35,10 +37,11 @@ no result line):
    over dense caches (the same 16); paged `generate()` (the same 16 plus
    8 sharing a >= 256-token prefix); `generate_speculative` over pages
    (8 requests x 32 new tokens); `generate_sequential` (4 x 32);
-6. decode forward breakdown at full width, for a dense decode step and
-   a paged one (B=8, 32 pages per slot): host dispatch, synced wall and
-   profiler-measured device busy time per step, the kernels that take
-   most of it, and paged_attention's share of the paged step.
+6. decode step breakdown at full width, forward + fused_select, for a
+   dense decode step and a paged one (B=8, 32 pages per slot): host
+   dispatch, synced wall and profiler-measured device busy time per step,
+   the kernels that take most of it, fused_select's device ms per step
+   and share in both, and paged_attention's in the paged step.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -260,20 +263,46 @@ def phase_fused_select(torch, np, engine):
     ms = cuda_ms(torch, lambda: fused_mask_select(*args, noise=noise))
     dev_ms = device_ms(torch, lambda: fused_mask_select(*args, noise=noise))
     ms_greedy = cuda_ms(torch, lambda: fused_mask_select(*args))
+    dev_greedy = device_ms(torch, lambda: fused_mask_select(*args))
     plain = cuda_ms(torch, lambda: fused_select_ref(*args, noise=noise))
+    # the sampled path's two cases apart: every row sampled at top_p 0.95
+    # with top_k 40 (list by rank) or top_k 0 (list by mass, or the radix
+    # route where the nucleus overflows the list)
+    every = lambda v, dt: torch.full((B,), v, dtype=dt, device=dev)
+    route_ms = {}
+    for name, k in (("k40", 40), ("k0", 0)):
+        rargs = (logits, store, rows_t, cd_t, eos_t, cons_t,
+                 every(False, torch.bool), temp, every(k, torch.int32),
+                 every(0.95, torch.float32))
+        route_ms[name] = device_ms(
+            torch, lambda: fused_mask_select(*rargs, noise=noise))
+    # bytes the function must move: logits in, masked out, the union's
+    # store rows and residue, and noise only where a sampled row's entry
+    # survives the filter
+    from repro_torch.core.decoding import NEG_INF, topk_topp_filter
+    masked = fused_select_ref(*args)[1]
+    scaled = topk_topp_filter(
+        masked / torch.clamp(temp, min=1e-6)[:, None], top_k, top_p)
+    survivors = int(((scaled > NEG_INF / 2) & ~greedy[:, None]).sum())
     n_rows = int((rows >= 0)[np.array(cons_on)].sum())
-    nbytes = (B * V * 2 * 2 + B * V * 4 + n_rows * W * 4 + B * W * 4
+    nbytes = (B * V * 2 * 2 + survivors * 4 + n_rows * W * 4 + B * W * 4
               + rows.size * 4 + B * (3 + 4 * 3 + 4 + 1))
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"fused_select (sample mode) {ms:.4f} ms, device {dev_ms:.4f} "
-        f"ms; greedy mode {ms_greedy:.4f} ms; plain {plain:.4f} ms; bound "
-        f"{bound:.6f} ms ({nbytes} bytes)")
+        f"ms; greedy mode {ms_greedy:.4f} ms, device {dev_greedy:.4f} ms; "
+        f"every row sampled, top_p 0.95: top_k 40 device "
+        f"{route_ms['k40']:.4f} ms, top_k 0 device {route_ms['k0']:.4f} "
+        f"ms; plain {plain:.4f} ms; bound "
+        f"{bound:.6f} ms ({nbytes} bytes, {survivors} surviving entries)")
     return {"name": "fused_select", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_select.cu",
             "replaces": "src/repro/kernels/fused_select/kernel.py:96",
             "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": None,
+            "device_ms": dev_ms, "greedy_ms": ms_greedy,
+            "greedy_device_ms": dev_greedy,
+            "sampled_k40_device_ms": route_ms["k40"],
+            "sampled_k0_device_ms": route_ms["k0"], "plain_ms": plain,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
             "library_device_ms": None}
 
 
@@ -754,12 +783,12 @@ def phase_new_paths(torch, engine, bundles, counters, dense_states):
     return found
 
 
-def _step_breakdown(torch, label, step, steps=20, share_of=None):
+def _step_breakdown(torch, label, step, steps=20, share_of=()):
     """Where one decode step's time goes: the host's dispatch time (no
     sync), the synced wall time, and the device busy time summed over the
     kernels the profiler saw in the window; busy / wall is the card's busy
-    share. `share_of` names a kernel whose share of the busy time is
-    printed too."""
+    share. `share_of` names kernels whose launches, device ms per step and
+    share of the busy time are printed too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -790,39 +819,56 @@ def _step_breakdown(torch, label, step, steps=20, share_of=None):
     log("  top kernels (ms/step): " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / steps / 1e3:.4f}"
         for e in top))
-    if share_of and busy_us > 0:
-        mine = [e for e in kern if share_of in e.key]
+    for name in share_of if busy_us > 0 else ():
+        mine = [e for e in kern if name in e.key]
         us = sum(e.self_device_time_total for e in mine) / steps
         n = sum(e.count for e in mine) / steps
-        log(f"  {share_of}: {n:.0f} launches/step, {us / 1e3:.4f} ms/step "
+        log(f"  {name}: {n:.0f} launches/step, {us / 1e3:.4f} ms/step "
             f"device, {us / busy_us:.3f} of device busy")
 
 
 def phase_forward_breakdown(torch, engine):
-    """One [B, V] decode forward at full width, dense caches, then the
-    same step through page tables (32 pages of 16 per slot, the paged
-    run's shapes, each slot at position 300)."""
+    """One decode step at full width, a [B, V] forward on dense caches and
+    the selection of its ids, then the same step through page tables (32
+    pages of 16 per slot, the paged run's shapes, each slot at position
+    300). The selection is the e2e runs' mix: half the rows greedy, half
+    sampled at temperature 0.8, top_k 40, top_p 0.95, unconstrained."""
+    import numpy as np
+    from repro_torch.kernels.fused_select.ops import fused_mask_select
+    from repro_torch.kernels.fused_select.ref import gumbel_noise
     B = engine.slots
     cfg = engine.model.cfg
     dev = torch.device("cuda")
+    full = lambda v, dt: torch.full((B,), v, dtype=dt, device=dev)
+    sel = (engine._store_cat,
+           torch.full((B, 1), -1, dtype=torch.int32, device=dev), None,
+           full(False, torch.bool), full(False, torch.bool),
+           torch.arange(B, device=dev) % 2 == 0, full(0.8, torch.float32),
+           full(40, torch.int32), full(0.95, torch.float32))
+    keys = np.arange(2 * B, dtype=np.uint32).reshape(B, 2)
+    noise = gumbel_noise(keys, cfg.vocab_size, dev)
+    select = lambda logits: fused_mask_select(
+        logits.reshape(B, -1), *sel, noise=noise)
     caches = engine.model.init_decode_caches(B, engine.max_len)
     tok = torch.full((B,), 7, dtype=torch.int32, device=dev)
     pos = torch.full((B,), 40, dtype=torch.int32, device=dev)
-    _step_breakdown(torch, f"decode forward breakdown (B={B}, {cfg.name}, "
-                    f"{cfg.num_layers} layers, dense caches)",
-                    lambda: engine._decode(caches, tok, pos))
+    _step_breakdown(torch, f"decode step breakdown, forward + select (B={B}"
+                    f", {cfg.name}, {cfg.num_layers} layers, dense caches)",
+                    lambda: select(engine._decode(caches, tok, pos)),
+                    share_of=("fused_select",))
     ps = 16
     nP = -(-engine.max_len // ps)
     pools = engine.model.init_paged_caches(B * nP, ps)
     table = torch.arange(B * nP, dtype=torch.int32, device=dev).reshape(
         B, nP)
     ppos = torch.full((B,), 300, dtype=torch.int32, device=dev)
-    _step_breakdown(torch, f"paged decode step breakdown (B={B}, "
+    _step_breakdown(torch, f"paged decode step breakdown, forward + select "
+                    f"(B={B}, "
                     f"{cfg.name}, {cfg.num_layers} layers, {nP} pages of "
                     f"{ps} per slot)",
-                    lambda: engine._span_decode(pools, tok[:, None], ppos,
-                                                None, table),
-                    share_of="paged_attention")
+                    lambda: select(engine._span_decode(
+                        pools, tok[:, None], ppos, None, table)),
+                    share_of=("paged_attention", "fused_select"))
 
 
 def main():

@@ -13,6 +13,7 @@ launches (never plain-version calls).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -23,6 +24,62 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13
              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NEG: dict = {}             # dtype -> NEG_INF rounded to dtype
+_LAUNCH: dict = {}          # "fn" -> the C entry point, typed once
+_SMEM_CHECKED: set = set()  # (dtype code, W) whose plan the library confirmed
+
+THREADS = 1024              # one block per row
+CAP = 4096                  # candidate-list entries (kCap in the kernel)
+BINS = 4096                 # first-level histogram: top 12 key bits
+MAX_WORDS = 12288           # union words the kernel takes (V <= 393216)
+
+
+class Plan(NamedTuple):
+    """One launch: threads per block (one block per row), the candidate
+    list's capacity and dynamic shared memory per block."""
+    V: int
+    threads: int
+    cap: int
+    smem: int
+
+    def list_route(self, top_k: int) -> bool:
+        """Whether a sampled row whose top_k is on may take the candidate
+        list: 0 < top_k < V and top_k <= cap. It does when its candidates
+        (the entries at or above the first-level bin of rank top_k) fit
+        `cap`; a row whose top_k is above `cap` takes the radix route. (A
+        row with top_k off and top_p < 1 may take the list by mass.)"""
+        return 0 < top_k < self.V and top_k <= self.cap
+
+
+def launch_plan(V: int, W: int, dtype) -> Plan:
+    """The kernel's launch for [B, V] logits of `dtype` and W union words:
+    the candidate list (8 B per entry: fp32 key and index, whatever the
+    dtype), the first-level histogram (4 B per bin) and the union (4 B per
+    word). `fused_select_smem_bytes` in the library must agree."""
+    del dtype   # the list holds fp32 keys for either logit type
+    return Plan(V, THREADS, CAP, 8 * CAP + 4 * BINS + 4 * W)
+
+
+def _neg(dtype) -> float:
+    """NEG_INF rounded to `dtype`, as the plain version fills."""
+    n = _NEG.get(dtype)
+    if n is None:
+        n = _NEG[dtype] = float(torch.tensor(NEG_INF, dtype=dtype))
+    return n
+
+
+def _launcher():
+    fn = _LAUNCH.get("fn")
+    if fn is None:
+        lib = _build.load()
+        fn = lib.fused_select_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.fused_select_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.fused_select_smem_bytes.restype = ctypes.c_int
+        _LAUNCH["lib"] = lib
+        _LAUNCH["fn"] = fn
+    return _LAUNCH["lib"], fn
 
 
 def _check(t, name, dtype, shape, device):
@@ -35,7 +92,7 @@ def _check(t, name, dtype, shape, device):
 
 
 def _ptr(t):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    return None if t is None else t.data_ptr()
 
 
 def fused_mask_select(logits, store, rows, cd, eos_allowed, constrained,
@@ -63,7 +120,7 @@ def fused_mask_select(logits, store, rows, cd, eos_allowed, constrained,
     B, V = logits.shape
     R, W = store.shape
     A = rows.shape[1]
-    if V % 32 or W * 32 < V or W > 12288 or A < 1:
+    if V % 32 or W * 32 < V or W > MAX_WORDS or A < 1:
         raise ValueError(f"fused_select: unsupported V={V}, W={W}, A={A}")
     _check(store, "store", torch.int32, (R, W), dev)
     _check(rows, "rows", torch.int32, (B, A), dev)
@@ -78,21 +135,27 @@ def fused_mask_select(logits, store, rows, cd, eos_allowed, constrained,
     _check(top_p, "top_p", torch.float32, (B,), dev)
     if noise is not None:
         _check(noise, "noise", torch.float32, (B, V), dev)
-    lib = _build.load()
-    fn = lib.fused_select_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    if logits.data_ptr() % 16:      # the kernel reads 16 bytes at a time
+        logits = logits.clone()
+    lib, fn = _launcher()
+    code = _DTYPES[logits.dtype]
+    if (code, W) not in _SMEM_CHECKED:
+        want = launch_plan(V, W, logits.dtype).smem
+        got = lib.fused_select_smem_bytes(code, W)
+        if got != want:
+            raise RuntimeError(f"fused_select: launch plan asks for {want} "
+                               f"bytes of shared memory, the kernel for "
+                               f"{logits.dtype}, W={W} uses {got}")
+        _SMEM_CHECKED.add((code, W))
     ids = torch.empty(B, dtype=torch.int32, device=dev)
     masked = torch.empty_like(logits)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
-    neg = float(torch.tensor(NEG_INF, dtype=logits.dtype))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(_ptr(logits), _DTYPES[logits.dtype], _ptr(store), _ptr(rows),
-            _ptr(cd), _ptr(eos_allowed), _ptr(constrained),
-            _ptr(greedy_flags), _ptr(temperature), _ptr(top_k), _ptr(top_p),
-            _ptr(noise), _ptr(ids), _ptr(masked), _ptr(ok), B, V, W, A, R,
-            eos_id, neg, 0 if noise is None else 1,
-            ctypes.c_void_p(stream))
+    rc = fn(_ptr(logits), code, _ptr(store), _ptr(rows), _ptr(cd),
+            _ptr(eos_allowed), _ptr(constrained), _ptr(greedy_flags),
+            _ptr(temperature), _ptr(top_k), _ptr(top_p), _ptr(noise),
+            _ptr(ids), _ptr(masked), _ptr(ok), B, V, W, A, R, eos_id,
+            _neg(logits.dtype), 0 if noise is None else 1, stream)
     _build.check(lib, rc, "fused_select launch")
     fused_mask_select.launches += 1
     return ids, masked, ok

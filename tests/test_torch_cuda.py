@@ -17,6 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_select_cases import B as B_CASE
+from _torch_select_cases import (CASES, EXPECTED_ROUTES, case_inputs,
+                                 mask_np, routes)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -89,6 +93,61 @@ def test_fused_select_kernel_matches_plain(dev, B, V, R, A, dtype):
         assert torch.equal(mk.view(bits), mr.view(bits))
         assert torch.equal(ok_k, ok_r)
         assert torch.equal(ik, ir), (ik, ir)
+
+
+@pytest.mark.parametrize("V", [8192, 49152])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_select_edge_rows(dev, case, V, dtype):
+    """Rows that reach both routes of the kernel and their edges: bf16
+    ties at the k-th value, fewer allowed ids than top_k, an all-masked
+    row (ok False, id 0), top_k 0 with top_p < 1, a candidate set over
+    the plan's list capacity (and a top_k over it), the engine's resample
+    form (rows -1, cd None, unconstrained, one id banned)."""
+    from repro_torch.kernels.fused_select.ops import (fused_mask_select,
+                                                      launch_plan)
+    from repro_torch.kernels.fused_select.ref import fused_select_ref
+    cap = launch_plan(V, V // 32, dtype).cap
+    x = case_inputs(case, V, cap, seed=CASES.index(case),
+                    bf16=dtype == torch.bfloat16)
+    assert EXPECTED_ROUTES[case] <= set(routes(x, cap))
+    x["top_p"] = _off_edge(mask_np(x) / np.maximum(x["temp"], 1e-6)[:, None],
+                           x["top_k"], x["top_p"])
+    t = lambda a: None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32
+                             else a)).to(dev)
+    args = tuple(t(x[n]) for n in ("logits", "store", "rows", "cd", "eos",
+                                   "cons", "greedy", "temp", "top_k",
+                                   "top_p"))
+    args = (args[0].to(dtype),) + args[1:]
+    noise = -torch.log(-torch.log(torch.rand(
+        (B_CASE, V), device=dev, generator=torch.Generator(dev)
+        .manual_seed(5)).clamp(min=torch.finfo(torch.float32).tiny)))
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for nz in (None, noise):
+        before = fused_mask_select.launches
+        ik, mk, ok_k = fused_mask_select(*args, noise=nz)
+        assert fused_mask_select.launches == before + 1
+        ir, mr, ok_r = fused_select_ref(*args, noise=nz)
+        torch.cuda.synchronize()
+        assert torch.equal(mk.view(bits), mr.view(bits))
+        assert torch.equal(ok_k, ok_r)
+        assert torch.equal(ik, ir), (x["top_k"], ik, ir)
+    if case == "all_masked":
+        assert not ok_k.any() and not ik.any()
+
+
+def test_fused_select_plan_matches_the_kernel(dev):
+    """The wrapper's launch plan asks for the shared memory that the
+    kernel uses, for every union width up to the limit."""
+    from repro_torch.kernels.fused_select.ops import (MAX_WORDS, _launcher,
+                                                      launch_plan)
+    lib, _ = _launcher()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for W in (1, 16, 1536, 4748, MAX_WORDS):
+            assert lib.fused_select_smem_bytes(code, W) == \
+                launch_plan(32 * W, W, dtype).smem
+        assert lib.fused_select_smem_bytes(code, MAX_WORDS + 1) == -1
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,K,Dh,window,causal", [

@@ -22,6 +22,8 @@ from repro.kernels.fused_select.ref import gumbel_noise as jax_gumbel
 from repro.kernels.masked_logits.ref import masked_logits_ref as jax_mask
 from repro_torch.kernels.fused_select import ops
 from repro_torch.kernels.masked_logits.ref import masked_logits_ref
+from _torch_select_cases import (CASES, EXPECTED_ROUTES, case_inputs,
+                                 mask_np, routes)
 
 EDGE = 1e-5
 
@@ -184,3 +186,38 @@ def test_wrapper_refuses_other_devices():
     meta = tuple(t.to("meta") for t in x)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.fused_mask_select(*meta)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_edge_rows_match_ref_bitwise(case, bf16):
+    """The rows that reach the card kernel's two routes and their edges
+    (ties at the k-th value, fewer allowed ids than top_k, an all-masked
+    row, top_k 0 with top_p < 1, a candidate set over the list's
+    capacity, the engine's resample form): the port's plain version
+    against the reference's, bitwise, off the nucleus edge."""
+    V = 8192
+    dtype = jnp.bfloat16 if bf16 else jnp.float32
+    cap = ops.launch_plan(V, V // 32, torch.float32).cap
+    x = case_inputs(case, V, cap, seed=CASES.index(case), bf16=bf16)
+    assert EXPECTED_ROUTES[case] <= set(routes(x, cap))
+    x["top_p"] = _off_edge(mask_np(x) / np.maximum(x["temp"], 1e-6)[:, None],
+                           x["top_k"], x["top_p"])
+    names = ("logits", "store", "rows", "cd", "eos", "cons", "greedy",
+             "temp", "top_k", "top_p")
+    jx = tuple(None if x[n] is None else jnp.asarray(x[n]) for n in names)
+    jx = (jx[0].astype(dtype),) + jx[1:]
+    tx = tuple(None if x[n] is None else _t(x[n]) for n in names)
+    tx = (tx[0].to(torch.bfloat16 if bf16 else torch.float32),) + tx[1:]
+    noise = np.array(jax_gumbel(jnp.asarray(x["keys"]), V))
+    for nz in (None, noise):
+        ids_r, masked_r = jax_ref(*jx, noise=None if nz is None
+                                  else jnp.asarray(nz))
+        ids, masked, ok = ops.fused_mask_select(
+            *tx, noise=None if nz is None else torch.from_numpy(nz))
+        np.testing.assert_array_equal(_bits(masked), _bits(masked_r))
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(ids_r))
+        np.testing.assert_array_equal(
+            ok.numpy(), (np.asarray(masked_r, np.float32) > -5e29).any(-1))
+    if case == "all_masked":
+        assert not ok.any() and not ids.any()
