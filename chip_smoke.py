@@ -22,7 +22,9 @@ no result line):
    7/32/300/2048, plus an fp32 mask-exactness check),
    `masked_logits` and `masked_logits_span` (B=8 and the sequential
    path's B=1, K=8 spans, V=49152, real json rows, constrained=False
-   rows and a row at A=384; bitwise, bf16 and fp32),
+   rows; at the engine's accept bucket A=48 and at A=384 with one row of
+   384 ids; bitwise, bf16 and fp32; beside them one masked_fill over the
+   unpacked mask as a floor for one elementwise pass),
    `paged_attention_span` (B=8, 15/5 heads, Dh 64, 16-token pages, 32
    pages per slot, a 256-page pool with holes and shared pages, S in
    1/8/32, bf16 and fp32; its decode form `paged_attention_decode` at
@@ -396,12 +398,19 @@ def phase_attention(torch, np, main_S):
 def phase_masked_logits(torch, np, engine):
     """Both entry points, bitwise against the plain version, bf16 and
     fp32, on real json rows; timed at the sequential path's B=1, at B=8,
-    and as the K=8 span."""
+    and as the K=8 span, each at the accept bucket the engine launches
+    (A = MAX_ACCEPT = 48) and at a wide one (A = 384, one row of 384 real
+    ids). Beside them, one `masked_fill` over an already unpacked mask:
+    an informational floor for one elementwise pass at this V (not the
+    same function, so `library_ms` stays null)."""
     from repro_torch.core.constrain import GrammarConstraint, MAX_ACCEPT
+    from repro_torch.core.decoding import union_packed_rows, \
+        unpack_mask_words
+    from repro_torch.core.tokenizer import EOS_ID
     from repro_torch.kernels.masked_logits.ops import (
         apply_grammar_mask, apply_grammar_mask_span)
     from repro_torch.kernels.masked_logits.ref import (
-        masked_logits_ref, masked_logits_span_ref)
+        NEG_INF, masked_logits_ref, masked_logits_span_ref)
     dev = torch.device("cuda")
     g, tab, store_np = engine.bundles["json"]
     store = torch.from_numpy(store_np.packed.view(np.int32)).to(dev)
@@ -421,59 +430,68 @@ def phase_masked_logits(torch, np, engine):
     wide[7] = np.random.default_rng(5).integers(0, R, A)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     rng = np.random.default_rng(6)
-    out, max_err = {}, 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        for B in (1, 8):
-            logits = t(rng.normal(scale=3.0, size=(B, V)).astype(
-                np.float32)).to(dtype)
-            args = (logits, store, t(wide[:B]), t(eos[:B]))
-            kw = {"constrained": t(cons_on[:B]),
-                  "cd": t(cd[:B].view(np.int32))}
-            mk = apply_grammar_mask(*args, **kw)
-            mr = masked_logits_ref(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(mk.view(bits), mr.view(bits)):
-                raise AssertionError(f"masked_logits B={B} {dtype}: "
-                                     f"differs from the plain version")
-            max_err = max(max_err, (mk.float() - mr.float()).abs().max()
-                          .item())
-            ms = cuda_ms(torch, lambda: apply_grammar_mask(*args, **kw))
-            dev_ms = device_ms(torch, lambda: apply_grammar_mask(*args,
-                                                                 **kw))
-            plain = cuda_ms(torch, lambda: masked_logits_ref(*args, **kw))
-            out[("row", B, dtype)] = (ms, dev_ms, plain, _mask_bytes(
-                np, B * V * logits.element_size(), wide[:B], cons_on[:B],
-                W))
-        K = 8
-        logits = t(rng.normal(scale=3.0, size=(8, K, V)).astype(
-            np.float32)).to(dtype)
-        srows = np.repeat(wide[:, None], K, axis=1)
-        scons = np.repeat(cons_on[:, None], K, axis=1)
-        scons[:, K // 2:] &= rng.random((8, K - K // 2)) < 0.5
-        sargs = (logits, store, t(srows), t(np.repeat(eos[:, None], K,
-                                                      axis=1)))
-        skw = {"constrained": t(scons),
-               "cd": t(np.repeat(cd[:, None], K, axis=1).view(np.int32))}
-        mk = apply_grammar_mask_span(*sargs, **skw)
-        mr = masked_logits_span_ref(*sargs, **skw)
+    out, floor, max_err = {}, {}, 0.0
+
+    def check_and_time(key, fn, ref, args, kw, n_rows, rset, cset):
+        nonlocal max_err
+        bits = torch.int16 if key[2] == torch.bfloat16 else torch.int32
+        mk, mr = fn(*args, **kw), ref(*args, **kw)
         torch.cuda.synchronize()
         if not torch.equal(mk.view(bits), mr.view(bits)):
-            raise AssertionError(f"masked_logits_span {dtype}: differs "
-                                 f"from the plain version")
-        ms = cuda_ms(torch, lambda: apply_grammar_mask_span(*sargs, **skw))
-        dev_ms = device_ms(torch, lambda: apply_grammar_mask_span(*sargs,
-                                                                  **skw))
-        plain = cuda_ms(torch, lambda: masked_logits_span_ref(*sargs,
-                                                              **skw))
-        out[("span", 8, dtype)] = (ms, dev_ms, plain, _mask_bytes(
-            np, 8 * K * V * logits.element_size(), srows.reshape(8 * K, A),
-            scons.reshape(-1), W))
-    for (form, B, dtype), (ms, dev_ms, plain, nbytes) in out.items():
+            raise AssertionError(f"masked_logits {key}: differs from the "
+                                 f"plain version")
+        max_err = max(max_err, (mk.float() - mr.float()).abs().max().item())
+        out[key] = (cuda_ms(torch, lambda: fn(*args, **kw)),
+                    device_ms(torch, lambda: fn(*args, **kw)),
+                    cuda_ms(torch, lambda: ref(*args, **kw)),
+                    _mask_bytes(np, args[0].numel() * args[0].element_size(),
+                                rset.reshape(n_rows, -1), cset.reshape(-1),
+                                W))
+        if key[2] == torch.bfloat16 and key[3] == MAX_ACCEPT:
+            x = args[0].reshape(n_rows, V)
+            words = union_packed_rows(store, kw["cd"].new_tensor(
+                rset.reshape(n_rows, -1))) | kw["cd"].reshape(n_rows, W)
+            allow = unpack_mask_words(words, V)
+            allow[:, EOS_ID] |= args[3].reshape(-1)
+            allow |= ~kw["constrained"].reshape(-1, 1)
+            floor[key[:2]] = (
+                cuda_ms(torch, lambda: x.masked_fill(~allow, NEG_INF)),
+                device_ms(torch, lambda: x.masked_fill(~allow, NEG_INF)))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for a, rset in ((A, wide), (MAX_ACCEPT, rows)):
+            for B in (1, 8):
+                logits = t(rng.normal(scale=3.0, size=(B, V)).astype(
+                    np.float32)).to(dtype)
+                args = (logits, store, t(rset[:B]), t(eos[:B]))
+                kw = {"constrained": t(cons_on[:B]),
+                      "cd": t(cd[:B].view(np.int32))}
+                check_and_time(("row", B, dtype, a), apply_grammar_mask,
+                               masked_logits_ref, args, kw, B, rset[:B],
+                               cons_on[:B])
+            K = 8
+            logits = t(rng.normal(scale=3.0, size=(8, K, V)).astype(
+                np.float32)).to(dtype)
+            srows = np.repeat(rset[:, None], K, axis=1)
+            scons = np.repeat(cons_on[:, None], K, axis=1)
+            scons[:, K // 2:] &= rng.random((8, K - K // 2)) < 0.5
+            sargs = (logits, store, t(srows),
+                     t(np.repeat(eos[:, None], K, axis=1)))
+            skw = {"constrained": t(scons),
+                   "cd": t(np.repeat(cd[:, None], K, axis=1).view(
+                       np.int32))}
+            check_and_time(("span", 8, dtype, a), apply_grammar_mask_span,
+                           masked_logits_span_ref, sargs, skw, 8 * K, srows,
+                           scons)
+    for (form, B, dtype, a), (ms, dev_ms, plain, nbytes) in out.items():
         log(f"masked_logits {form} B={B}{' K=8' if form == 'span' else ''} "
-            f"{str(dtype)[6:]}: bitwise equal; {ms:.4f} ms, device "
+            f"{str(dtype)[6:]} A={a}: bitwise equal; {ms:.4f} ms, device "
             f"{dev_ms:.4f} ms; plain {plain:.4f} ms; bound "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} bytes)")
+    for (form, B), (ms, dev_ms) in floor.items():
+        log(f"masked_logits {form} B={B} bf16: one masked_fill over the "
+            f"unpacked mask (floor of one elementwise pass, not the same "
+            f"function) {ms:.4f} ms, device {dev_ms:.4f} ms")
     row = lambda name, key, src_line: {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/masked_logits.cu",
@@ -482,8 +500,8 @@ def phase_masked_logits(torch, np, engine):
         "device_ms": out[key][1], "plain_ms": out[key][2],
         "bound_ms": out[key][3] / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None, "library_device_ms": None}
-    return (row("masked_logits", ("row", 1, torch.bfloat16), 164),
-            row("masked_logits_span", ("span", 8, torch.bfloat16), 112))
+    return (row("masked_logits", ("row", 1, torch.bfloat16, A), 164),
+            row("masked_logits_span", ("span", 8, torch.bfloat16, A), 112))
 
 
 def _mask_bytes(np, logit_bytes, rows, cons, W):

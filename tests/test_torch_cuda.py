@@ -310,6 +310,113 @@ def test_masked_logits_span_kernel_matches_plain(dev, B, K, V, A, dtype):
     assert torch.equal(out.view(bits), want.view(bits))
 
 
+def _mask_case(case, dev, dtype):
+    """The edge inputs of one card case for both forms: N = B*K rows
+    (B = 4 slots of K = 4 positions), numpy-seeded. At V = 49152 the
+    plan takes its largest tile (4096 entries), at V = 4096 a small one."""
+    B, K, V, R, A, W = 4, 4, 4096, 64, 48, None
+    if case == "A1":
+        A = 1
+    elif case == "A1000_few_ids":
+        V, A = 49152, 1000
+    elif case == "odd_offset":
+        V = 49152
+    elif case == "W_not_mult4":
+        V, W = 49152, 49152 // 32 + 1        # store rows padded to 1537
+    N = B * K
+    rng = np.random.default_rng(sum(map(ord, case)))
+    store, rows, cd, eos, cons = _mask_inputs(rng, dev, N, V, R, A, W)
+    rows = rows.cpu().numpy()
+    if case == "all_pad":
+        rows[:] = -1
+    elif case == "A1000_few_ids":
+        rows[:] = -1
+        for r in range(N):
+            at = rng.choice(A, size=3, replace=False)
+            rows[r, at] = rng.integers(0, R, 3)
+    elif case == "span_rows_differ":
+        rows[0] = -1
+        rows[1] = rows[2]                   # equal neighbours in slot 0
+        rows[5, : A // 2] = -1              # a sparse one in slot 1
+    cons = cons.clone()
+    cons[0] = True
+    if case == "all_unconstrained":
+        cons[:] = False
+    logits = torch.from_numpy((rng.normal(size=(N, V)) * 3).astype(
+        np.float32)).to(dev).to(dtype)
+    if case == "odd_offset":
+        buf = torch.empty(N * V + 1, dtype=dtype, device=dev)
+        buf[1:].copy_(logits.reshape(-1))
+        logits = buf[1:].view(N, V)
+        assert logits.is_contiguous() and logits.data_ptr() % 16 != 0
+    kw = {"constrained": cons, "cd": cd}
+    if case == "cd_none":
+        del kw["cd"]
+    return B, K, logits, store, torch.from_numpy(rows).to(dev), eos, kw
+
+
+@pytest.mark.parametrize("case", [
+    "all_pad", "A1", "A1000_few_ids", "odd_offset", "W_not_mult4",
+    "span_rows_differ", "all_unconstrained", "cd_none"])
+@pytest.mark.parametrize("form", ["row", "span"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_logits_edge_cases(dev, case, form, dtype):
+    """Bitwise, both entry points: every id a pad, A = 1 and A = 1000
+    with three real ids a row, a contiguous logits view at an odd offset
+    and store rows of 1537 words (both the scalar path), span positions
+    of one slot with different row sets, every row unconstrained, no
+    cd."""
+    from repro_torch.kernels.masked_logits.ops import (
+        apply_grammar_mask, apply_grammar_mask_span, launch_plan)
+    from repro_torch.kernels.masked_logits.ref import (
+        masked_logits_ref, masked_logits_span_ref)
+    B, K, logits, store, rows, eos, kw = _mask_case(case, dev, dtype)
+    N, V = logits.shape
+    vec = launch_plan(N, V, store.shape[1], rows.shape[1], dtype,
+                      case != "odd_offset").vec
+    assert vec == (case not in ("odd_offset", "W_not_mult4"))
+    if form == "span":
+        sh = lambda t: t.reshape(B, K, *t.shape[1:])
+        args = (sh(logits), store, sh(rows), sh(eos))
+        kw = {k: sh(v) for k, v in kw.items()}
+        fn, ref = apply_grammar_mask_span, masked_logits_span_ref
+    else:
+        args, fn, ref = (logits, store, rows, eos), apply_grammar_mask, \
+            masked_logits_ref
+    before = fn.launches
+    out = fn(*args, **kw)
+    assert fn.launches == before + 1
+    want = ref(*args, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert out.shape == want.shape and out.dtype == dtype
+    assert torch.equal(out.view(bits), want.view(bits))
+
+
+def test_masked_logits_plan_matches_the_kernel(dev):
+    """The kernel takes the tile, threads and path of the wrapper's plan
+    (and asks for the plan's shared memory) at every shape the tests and
+    the engine use; it refuses a tile past its limit and the vector path
+    on an unaligned pointer."""
+    from repro_torch.kernels.masked_logits.ops import (MAX_TILE, _launcher,
+                                                       launch_plan)
+    lib, _ = _launcher()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for N, V, W, A in ((1, 49152, 1536, 48), (8, 49152, 1536, 384),
+                           (64, 49152, 1536, 48), (3, 1000, 32, 5),
+                           (5, 2080, 65, 300), (2, 4096, 129, 1),
+                           (8, 49152, 1536, 1000)):
+            for aligned in (True, False):
+                p = launch_plan(N, V, W, A, dtype, aligned)
+                assert lib.masked_logits_plan_smem(
+                    code, N, V, W, A, 64, p.tile, p.threads, int(p.vec),
+                    int(aligned)) == p.smem == 4 * A
+        assert lib.masked_logits_plan_smem(
+            code, 1, 49152, 1536, 48, 64, 2 * MAX_TILE, 256, 1, 1) == -1
+        assert lib.masked_logits_plan_smem(
+            code, 1, 49152, 1536, 48, 64, 256, 256, 1, 0) == -1
+
+
 @pytest.mark.parametrize("B,S,H,K,Dh,ps,nP,P", [
     (8, 1, 15, 5, 64, 16, 32, 256), (8, 8, 15, 5, 64, 16, 32, 256),
     (8, 32, 15, 5, 64, 16, 32, 256), (3, 5, 4, 2, 32, 8, 6, 20),
