@@ -43,7 +43,19 @@ no result line):
    dense decode step and a paged one (B=8, 32 pages per slot): host
    dispatch, synced wall and profiler-measured device busy time per step,
    the kernels that take most of it, fused_select's device ms per step
-   and share in both, and paged_attention's in the paged step.
+   and share in both, and paged_attention's in the paged step;
+7. the live front end on the same engine: the port's `EngineServer` over
+   an `AsyncEngine` on 127.0.0.1 streams phase 5's 16 requests (NDJSON,
+   concurrent stdlib clients), each stream's chunks checked against its
+   terminal line and every eos output parsed; a client that disconnects
+   mid-stream frees its slot; an `AsyncEngine` over a paged engine serves
+   the 8 shared-prefix requests with one cancelled mid-decode and gets
+   its pages back; `POST /grammars` hot-loads a grammar that then serves
+   a valid request; `/metrics`, `/stats` and `POST /profile` (whose dump
+   must hold device events of `fused_select_kernel`); then opportunistic
+   masking, `generate()` over the 16 requests and `generate_sequential`
+   over 4 x 32. Each run's launch counters are zeroed just before it and
+   read just after.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -642,14 +654,22 @@ def check_outputs(states, bundles):
     return complete, valid
 
 
-def run_counted(torch, counters, fn):
-    """Zero every kernel's launch counter, run, read the counters."""
+def zero_counters(torch, counters):
+    torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
+
+
+def read_counters(torch, counters):
     torch.cuda.synchronize()
+    return {c.__name__: c.launches for c in counters}
+
+
+def run_counted(torch, counters, fn):
+    """Zero every kernel's launch counter, run, read the counters."""
+    zero_counters(torch, counters)
     states, stats = fn()
-    torch.cuda.synchronize()
-    return states, stats, {c.__name__: c.launches for c in counters}
+    return states, stats, read_counters(torch, counters)
 
 
 def report(name, states, stats, bundles, launches, extra=""):
@@ -889,6 +909,340 @@ def phase_forward_breakdown(torch, engine):
                     share_of=("paged_attention", "fused_select"))
 
 
+# ------------------------------------------------------- phase 7: front end
+
+async def _http(host, port, method, path, body=b""):
+    """One request on its own connection -> (status, body bytes); a
+    chunked body is joined."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write((f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    head, _, rest = data.partition(b"\r\n\r\n")
+    status = int(head.split(b" ")[1])
+    if b"chunked" not in head.lower():
+        return status, rest
+    out = b""
+    while rest:
+        size, _, rest = rest.partition(b"\r\n")
+        n = int(size, 16)
+        if n == 0:
+            break
+        out, rest = out + rest[:n], rest[n + 2:]
+    return status, out
+
+
+async def _stream(host, port, body, stop_after=None):
+    """POST /generate and read its NDJSON chunks as they come ->
+    (status, lines). With `stop_after` the client walks away after that
+    many lines."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    data = json.dumps(body).encode()
+    writer.write((f"POST /generate HTTP/1.1\r\nHost: x\r\n"
+                  f"Content-Length: {len(data)}\r\n\r\n").encode() + data)
+    await writer.drain()
+    status = int((await reader.readline()).split()[1])
+    while (await reader.readline()) not in (b"\r\n", b""):
+        pass
+    lines = []
+    try:
+        while stop_after is None or len(lines) < stop_after:
+            n = int((await reader.readline()).strip() or b"0", 16)
+            if n == 0:
+                break
+            lines.append(json.loads((await reader.readexactly(n + 2))[:-2]))
+    finally:
+        writer.close()
+    return status, lines
+
+
+def _request_json(r):
+    d = r.decode
+    return {"prompt": r.prompt.decode(), "grammar": r.grammar,
+            "max_new_tokens": r.max_new_tokens, "method": d.method,
+            "temperature": d.temperature, "top_k": d.top_k or 0,
+            "top_p": d.top_p, "seed": r.seed, "stream": True}
+
+
+def _utf8(b):
+    try:
+        b.decode("utf-8")
+        return True
+    except UnicodeDecodeError:
+        return False
+
+
+def _streamed_state(tok, req, status, lines):
+    """Check one stream and turn it into a state for `check_outputs`:
+    every chunk is its token's text, the terminal line counts the tokens
+    and holds the whole output, and the chunks join to it exactly unless
+    a token split a UTF-8 character (each chunk then replaced its half on
+    its own). -> (state, joined exactly)."""
+    from types import SimpleNamespace
+    if status != 200 or not lines or not lines[-1].get("done"):
+        raise AssertionError(f"request {req.rid}: stream broke (status "
+                             f"{status}, {len(lines)} lines)")
+    toks, final = lines[:-1], lines[-1]
+    parts = [tok.id_to_bytes[ln["token"]] for ln in toks]
+    raw = b"".join(parts)
+    exact = "".join(ln["text"] for ln in toks) == final["text"]
+    if final["tokens"] != len(toks) or \
+            final["text"] != raw.decode("utf-8", "replace") or \
+            any(ln["text"] != b.decode("utf-8", "replace")
+                for ln, b in zip(toks, parts)) or \
+            (not exact and all(_utf8(b) for b in parts)):
+        raise AssertionError(f"request {req.rid}: streamed chunks do not "
+                             f"join to the terminal line")
+    return SimpleNamespace(req=req, finish_reason=final["finish_reason"],
+                           generated=raw,
+                           ids=[ln["token"] for ln in toks]), exact
+
+
+async def _front_end_server(torch, engine, bundles, counters, dense_states):
+    import asyncio
+    from repro_torch.core.grammars import grammar_text
+    from repro_torch.core.tokenizer import EOS_ID
+    from repro_torch.serving.async_engine import AsyncEngine
+    from repro_torch.serving.server import EngineServer
+    tok = engine.tok
+    n_layers = engine.model.cfg.num_layers
+    aeng = AsyncEngine(engine)
+    srv = EngineServer(aeng)
+    host, port = await srv.start("127.0.0.1", 0)
+    try:
+        # ---- 16 concurrent streams --------------------------------
+        reqs = e2e_requests()
+        zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(_stream(host, port, _request_json(r))
+                                     for r in reqs))
+        wall = time.perf_counter() - t0
+        stats = aeng.stats()
+        launches = read_counters(torch, counters)
+        states, exact = [], 0
+        for r, (status, lines) in zip(reqs, got):
+            st, ok = _streamed_state(tok, r, status, lines)
+            states.append(st)
+            exact += ok
+        complete, valid = check_outputs(states, bundles)
+        dense = {s.req.rid: [t for t in s.token_ids[len(
+            engine._request_ids(s.req)):] if t != EOS_ID]
+                 for s in dense_states}
+        greedy = [s for s in states if s.req.decode.method == "greedy"]
+        agree = sum(s.ids == dense[s.req.rid] for s in greedy)
+        reasons = {}
+        for st in states:
+            reasons[st.finish_reason] = reasons.get(st.finish_reason, 0) + 1
+        log(f"front end, server (16 concurrent NDJSON streams x 64 new "
+            f"tokens, 8 slots): {stats.tokens} tokens in {wall:.3f} s = "
+            f"{stats.tokens / wall:.2f} tok/s; {stats.decode_steps} steps; "
+            f"complete {complete}/16, valid among complete {valid}/"
+            f"{complete}; finish reasons {reasons}; chunks join the "
+            f"terminal text exactly on {exact}/16 streams (the rest split "
+            f"a UTF-8 character); greedy requests agreeing with dense "
+            f"generate() {agree}/{len(greedy)}; overlap hits "
+            f"{stats.overlap_hits}/{stats.overlap_dispatched}")
+        log(f"  kernel launches: {launches}")
+        if launches["fused_mask_select"] < stats.decode_steps or \
+                stats.decode_steps == 0:
+            raise AssertionError("server run: fused_select launched fewer "
+                                 "times than the engine stepped")
+        if launches["attention"] != stats.requests * n_layers:
+            raise AssertionError(
+                f"server run: flash_attention launched "
+                f"{launches['attention']} times, want {stats.requests} "
+                f"admissions x {n_layers}")
+        status, body = await _http(host, port, "GET", "/stats")
+        summ = json.loads(body)["requests"]
+        log(f"  latency from /stats (seconds): ttft p50 "
+            f"{summ['ttft']['p50']} p99 {summ['ttft']['p99']} mean "
+            f"{summ['ttft']['mean']}; itl p50 {summ['itl']['p50']} p99 "
+            f"{summ['itl']['p99']} mean {summ['itl']['mean']}; queue wait "
+            f"p50 {summ['queue_wait']['p50']} p99 "
+            f"{summ['queue_wait']['p99']}; card {smi_line()}")
+
+        # ---- a client that walks away -----------------------------
+        status, body = await _http(host, port, "GET", "/healthz")
+        before = json.loads(body)["finish_reasons"].get("cancelled", 0)
+        status, lines = await _stream(host, port, {
+            "prompt": "Q: walk away.", "grammar": None,
+            "max_new_tokens": 400, "method": "greedy"}, stop_after=3)
+        gone_at = aeng.stats().decode_steps
+        for _ in range(1000):
+            health = json.loads((await _http(host, port, "GET",
+                                             "/healthz"))[1])
+            if health["active"] == 0 and \
+                    health["finish_reasons"].get("cancelled", 0) > before:
+                break
+            await asyncio.sleep(0.01)
+        else:
+            raise AssertionError("disconnected stream was not cancelled")
+        freed_after = aeng.stats().decode_steps - gone_at
+        log(f"front end, disconnect after {len(lines)} lines: slot freed "
+            f"after {freed_after} more steps; /healthz active "
+            f"{health['active']}, finish reasons "
+            f"{health['finish_reasons']}")
+        if freed_after > 8:
+            raise AssertionError(f"cancel took {freed_after} steps")
+
+        # ---- hot load ---------------------------------------------
+        t0 = time.perf_counter()
+        status, body = await _http(host, port, "POST", "/grammars",
+                                   json.dumps({"name": "json_hot",
+                                               "text": grammar_text("json")
+                                               }).encode())
+        if status != 200:
+            raise AssertionError(f"POST /grammars: {status} {body!r}")
+        load_s = time.perf_counter() - t0
+        from repro_torch.serving.engine import Request
+        hot = Request(rid=-1, prompt=b"Q: hot. A:", grammar="json_hot",
+                      max_new_tokens=32, seed=7)
+        status, lines = await _stream(host, port, _request_json(hot))
+        st, _ = _streamed_state(tok, hot, status, lines)
+        check_outputs([st], engine.bundles)
+        log(f"front end, hot load: POST /grammars json_hot "
+            f"({json.loads(body)['rows']} rows) in {load_s:.3f} s; one "
+            f"request on it: {st.finish_reason}, {len(st.ids)} tokens, "
+            f"valid")
+
+        # ---- observability ----------------------------------------
+        status, body = await _http(host, port, "GET", "/metrics")
+        text = body.decode()
+        if status != 200 or "# TYPE repro_tokens_total counter" not in text:
+            raise AssertionError("/metrics is not Prometheus text")
+        status, body = await _http(host, port, "GET", "/stats")
+        if status != 200 or "metrics" not in json.loads(body):
+            raise AssertionError("/stats is not the JSON snapshot")
+        status, body = await _http(host, port, "POST", "/profile",
+                                   b'{"action": "start"}')
+        started = json.loads(body)
+        if status != 200 or started.get("backend_profiler") is not True:
+            raise AssertionError(f"/profile start: {status} {started}")
+        prof_req = Request(rid=-2, prompt=b"Q: profile. A:", grammar="json",
+                           max_new_tokens=8, seed=8)
+        status, lines = await _stream(host, port, _request_json(prof_req))
+        _streamed_state(tok, prof_req, status, lines)
+        t0 = time.perf_counter()
+        status, body = await _http(host, port, "POST", "/profile",
+                                   b'{"action": "stop"}')
+        if status != 200:
+            raise AssertionError(f"/profile stop: {status} {body!r}")
+        stop_s = time.perf_counter() - t0
+        status, body = await _http(host, port, "POST", "/profile",
+                                   b'{"action": "dump"}')
+        events = json.loads(body)["traceEvents"]
+        device = [e for e in events if e.get("ph") == "X" and str(
+            e.get("cat", "")).startswith("device:")]
+        fused = [e for e in device
+                 if "fused_select_kernel" in e.get("name", "")]
+        log(f"front end, observability: /metrics {len(text)} bytes of "
+            f"Prometheus text; /stats JSON; /profile: backend profiler "
+            f"{started['backend_profiler']}, stop + export {stop_s:.3f} s, "
+            f"dump {len(events)} events, {len(device)} on device tracks, "
+            f"{len(fused)} of fused_select_kernel")
+        if not fused:
+            raise AssertionError("/profile dump holds no fused_select_kernel "
+                                 "device event")
+    finally:
+        await srv.stop(drain=False)
+
+
+async def _front_end_paged(torch, engine, bundles, counters):
+    from repro_torch.serving.async_engine import AsyncEngine
+    from repro_torch.serving.engine import Engine
+    paged = Engine(engine.model, engine.params, engine.tok, bundles,
+                   max_len=engine.max_len, slots=engine.slots, paged=True,
+                   page_size=16, device="cuda")
+    shared, n_prefix = shared_prefix_requests(engine)
+    zero_counters(torch, counters)
+    t0 = time.perf_counter()
+    aeng = AsyncEngine(paged)
+    handles = [aeng.submit(r) for r in shared]
+    alloc = aeng._loop_obj.mode.alloc
+    baseline = alloc.P          # a fresh pool: every page free
+    victim, seen = handles[3], 0
+    async for _ in victim.tokens():
+        seen += 1
+        if seen == 4:
+            victim.cancel()
+    states = [await h.result() for h in handles]
+    await aeng.drain()
+    wall = time.perf_counter() - t0
+    stats = aeng.stats()
+    launches = read_counters(torch, counters)
+    if states[3].finish_reason != "cancelled":
+        raise AssertionError(f"paged cancel: request ended "
+                             f"{states[3].finish_reason}")
+    alloc.check_invariants()
+    if alloc.available() != baseline or any(len(t) for t in alloc.tables):
+        raise AssertionError(f"paged cancel: {alloc.available()} pages "
+                             f"available after drain, {baseline} before")
+    complete, valid = check_outputs(states, bundles)
+    n_layers = engine.model.cfg.num_layers
+    log(f"front end, async paged (page_size 16, 8 requests sharing a "
+        f"{n_prefix}-token prefix, request 3 cancelled after {seen} "
+        f"tokens): {stats.tokens} tokens in {wall:.3f} s = "
+        f"{stats.tokens / wall:.2f} tok/s; {stats.decode_steps} steps; "
+        f"complete {complete}/8, valid among complete {valid}/{complete}; "
+        f"pages available {alloc.available()}/{alloc.P} after drain "
+        f"(baseline {baseline}; cold {alloc.cold_pages}); prefix hit rate "
+        f"{stats.prefix_hit_rate:.4f}")
+    log(f"  kernel launches: {launches}")
+    if launches["paged_attention"] != stats.decode_steps * n_layers or \
+            stats.decode_steps == 0:
+        raise AssertionError(f"async paged run: paged_attention launched "
+                             f"{launches['paged_attention']} times in "
+                             f"{stats.decode_steps} steps x {n_layers}")
+    return launches
+
+
+def phase_front_end(torch, engine, bundles, counters, dense_states):
+    """The live front end on the main engine, an async paged engine with a
+    cancel, and opportunistic masking; each run counted on its own."""
+    import asyncio
+    from repro_torch.launch.serve import build_engine
+    asyncio.run(_front_end_server(torch, engine, bundles, counters,
+                                  dense_states))
+    asyncio.run(_front_end_paged(torch, engine, bundles, counters))
+
+    opp, _, _ = build_engine(
+        "smollm-360m", grammars=("json", "jsonmsg"), max_len=engine.max_len,
+        slots=engine.slots, opportunistic=True, params=engine.params,
+        device="cuda")
+    states, stats, launches = run_counted(
+        torch, counters, lambda: opp.generate(e2e_requests()))
+    report("opportunistic generate (16 requests x 64 new tokens)", states,
+           stats, opp.bundles, launches,
+           f"; opportunistic hits {stats.opportunistic_hits}; mask "
+           f"computations {stats.mask_computations}")
+    if stats.opportunistic_hits + stats.mask_computations != stats.tokens:
+        raise AssertionError("opportunistic: hits + masked steps != tokens")
+    if stats.mask_computations and not launches["fused_mask_select"]:
+        raise AssertionError("opportunistic: masked steps but no "
+                             "fused_select launch")
+    seq = e2e_requests()[:4]
+    for r in seq:
+        r.max_new_tokens = 32
+    states, stats, launches = run_counted(
+        torch, counters, lambda: opp.generate_sequential(seq))
+    report("opportunistic sequential (4 requests x 32 new tokens)", states,
+           stats, opp.bundles, launches,
+           f"; opportunistic hits {stats.opportunistic_hits} of "
+           f"{stats.tokens} steps; masked_logits launches "
+           f"{launches['apply_grammar_mask']}")
+    if launches["apply_grammar_mask"] != stats.mask_computations or \
+            (stats.opportunistic_hits < stats.tokens
+             and not launches["apply_grammar_mask"]):
+        raise AssertionError(
+            f"opportunistic sequential: masked_logits launched "
+            f"{launches['apply_grammar_mask']} times for "
+            f"{stats.mask_computations} masked steps")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -944,6 +1298,7 @@ def main():
     for r in rows[2:]:
         r["launches"] = found[r["name"]]
     phase_forward_breakdown(torch, engine)
+    phase_front_end(torch, engine, bundles, counters, dense_states)
 
     log(smi)
     log(json.dumps({"kernels": rows}))

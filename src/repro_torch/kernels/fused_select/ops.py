@@ -162,3 +162,24 @@ def fused_mask_select(logits, store, rows, cd, eos_allowed, constrained,
 
 
 fused_mask_select.launches = 0
+
+
+def fused_mask_select_span(logits, store, rows, cd, eos_allowed,
+                           constrained, greedy_flags, temperature, top_k,
+                           top_p, *, noise=None, eos_id: int = 1):
+    """Span ([B, S, V]) form for speculative verification: every draft
+    position carries its own row set, residue, eos and constrained flag;
+    the per-slot decode configs broadcast across the span. Flattens
+    (b, s) and delegates to `fused_mask_select` (one launch on the card),
+    so it equals the batch form by construction.
+    -> (ids [B, S], masked [B, S, V], ok [B, S])."""
+    B, S, V = logits.shape
+    rep = lambda a: torch.repeat_interleave(a, S, dim=0)
+    ids, masked, ok = fused_mask_select(
+        logits.reshape(B * S, V), store, rows.reshape(B * S, -1),
+        None if cd is None else cd.reshape(B * S, -1),
+        eos_allowed.reshape(B * S), constrained.reshape(B * S),
+        rep(greedy_flags), rep(temperature), rep(top_k), rep(top_p),
+        noise=None if noise is None else noise.reshape(B * S, V),
+        eos_id=eos_id)
+    return ids.reshape(B, S), masked.reshape(B, S, V), ok.reshape(B, S)

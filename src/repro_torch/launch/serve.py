@@ -5,9 +5,15 @@ Usage (on the card; `--device cpu` runs the same path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --grammar json -n 8 --slots 8 [--max-new 80] [--temperature 0.8] \
       [--greedy] [--grammar-mode grammar_mask|grammar_strict] \
-      [--paged [--page-size 16] [--num-pages N]] \
+      [--paged [--page-size 16] [--num-pages N]] [--opportunistic] \
       [--speculative [--draft-k 4] [--max-jump 16] [--proposer sam|ngram]
        [--literal-jump]] [--sequential] [--no-overlap] [--devtime]
+
+  --serve [--host 127.0.0.1] [--port 8400] starts the streaming HTTP
+  endpoint (serving/server.py) over one persistent AsyncEngine instead
+  of a batch run, e.g.
+    curl -N localhost:8400/generate \
+        -d '{"prompt": "Q:", "grammar": "json", "max_new_tokens": 32}'
 
 Weights are random, drawn from `--seed` by a torch.Generator on the
 device: the repository ships no checkpoint. The summary line matches the
@@ -32,8 +38,8 @@ from ..spec import SpecConfig
 
 
 def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
-                 seed=0, slots=4, paged=False, page_size=16,
-                 num_pages=None, prefill_chunk=32, overlap=True,
+                 seed=0, opportunistic=False, slots=4, paged=False,
+                 page_size=16, num_pages=None, prefill_chunk=32, overlap=True,
                  grammar_mode="grammar_mask", telemetry=True, devtime=False,
                  noise_fn=None, device="cuda", params=None):
     """-> (engine, bundles, tokenizer). `params` (a port param tree on
@@ -52,8 +58,9 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
         gen.manual_seed(seed)
         params = model.init(gen)
     return Engine(model, params, tok, bundles, max_len=max_len,
-                  slots=slots, paged=paged, page_size=page_size,
-                  num_pages=num_pages, prefill_chunk=prefill_chunk,
+                  opportunistic=opportunistic, slots=slots, paged=paged,
+                  page_size=page_size, num_pages=num_pages,
+                  prefill_chunk=prefill_chunk,
                   overlap=overlap, grammar_mode=grammar_mode,
                   telemetry=telemetry, devtime=devtime, noise_fn=noise_fn,
                   device=dev), bundles, tok
@@ -69,6 +76,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=80)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--greedy", action="store_true")
+    ap.add_argument("--opportunistic", action="store_true",
+                    help="opportunistic masking: check the unconstrained "
+                         "proposal first, mask only on a miss")
     ap.add_argument("--prompt", default="Q: produce output. A:")
     ap.add_argument("-B", "--slots", type=int, default=4,
                     help="continuous-batching decode pool width")
@@ -95,6 +105,12 @@ def main(argv=None):
                     help="draft proposer (suffix automaton | n-gram)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
+    ap.add_argument("--serve", action="store_true",
+                    help="start the persistent streaming HTTP endpoint "
+                         "(POST /generate NDJSON stream, GET /healthz) "
+                         "instead of a batch run")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8400)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--no-overlap", action="store_true",
@@ -106,11 +122,29 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     engine, bundles, tok = build_engine(
-        args.arch, grammars=(args.grammar,), slots=args.slots,
+        args.arch, grammars=(args.grammar,),
+        opportunistic=args.opportunistic, slots=args.slots,
         seed=args.seed, paged=args.paged, page_size=args.page_size,
         num_pages=args.num_pages, overlap=not args.no_overlap,
         grammar_mode=args.grammar_mode, telemetry=not args.no_telemetry,
         devtime=args.devtime, device=args.device)
+
+    spec = None
+    if args.speculative:
+        spec = SpecConfig(literal_jump=args.literal_jump,
+                          draft_k=args.draft_k, max_jump=args.max_jump,
+                          proposer=args.proposer)
+    if args.serve:
+        import asyncio
+
+        from ..serving.async_engine import AsyncEngine
+        from ..serving.server import run_server
+        aeng = AsyncEngine(engine, spec=spec, verbose=True)
+        try:
+            asyncio.run(run_server(aeng, host=args.host, port=args.port))
+        except KeyboardInterrupt:
+            pass
+        return
 
     dc = DecodeConfig(method="greedy" if args.greedy else "sample",
                       temperature=args.temperature)
@@ -118,9 +152,6 @@ def main(argv=None):
                     grammar=args.grammar, max_new_tokens=args.max_new,
                     decode=dc, seed=i) for i in range(args.num_requests)]
     if args.speculative:
-        spec = SpecConfig(literal_jump=args.literal_jump,
-                          draft_k=args.draft_k, max_jump=args.max_jump,
-                          proposer=args.proposer)
         states, stats = engine.generate_speculative(reqs, spec=spec,
                                                     verbose=True)
     else:
@@ -134,7 +165,8 @@ def main(argv=None):
     valid = sum(p.recognize(s.generated) for s in complete)
     print(f"\n{stats.tokens} tokens @ {stats.tokens_per_sec:.1f} tok/s "
           f"({stats.decode_steps} decode steps x {stats.batch_slots} slots)"
-          f" | mask {stats.mask_time:.2f}s/{stats.mask_computations}")
+          f" | mask {stats.mask_time:.2f}s/{stats.mask_computations} | "
+          f"opportunistic hits {stats.opportunistic_hits}")
     if args.speculative:
         print(f"speculation: jump {stats.jump_tokens} tokens "
               f"({stats.jump_fraction:.0%} of output), drafts "

@@ -13,6 +13,9 @@ Continuous batching over a fixed pool of `B = slots` decode slots:
   * ONE fused mask+filter+sample call (`kernels/fused_select`, the Hopper
     kernel on the card) draws every slot's next token; only the `[B]`
     ids and ok flags come back to the host,
+  * the paper's opportunistic masking (`opportunistic=True`) first
+    checks the whole batch's unconstrained proposals against the oracle
+    and builds mask rows only for the slots whose proposal was rejected,
   * sampled ids are verified against the exact parser oracle; invalid
     picks are banned and their rows resampled through the same fused op
     (unconstrained, rows = -1), with an exact host filter as the last
@@ -23,7 +26,10 @@ Continuous batching over a fixed pool of `B = slots` decode slots:
 The step bodies live in `serving/loop.py`: DenseMode (with host/device
 overlap), PagedMode (page-table KV with prefix sharing and chunked
 prefill; `paged=True`) and SpecMode (grammar-aware speculation over
-dense or paged caches; `generate_speculative`). `generate_sequential`
+dense or paged caches; `generate_speculative`). The `generate*` entry
+points drive that loop to completion over a fixed request list;
+`serving/async_engine.py` drives the same loop persistently with live
+admission, streaming, cancellation and deadlines. `generate_sequential`
 keeps the round-robin one-request-at-a-time path (paper Algorithm 3),
 the baseline the batched engine is measured against.
 
@@ -32,8 +38,7 @@ Sampling draws standard-Gumbel noise through an injectable
 draws on the device from a torch.Generator per row seeded by the row's
 key, so a slot's stream depends only on its own progress.
 
-Not ported here: mesh/tensor-parallel serving, the async front-end and
-opportunistic masking.
+Not ported here: mesh/tensor-parallel serving.
 """
 from __future__ import annotations
 
@@ -45,7 +50,8 @@ import numpy as np
 import torch
 
 from ..core.constrain import GrammarConstraint, MAX_ACCEPT, accept_width
-from ..core.decoding import DecodeConfig, NEG_INF, select_span
+from ..core.decoding import (DecodeConfig, NEG_INF, select_batch,
+                             select_span)
 from ..core.tokenizer import BOS_ID, ByteTokenizer, EOS_ID
 from ..device import resolve_device
 from ..kernels.fused_select.ops import fused_mask_select, gumbel_noise
@@ -91,6 +97,7 @@ class RequestState:
     pending_logits: object = None           # sequential path only
     mask_time: float = 0.0
     mask_computations: int = 0
+    opportunistic_hits: int = 0
     steps: int = 0
     slot: int = -1
     # --- speculation (generate_speculative) ---
@@ -103,6 +110,9 @@ class RequestState:
     write_from: int = 0         # first position this slot may write into
                                 # its pages (below = shared prefix pages)
     kv_pages: int = 0           # pages held when the request finished
+    # --- async lifecycle (serving/loop.py) ---
+    cancelled: bool = False     # set from any thread; the loop frees the
+                                # slot (and its KV pages) next step
     deadline_at: Optional[float] = None     # perf_counter() expiry
     admit_t: Optional[float] = None         # perf_counter() at admission
 
@@ -114,6 +124,7 @@ class EngineStats:
     wall: float = 0.0
     mask_time: float = 0.0
     mask_computations: int = 0
+    opportunistic_hits: int = 0
     decode_steps: int = 0                   # CONSUMED batched [B,V] steps
     batch_slots: int = 0
     overlap_dispatched: int = 0             # speculative forwards launched
@@ -173,7 +184,8 @@ class _SelectCtx:
 class Engine:
     def __init__(self, model, params, tokenizer: ByteTokenizer,
                  grammar_bundles: dict, max_len: int = 512,
-                 slots: int = 4, paged: bool = False, page_size: int = 16,
+                 opportunistic: bool = False, slots: int = 4,
+                 paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None, prefill_chunk: int = 32,
                  overlap: bool = True, grammar_mode: str = "grammar_mask",
                  telemetry: bool = True, devtime: bool = False,
@@ -186,7 +198,9 @@ class Engine:
         dense engine's KV budget. overlap: dispatch step k+1's forward
         with the on-device ids before the host validates step k
         (serving/loop.py, dense mode); token-for-token identical either
-        way.
+        way; off under opportunistic masking.
+        opportunistic: the paper's opportunistic masking — validate the
+        unconstrained proposals first, mask only the rejected slots.
         devtime: bench/profile mode — device spans synchronize on exit.
         noise_fn(keys [N,2] uint32 numpy, V) -> [N,V] f32 tensor on the
         engine's device (N = B per step, B*S per speculative span, 1 per
@@ -207,6 +221,7 @@ class Engine:
         self.bundles = dict(grammar_bundles)
         self.grammar_mode = grammar_mode
         self.max_len = max_len
+        self.opportunistic = bool(opportunistic)
         self.slots = max(1, int(slots))
         self.paged = bool(paged)
         self.page_size = max(1, int(page_size))
@@ -248,6 +263,23 @@ class Engine:
                else np.zeros((1, words), np.uint32))
         self._store_cat = torch.from_numpy(
             np.ascontiguousarray(cat).view(np.int32)).to(self.device)
+
+    def register_grammar(self, name: str, bundle) -> None:
+        """Hot-register a freshly compiled (grammar, table, store) bundle:
+        its rows are appended to the concatenated device store (insertion
+        order keeps every existing offset) and `name` is servable by the
+        next request, with no restart. Not safe while a step runs:
+        `AsyncEngine.load_grammar` posts it onto the step loop's control
+        queue, which drains between steps."""
+        if name in self.bundles:
+            raise ValueError(f"grammar {name!r} already registered")
+        store = bundle[2]
+        if store.packed.shape[1] * 32 < self.tok.vocab_size:
+            raise ValueError(
+                f"store for {name!r} built for a smaller vocab "
+                f"({store.packed.shape[1] * 32} < {self.tok.vocab_size})")
+        self.bundles[name] = bundle
+        self._rebuild_store_cat()
 
     def _h2d(self, x: np.ndarray) -> torch.Tensor:
         """Host array -> tensor on the engine's device. The array is
@@ -449,20 +481,48 @@ class Engine:
 
     def _select_dispatch(self, logits, slot_state, pending: set,
                          seeds, greedy, temp, top_k, top_p, obs=None):
-        """Phase A of token selection: host row building and the fused
-        mask+sample DISPATCH — nothing is synced. Returns a `_SelectCtx`
-        whose `.ids` device tensor the overlap path feeds into the next
-        forward before the host ever sees it."""
+        """Phase A of token selection: the opportunistic fast path (one
+        ids copy to the host), then host row building and the fused
+        mask+sample DISPATCH, whose ids are not synced. Returns a
+        `_SelectCtx` whose `.ids` device tensor the overlap path feeds
+        into the next forward before the host ever sees it."""
         if obs is None:
             obs = _OBS_OFF
         # reprolint: mutated-inflight=greedy,temp,top_k,top_p admit() rewrites the decode configs while dispatches are in flight
         B = self.slots
+        committed: dict[int, int] = {}
         pending = set(pending)
-        ctr = {"mask_computations": 0}
+        ctr = {"mask_computations": 0, "opportunistic_hits": 0}
         salts = np.array([slot_state[b].steps if slot_state[b] else 0
                           for b in range(B)], np.uint32)
-        ctx = _SelectCtx(committed={}, pending=pending, ctr=ctr,
+        ctx = _SelectCtx(committed=committed, pending=pending, ctr=ctr,
                          salts=salts)
+
+        # ---- opportunistic fast path (whole batch at once) ----------
+        if self.opportunistic and any(
+                slot_state[b].constraint is not None for b in pending):
+            with obs.span("opportunistic"):
+                noise = None
+                if not bool(np.all(greedy)):
+                    noise = self._noise(self._step_keys(seeds, salts, 0))
+                prop = select_batch(  # reprolint: dispatch
+                    logits, noise, self._h2d(greedy.copy()),
+                    self._h2d(temp.copy()), self._h2d(top_k.copy()),
+                    self._h2d(top_p.copy())).cpu().numpy()
+                ctx.clean = False   # committed ids came from the
+                                    # unmasked proposal stream
+                for b in sorted(pending):
+                    st = slot_state[b]
+                    t = int(prop[b])
+                    if st.constraint is None:
+                        committed[b] = t
+                        pending.discard(b)
+                    elif st.constraint.is_valid_extension(st.generated, t):
+                        st.opportunistic_hits += 1
+                        ctr["opportunistic_hits"] += 1
+                        committed[b] = t
+                        pending.discard(b)
+
         if not pending:
             return ctx
 
@@ -842,6 +902,15 @@ class Engine:
 
         gc = st.constraint
         text = st.generated
+        if self.opportunistic:
+            with obs.span("opportunistic"):
+                proposal = self._select(st, logits, 0)
+                hit = gc.is_valid_extension(text, proposal)
+            if hit:
+                st.opportunistic_hits += 1
+                self._commit(st, proposal)
+                return
+
         with obs.span("ci_lookup") as sp_rows:
             sg = gc.step_groups(text)
             rlist = gc.group_rows(sg.groups)
@@ -909,6 +978,7 @@ class Engine:
             wall=time.perf_counter() - t0,
             mask_time=sum(s.mask_time for s in states),
             mask_computations=sum(s.mask_computations for s in states),
+            opportunistic_hits=sum(s.opportunistic_hits for s in states),
             decode_steps=sum(s.steps for s in states),
             batch_slots=1,
         )

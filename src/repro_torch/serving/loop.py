@@ -1,8 +1,8 @@
-"""The step-loop core of the serving modes (port of
-`repro.serving.loop`, without the async front-end).
+"""The step-loop core of every serving mode (port of
+`repro.serving.loop`).
 
-`StepLoop` owns admission, the deadline sweep, finish bookkeeping and
-stats; the mode objects plug in the per-step body:
+`StepLoop` owns admission, the cancellation and deadline sweep, finish
+bookkeeping and stats; the mode objects plug in the per-step body:
 
   * `DenseMode` — one [B, V] decode + one fused mask/sample per step,
     with host/device OVERLAP: after the fused mask+sample of step k is
@@ -22,15 +22,26 @@ stats; the mode objects plug in the per-step body:
   * `SpecMode` — grammar-aware speculation (jump-forward + draft spans)
     over dense or paged caches.
 
+The loop is also where every request-lifecycle feature lives once for
+all modes: per-token emit callbacks (streaming), per-request
+cancellation (frees the slot and its KV pages at the next step),
+deadlines (a distinct `deadline` finish reason) and graceful drain.
+`AsyncEngine` (serving/async_engine.py) runs one persistent StepLoop on
+a background thread against a live `QueueSource`; the synchronous
+`Engine.generate*` entry points run the same loop to completion over a
+`ListSource`, which keeps the two token-for-token identical by
+construction.
+
 Host arrays that are changed in place after a dispatch (`feed_pos`, the
 token and mask buffers, page tables, the decode configs that `admit()`
 rewrites) ship to the device as private copies at every dispatch site.
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -61,19 +72,107 @@ class ListSource:
         """Return a popped request that the admission gate refused."""
         self._q.appendleft(req)
 
+    @property
+    def closed(self) -> bool:
+        return True                     # nothing more is ever coming
+
+    def wait_for_work(self, timeout: float) -> bool:
+        return False
+
+
+class QueueSource:
+    """Thread-safe live admission queue for the persistent async loop.
+
+    submit() may be called from any thread; the step-loop thread pops.
+    close() stops admission (drain): the loop exits once the queue and
+    the slot pool empty out.
+    """
+
+    def __init__(self):
+        self._q: deque = deque()
+        self._cv = threading.Condition()
+        self._closed = False
+
+    def __len__(self):
+        with self._cv:
+            return len(self._q)
+
+    def submit(self, req) -> None:
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("source closed (engine draining)")
+            self._q.append(req)
+            self._cv.notify_all()
+
+    def try_pop(self):
+        """Pop the head or None: the loop thread's only read primitive (a
+        check-then-pop would race with `remove()` from the asyncio
+        thread)."""
+        with self._cv:
+            return self._q.popleft() if self._q else None
+
+    def push_front(self, req) -> None:
+        """Return a popped request that the admission gate refused; it
+        stays next in line."""
+        with self._cv:
+            self._q.appendleft(req)
+
+    def remove(self, req) -> bool:
+        """Withdraw a queued request (cancel before admission)."""
+        with self._cv:
+            try:
+                self._q.remove(req)
+                return True
+            except ValueError:
+                return False
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def wait_for_work(self, timeout: float) -> bool:
+        """Block until work arrives or the source closes. True = work."""
+        with self._cv:
+            if self._q:
+                return True
+            if self._closed:
+                return False
+            self._cv.wait(timeout)
+            return bool(self._q)
+
 
 # ------------------------------ the loop -------------------------------
 
 class StepLoop:
-    """Shared slot-pool loop: admission, deadline sweep, per-mode step
-    body, finish bookkeeping, stats."""
+    """Shared slot-pool loop: admission, cancellation/deadline sweep,
+    per-mode step body, finish bookkeeping, stats. One instance per
+    synchronous generate() call; ONE persistent instance per
+    AsyncEngine."""
 
-    def __init__(self, engine, mode, source, verbose: bool = False):
+    def __init__(self, engine, mode, source, verbose: bool = False,
+                 on_token: Optional[Callable] = None,
+                 on_admit: Optional[Callable] = None,
+                 on_finish: Optional[Callable] = None,
+                 keep_states: bool = True,
+                 telemetry: Optional[Telemetry] = None):
         self.eng = engine
         self.mode = mode
         self.source = source
         self.verbose = verbose
-        self.tele = Telemetry(enabled=engine.telemetry_enabled)
+        self.on_token = on_token
+        self.on_admit = on_admit
+        self.on_finish = on_finish
+        self.keep_states = keep_states
+        # one Telemetry per loop: a sync generate() gets a fresh per-run
+        # instance; AsyncEngine passes its persistent one so /metrics is
+        # cumulative
+        self.tele = telemetry if telemetry is not None else \
+            Telemetry(enabled=engine.telemetry_enabled)
         # bind the device sync (CUDA only); device timing itself stays
         # OFF unless the engine was built for bench/profile mode
         _attach_devbridge(self.tele, engine.device)
@@ -93,6 +192,13 @@ class StepLoop:
         self.ids_cache: dict[int, list] = {}
         self.stall = 0
 
+        # control queue: closures posted from other threads, run on the
+        # loop thread between steps (hot grammar registration: the
+        # engine's device store must never change under a step that
+        # reads it)
+        self._controls: deque = deque()
+        self._ctl_lock = threading.Lock()
+
         self.t0 = time.perf_counter()
         self.all_states: list = []
         reg = self.tele.registry
@@ -107,6 +213,9 @@ class StepLoop:
             "repro_decode_steps_total", "device decode/span calls")
         self.c_mask_comp = reg.counter(
             "repro_mask_computations_total", "grammar mask rows computed")
+        self.c_opp_hits = reg.counter(
+            "repro_opportunistic_hits_total",
+            "unconstrained proposals accepted by the oracle")
         self.c_jump = reg.counter(
             "repro_jump_tokens_total",
             "grammar-forced tokens committed with no model call")
@@ -153,7 +262,10 @@ class StepLoop:
         self.c_requests.inc()
         st.admit_t = sp.t0 if self.tele.enabled else time.perf_counter()
         self.tele.lifecycle.on_admit(req.rid)
-        self.all_states.append(st)
+        if self.keep_states:
+            self.all_states.append(st)
+        if self.on_admit:
+            self.on_admit(st)
 
     def finish(self, b: int) -> None:
         st = self.slot_state[b]
@@ -171,9 +283,12 @@ class StepLoop:
             t0 = getattr(st, "admit_t", None) or now
             tr.add(f"slot {b}", f"req {st.req.rid}", t0, now - t0,
                    {"reason": st.finish_reason, "tokens": st.steps})
+        if self.on_finish:
+            self.on_finish(st)
 
     def commit(self, st, token: int) -> None:
-        """THE commit point: engine bookkeeping and telemetry."""
+        """THE commit point for every mode (jump-forward commits too):
+        engine bookkeeping, telemetry and the streaming emit callback."""
         self.eng._commit(st, token)
         self.c_tokens.inc()
         self.tele.lifecycle.on_token(st.req.rid)
@@ -181,16 +296,60 @@ class StepLoop:
         if tr.active:
             tr.instant(f"slot {st.slot}", "token", time.perf_counter(),
                        {"id": int(token)})
+        if self.on_token:
+            self.on_token(st, token)
 
     def note_steps(self, n: int) -> None:
+        """Mirror per-slot st.steps increments into a loop-level total,
+        so async stats (keep_states=False) count tokens as the sync
+        path's sum(st.steps) does."""
         self.c_steps.inc(n)
 
-    # ---------------------------- deadlines ---------------------------
+    def fail_request(self, req, reason: str) -> None:
+        """Finish a request that never got a slot (a prompt the KV pool
+        can never fit, on the persistent path)."""
+        from .engine import RequestState
+        self.ids_cache.pop(req.rid, None)
+        st = RequestState(req=req)
+        st.done = True
+        st.finish_reason = reason
+        self.c_requests.inc()
+        self.tele.lifecycle.on_finish(req.rid, reason)
+        if self.keep_states:
+            self.all_states.append(st)
+        if self.on_admit:
+            self.on_admit(st)
+        if self.on_finish:
+            self.on_finish(st)
+
+    # --------------------------- control queue ------------------------
+
+    def post_control(self, fn: Callable[[], None]) -> None:
+        """Run fn() on the loop thread before the next step (thread-safe,
+        FIFO). fn does its own error handling: an exception escaping a
+        control kills the loop like any other step error."""
+        with self._ctl_lock:
+            self._controls.append(fn)
+
+    def _drain_controls(self) -> None:
+        while True:
+            with self._ctl_lock:
+                fn = self._controls.popleft() if self._controls else None
+            if fn is None:
+                return
+            fn()
+
+    # --------------------- cancellation / deadlines -------------------
 
     def _sweep(self) -> None:
         now = None
         for b in self.active():
             st = self.slot_state[b]
+            if st.cancelled:
+                st.done = True
+                st.finish_reason = "cancelled"
+                self.finish(b)
+                continue
             if st.deadline_at is not None:
                 now = time.perf_counter() if now is None else now
                 if now >= st.deadline_at:
@@ -200,14 +359,19 @@ class StepLoop:
 
     # ------------------------------ run -------------------------------
 
-    def run(self):
-        """Drive the loop until the source is drained and the pool is
-        idle."""
+    def run(self, idle_wait: float = 0.1):
+        """Drive the loop until the source is closed AND drained AND the
+        pool is idle. For a ListSource this is the synchronous generate
+        path; for a QueueSource it is the persistent serving loop (idles
+        between requests, exits on close())."""
         while True:
+            self._drain_controls()
             self._sweep()
             for b in range(self.B):
                 if self.slot_state[b] is not None:
                     continue
+                # pop-then-gate: cancel withdrawal runs on another
+                # thread, so the queue can empty between a check and a pop
                 req = self.source.try_pop()
                 if req is None:
                     break
@@ -217,14 +381,33 @@ class StepLoop:
                 self.admit(b, req)
             active = self.active()
             if not active:
-                if len(self.source):
-                    # no slot can ever take the next request (the paged
-                    # pool is too small for its prompt)
-                    raise PoolExhausted(
-                        "KV pool too small for the next request's prompt")
-                break
+                req = self.source.try_pop()
+                if req is not None:
+                    if self.mode.can_admit_req(self, req):
+                        # admittable after all (submitted after the
+                        # admission sweep): the next iteration takes it
+                        self.source.push_front(req)
+                        continue
+                    # no slot can ever take this request (the paged pool
+                    # is too small for its prompt): a closed source
+                    # raises, a live one fails the request and serves on
+                    if self.source.closed:
+                        raise PoolExhausted(
+                            "KV pool too small for the next request's "
+                            "prompt")
+                    self.fail_request(req, "kv_oom")
+                    continue
+                if self.source.closed:
+                    break
+                # idle: the queue is empty, so memoized prompt ids belong
+                # to withdrawn or failed requests (rids are never reused)
+                self.ids_cache.clear()
+                self.mode.on_idle(self)
+                self.source.wait_for_work(idle_wait)
+                continue
             self.mode.step(self, active)
-        return self.all_states, self.stats()
+        return (self.all_states, self.stats()) if self.keep_states \
+            else (None, self.stats())
 
     # ------------------------------ stats ------------------------------
 
@@ -234,13 +417,15 @@ class StepLoop:
         tele = self.tele
         s = EngineStats(
             requests=int(self.c_requests.value),
-            tokens=sum(st.steps for st in self.all_states),
+            tokens=sum(st.steps for st in self.all_states)
+            if self.keep_states else int(self.c_steps.value),
             wall=time.perf_counter() - self.t0,
             mask_time=(tele.phase_seconds("ci_lookup")
                        + tele.phase_seconds("cd_check")
                        + tele.phase_seconds("mask_dispatch")
                        + tele.phase_seconds("select_resolve")),
             mask_computations=int(self.c_mask_comp.value),
+            opportunistic_hits=int(self.c_opp_hits.value),
             decode_steps=int(self.c_decode_steps.value),
             batch_slots=self.B,
             jump_tokens=int(self.c_jump.value),
@@ -259,6 +444,7 @@ class StepLoop:
 
     def add_select_ctr(self, ctr: dict) -> None:
         self.c_mask_comp.inc(ctr["mask_computations"])
+        self.c_opp_hits.inc(ctr["opportunistic_hits"])
 
 
 # ------------------------------- modes ---------------------------------
@@ -266,6 +452,9 @@ class StepLoop:
 class _ModeBase:
     def can_admit_req(self, loop, req) -> bool:
         return True
+
+    def on_idle(self, loop) -> None:
+        pass
 
     def release(self, loop, b, st) -> None:
         pass
@@ -287,9 +476,12 @@ class DenseMode(_ModeBase):
     OVERLAP_PROBE = 16          # gated-off steps between re-probes
     OVERLAP_WARMUP = 8          # unconditional dispatches before gating
 
-    def __init__(self, engine):
+    def __init__(self, engine, overlap: Optional[bool] = None):
         self.eng = engine
-        self.overlap = engine.overlap and engine.model.supports_span_decode
+        # recurrent or side-input state cannot absorb a discarded
+        # speculative forward (no position-addressed rewrite)
+        self.overlap = (engine.overlap if overlap is None else overlap) \
+            and engine.model.supports_span_decode
         self.caches = None
         self.cur_tok = None
         self.pending_logits = None      # speculative forward for the
@@ -349,8 +541,8 @@ class DenseMode(_ModeBase):
         # ---- overlap: queue step k+1's forward with the on-device
         # sampled ids BEFORE copying step k back to the host ----------
         spec_logits = None
-        if self.overlap and ctx.ids is not None and \
-                self._speculate_now(loop):
+        if self.overlap and not eng.opportunistic and \
+                ctx.ids is not None and self._speculate_now(loop):
             with tele.span("overlap_forward"):
                 spec_logits = eng._decode(
                     self.caches, ctx.ids,
@@ -777,6 +969,11 @@ class SpecMode(_ModeBase):
                     st.phase = SlotPhase.DECODING.value
 
 
-def make_mode(engine):
-    """The mode of `Engine.generate()`: paged or dense."""
-    return PagedMode(engine) if engine.paged else DenseMode(engine)
+def make_mode(engine, spec: Optional[SpecConfig] = None,
+              speculative: bool = False, overlap: Optional[bool] = None):
+    """Mode factory mirroring the Engine entry points."""
+    if speculative or spec is not None:
+        return SpecMode(engine, spec)
+    if engine.paged:
+        return PagedMode(engine)
+    return DenseMode(engine, overlap=overlap)

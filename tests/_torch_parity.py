@@ -35,10 +35,17 @@ from repro_torch.serving.engine import Engine, Request
 torch.set_num_threads(1)
 
 
-def build_sides():
+# the narrow syncode-demo of the reference's async-engine and serving
+# tests (tests/test_async_engine.py, tests/test_serving.py)
+NARROW = dict(vocab_size=1024, num_layers=2, d_model=128, d_ff=256,
+              num_heads=4, num_kv_heads=2, head_dim=32)
+
+
+def build_sides(**overrides):
     """-> (jax model, jax params, jax tokenizer, jax bundles, port model,
-    port params, port tokenizer, port bundles)."""
-    cfg = replace(get_config("syncode-demo"), dtype="float32")
+    port params, port tokenizer, port bundles). `overrides` replace
+    fields of the syncode-demo config on both sides (e.g. NARROW)."""
+    cfg = replace(get_config("syncode-demo"), dtype="float32", **overrides)
     jm = build_model(cfg)
     jp = jm.init(jax.random.PRNGKey(0))
     jtok = ByteTokenizer(cfg.vocab_size)
@@ -46,7 +53,8 @@ def build_sides():
     for name in BUILTIN:
         g, tab = load_grammar(name)
         jb[name] = (g, tab, build_mask_store(g, jtok))
-    tcfg = replace(torch_get_config("syncode-demo"), dtype="float32")
+    tcfg = replace(torch_get_config("syncode-demo"), dtype="float32",
+                   **overrides)
     ttok = TorchByteTokenizer(tcfg.vocab_size)
     tb = {}
     for name in BUILTIN:

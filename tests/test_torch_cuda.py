@@ -95,6 +95,50 @@ def test_fused_select_kernel_matches_plain(dev, B, V, R, A, dtype):
         assert torch.equal(ik, ir), (ik, ir)
 
 
+@pytest.mark.parametrize("B,S,V,A", [(8, 8, 49152, 48), (2, 3, 1024, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_select_span_form_matches_batch_form(dev, B, S, V, A, dtype):
+    """`fused_mask_select_span` on the card is the batch kernel on the
+    flattened B*S rows (one launch): ids, masked and ok bitwise equal to
+    the batch form's, greedy and sampled."""
+    from repro_torch.kernels.fused_select.ops import (fused_mask_select,
+                                                      fused_mask_select_span)
+    rng = np.random.default_rng(B * S + A)
+    W, R, N = V // 32, 300, B * S
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    store = t(rng.integers(0, 2 ** 32, size=(R, W), dtype=np.uint32)
+              .view(np.int32))
+    rows = t(rng.integers(-1, R, size=(B, S, A)).astype(np.int32))
+    cd = t(rng.integers(0, 2 ** 32, size=(B, S, W), dtype=np.uint32)
+           .view(np.int32))
+    logits = t((rng.normal(size=(B, S, V)) * 2).astype(np.float32)).to(dtype)
+    eos, cons = (t(rng.random((B, S)) < 0.5) for _ in range(2))
+    greedy = t(rng.random(B) < 0.5)
+    temp = t(rng.uniform(0.4, 1.6, size=B).astype(np.float32))
+    top_k = t(rng.integers(0, 50, size=B).astype(np.int32))
+    top_p = t(rng.uniform(0.5, 1.2, size=B).astype(np.float32))
+    noise = -torch.log(-torch.log(torch.rand(
+        (B, S, V), device=dev, generator=torch.Generator(dev).manual_seed(5))
+        .clamp(min=torch.finfo(torch.float32).tiny)))
+    rep = lambda a: torch.repeat_interleave(a, S, dim=0)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for nz in (None, noise):
+        before = fused_mask_select.launches
+        ids, masked, ok = fused_mask_select_span(
+            logits, store, rows, cd, eos, cons, greedy, temp, top_k, top_p,
+            noise=nz)
+        assert fused_mask_select.launches == before + 1
+        fi, fm, fo = fused_mask_select(
+            logits.reshape(N, V), store, rows.reshape(N, A),
+            cd.reshape(N, W), eos.reshape(N), cons.reshape(N), rep(greedy),
+            rep(temp), rep(top_k), rep(top_p),
+            noise=None if nz is None else nz.reshape(N, V))
+        torch.cuda.synchronize()
+        assert torch.equal(ids.reshape(N), fi)
+        assert torch.equal(masked.reshape(N, V).view(bits), fm.view(bits))
+        assert torch.equal(ok.reshape(N), fo)
+
+
 @pytest.mark.parametrize("V", [8192, 49152])
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -221,3 +221,53 @@ def test_edge_rows_match_ref_bitwise(case, bf16):
             ok.numpy(), (np.asarray(masked_r, np.float32) > -5e29).any(-1))
     if case == "all_masked":
         assert not ok.any() and not ids.any()
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_span_form_matches_reference_span(sampled):
+    """`fused_mask_select_span` against the reference's span form on a
+    [B, S, V] span (per-position rows, residue, eos and constrained flag;
+    per-slot decode configs broadcast across the span), and against the
+    port's own batch form on the flattened rows: ids and masked bitwise,
+    ok equal."""
+    from repro.kernels.fused_select.ops import \
+        fused_mask_select_span as jax_span
+    B, S, V, R, A = 2, 3, 512, 40, 6
+    x = _inputs(17 + sampled, B * S, V, R, A)
+    for n in ("greedy", "temp", "top_k"):
+        x[n] = np.repeat(x[n][:B], S)
+    masked_np = np.asarray(jax_mask(
+        jnp.asarray(x["logits"]), jnp.asarray(x["store"]),
+        jnp.asarray(x["rows"]), jnp.asarray(x["eos"]),
+        constrained=jnp.asarray(x["cons"]), cd=jnp.asarray(x["cd"])),
+        np.float32)
+    x["top_p"] = np.repeat(x["top_p"][:B], S)
+    # no position sits at its nucleus edge (there the frameworks' sum
+    # orders may cut differently), so top_p stays one value per slot
+    np.testing.assert_array_equal(_off_edge(
+        masked_np / np.maximum(x["temp"], 1e-6)[:, None], x["top_k"],
+        x["top_p"]), x["top_p"])
+    noise = np.array(jax_gumbel(jnp.asarray(x["keys"]), V)) if sampled \
+        else None
+    span = lambda a: a.reshape((B, S) + a.shape[1:])
+    j = _args_jax(x)
+    ids_r, masked_r = jax_span(
+        j[0].reshape(B, S, V), j[1], j[2].reshape(B, S, A),
+        j[3].reshape(B, S, -1), j[4].reshape(B, S), j[5].reshape(B, S),
+        *(a[::S] for a in j[6:]),
+        noise=None if noise is None else jnp.asarray(noise).reshape(B, S, V))
+    t = _args_torch(x)
+    nz = None if noise is None else torch.from_numpy(noise)
+    ids, masked, ok = ops.fused_mask_select_span(
+        span(t[0]), t[1], span(t[2]), span(t[3]), span(t[4]), span(t[5]),
+        *(a[::S].contiguous() for a in t[6:]),
+        noise=None if nz is None else span(nz))
+    assert ids.shape == (B, S) and masked.shape == (B, S, V) and \
+        ok.shape == (B, S)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ids_r))
+    np.testing.assert_array_equal(_bits(masked), _bits(masked_r))
+    flat = ops.fused_mask_select(*t, noise=nz)
+    np.testing.assert_array_equal(ids.reshape(-1).numpy(), flat[0].numpy())
+    np.testing.assert_array_equal(_bits(masked.reshape(B * S, V)),
+                                  _bits(flat[1]))
+    np.testing.assert_array_equal(ok.reshape(-1).numpy(), flat[2].numpy())
