@@ -55,7 +55,27 @@ no result line):
    must hold device events of `fused_select_kernel`); then opportunistic
    masking, `generate()` over the 16 requests and `generate_sequential`
    over 4 x 32. Each run's launch counters are zeroed just before it and
-   read just after.
+   read just after;
+8. architectures: mamba2-370m (ssm, all 48 layers, V 50280),
+   recurrentgemma-9b (hybrid RG-LRU + local attention, all 38 layers,
+   head_dim 256, MQA, window 2048, V 256000) and qwen3-moe-30b-a3b (moe,
+   full width: 128 experts top-8, 32/4 heads, head_dim 128, V 151936; 8
+   of its 48 layers), each built in turn through `build_engine` with
+   seeded random weights and freed before the next. Kernel checks at each
+   model's shapes, as in phase 4 (event and device ms, plain version,
+   bound, sdpa where it computes the same function): fused_select greedy
+   and sampled at B=8 and the model's V (bitwise; 50280 is not a
+   multiple of 32); flash_attention at the prompt bucket and 2048 keys
+   ([1,S,16,256] q over one KV head with window 2048, plus 4096 keys
+   where half fall out of the window; [1,S,32,128] over 4 KV heads), fp32
+   masks exact and bf16 within 2**-5; paged_attention_span at qwen3-moe's
+   heads (S = 1 and 8); masked_logits at V 50280 (B = 1, 8) and
+   masked_logits_span at V 151936 (B = 8, K = 8), bitwise; the RG-LRU
+   prefill scan's cost. Then, each run counted on its own, 8 requests x
+   32 new tokens in 8 slots (phase 5's mix): dense `generate()` for all
+   three; `generate_sequential` (4 x 16) for mamba2; paged `generate()`
+   and `generate_speculative` for qwen3-moe; and one dense decode step's
+   breakdown per model.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -203,30 +223,39 @@ def nucleus_edge_rows(torch, masked, temp, top_k, top_p, tol=1e-6):
     return edge
 
 
-def phase_fused_select(torch, np, engine):
+def json_rows(torch, np, engine):
+    """Eight decode rows of real json grammar state (two unconstrained),
+    at the engine's accept bucket: -> (device store, rows [8, A], eos
+    [8], residue words cd [8, W], constrained [8] bool)."""
     from repro_torch.core.constrain import GrammarConstraint, MAX_ACCEPT
-    from repro_torch.kernels.fused_select.ops import fused_mask_select
-    from repro_torch.kernels.fused_select.ref import (fused_select_ref,
-                                                       gumbel_noise)
-    dev = torch.device("cuda")
     g, tab, store_np = engine.bundles["json"]
-    store = torch.from_numpy(store_np.packed.view(np.int32)).to(dev)
-    B, V = 8, engine.model.cfg.vocab_size
-    W = store.shape[1]
+    store = torch.from_numpy(store_np.packed.view(np.int32)).to(
+        torch.device("cuda"))
     texts = [b"", b"{", b'{"a', b'{"key": ', b"[1, 2", b'"str', b"tru",
              b'{"a": [1, {"b": nu']
-    cons_on = [True, True, True, False, True, True, False, True]
+    cons_on = np.array([True, True, True, False, True, True, False, True])
     cons = [GrammarConstraint(g, tab, store_np, engine.tok) if c else None
             for c in cons_on]
     rows, eos, _, groups = GrammarConstraint.ci_rows_batch(
         cons, texts, max_accept=MAX_ACCEPT)
-    cd = GrammarConstraint.cd_overlay_batch(cons, groups, W)
+    cd = GrammarConstraint.cd_overlay_batch(cons, groups, store.shape[1])
+    return store, rows, eos, cd, cons_on
+
+
+def phase_fused_select(torch, np, engine):
+    from repro_torch.kernels.fused_select.ops import fused_mask_select
+    from repro_torch.kernels.fused_select.ref import (fused_select_ref,
+                                                       gumbel_noise)
+    dev = torch.device("cuda")
+    store, rows, eos, cd, cons_on = json_rows(torch, np, engine)
+    B, V = 8, engine.model.cfg.vocab_size
+    W = store.shape[1]
     t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(
         dev).to(dt)
     rows_t = t(rows, torch.int32)
     cd_t = t(cd.view(np.int32), torch.int32)
     eos_t = t(eos, torch.bool)
-    cons_t = t(np.array(cons_on), torch.bool)
+    cons_t = t(cons_on, torch.bool)
     greedy = t(np.array([0, 1, 0, 0, 1, 0, 0, 0], bool), torch.bool)
     temp = t(np.array([0.8, 1.0, 0.7, 1.3, 0.8, 0.9, 1.0, 0.5],
                       np.float32), torch.float32)
@@ -298,7 +327,7 @@ def phase_fused_select(torch, np, engine):
     scaled = topk_topp_filter(
         masked / torch.clamp(temp, min=1e-6)[:, None], top_k, top_p)
     survivors = int(((scaled > NEG_INF / 2) & ~greedy[:, None]).sum())
-    n_rows = int((rows >= 0)[np.array(cons_on)].sum())
+    n_rows = int((rows >= 0)[cons_on].sum())
     nbytes = (B * V * 2 * 2 + survivors * 4 + n_rows * W * 4 + B * W * 4
               + rows.size * 4 + B * (3 + 4 * 3 + 4 + 1))
     bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -320,18 +349,92 @@ def phase_fused_select(torch, np, engine):
             "library_device_ms": None}
 
 
-def phase_attention(torch, np, main_S):
+def attention_rows(torch, np, model, H, K, Dh, cases, path_S):
+    """flash_attention at one model's heads: fp32 masks exact (q = 0
+    gives equal scores, so output channel c is the share of the visible
+    keys whose position has bit c set), bf16 within 2**-5 of the plain
+    version, timed beside the plain version and sdpa (`is_causal`, or
+    the window as an explicit mask where it cuts). cases: (S, window).
+    -> rows."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import chunked_attention
     dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rows = []
+    for S, window in cases:
+        pos = np.arange(S)
+        vis = pos[None, :] <= pos[:, None]
+        if window:
+            vis &= pos[None, :] > pos[:, None] - window
+        nbits = max(1, (S - 1).bit_length())
+        bits = ((pos[:, None] >> np.arange(nbits)[None, :]) & 1).astype(
+            np.float32)
+        vn = np.zeros((1, S, K, Dh), np.float32)
+        vn[0, :, :, :nbits] = bits[:, None, :]
+        out = attention(torch.zeros((1, S, H, Dh), device=dev),
+                        t(rng.normal(size=(1, S, K, Dh)).astype(np.float32)),
+                        t(vn), causal=True, window=window).cpu().numpy()
+        want = (vis.astype(np.float64) @ bits) / vis.sum(1, keepdims=True)
+        mask_err = np.abs(out[0, :, :, :nbits] - want[:, None, :]).max()
+        if mask_err > 1e-5:
+            raise AssertionError(f"flash_attention {model} S={S} window="
+                                 f"{window}: fp32 mask differs ({mask_err})")
+        q, k, v = (t(rng.normal(size=(1, S, n, Dh)).astype(np.float32))
+                   .bfloat16() for n in (H, K, K))
+        run = lambda: attention(q, k, v, causal=True, window=window)
+        plain_fn = lambda: chunked_attention(q, k, v, causal=True,
+                                             q_offset=0, window=window,
+                                             chunk=1024)
+        err = (run().float() - plain_fn().float()).abs().max().item()
+        if not err <= 2.0 ** -5:
+            raise AssertionError(f"flash_attention {model} S={S}: max abs "
+                                 f"err {err} > 2**-5")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        amask = t(vis) if window and S > window else None   # else causal
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask, is_causal=amask is None,
+            enable_gqa=True)
+        ms, dev_ms = cuda_ms(torch, run), device_ms(torch, run)
+        plain = cuda_ms(torch, plain_fn)
+        lib, lib_dev = cuda_ms(torch, sdpa), device_ms(torch, sdpa)
+        flops = 4 * int(vis.sum()) * H * Dh      # QK^T and P.V, visible
+        nbytes = (2 * S * H * Dh + 2 * S * K * Dh) * 2
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        shape = (f"q [1,{S},{H},{Dh}] k/v [1,{S},{K},{Dh}] bf16, window "
+                 f"{window or 'none'}")
+        log(f"flash_attention {model} {shape}: fp32 masks exact; bf16 max "
+            f"abs err {err:.3e} (tol 2**-5); {ms:.4f} ms, device "
+            f"{dev_ms:.4f} ms; plain {plain:.4f} ms; sdpa {lib:.4f} ms, "
+            f"device {lib_dev:.4f} ms; bound {bound:.6f} ms ({by})")
+        rows.append({"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/"
+                                 "kernel.py:71",
+                     "model": model, "shape": shape,
+                     "path_shape": S == path_S, "launches": 0,
+                     "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                     "library_ms": lib, "library_device_ms": lib_dev})
+    return rows
+
+
+def phase_attention(torch, np, main_S):
+    """flash_attention at smollm-360m's heads: fp32 masks exact on ragged
+    and windowed shapes, then `attention_rows` at S in 7/32/300/2048 and
+    the prompt bucket. -> the bucket's row, with the S = 2048 numbers as
+    `long_prompt`."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    dev = torch.device("cuda")
     H, K, Dh = 15, 5, 64
-    rng = np.random.default_rng(2)
 
     # mask exactness in fp32: q = 0 gives equal scores, so each output
     # channel c is the share of VISIBLE keys whose position has bit c set
-    for (Sq, Sk, window) in ((7, 7, 0), (300, 300, 0), (300, 300, 100),
-                             (2048, 2048, 0), (2048, 2048, 700),
+    for (Sq, Sk, window) in ((300, 300, 100), (2048, 2048, 700),
                              (5, 300, 0)):
         q = torch.zeros((1, Sq, H, Dh), device=dev)
         k = torch.randn((1, Sk, K, Dh), device=dev)
@@ -351,59 +454,16 @@ def phase_attention(torch, np, main_S):
         if err > 1e-5:
             raise AssertionError(f"flash_attention mask differs: Sq={Sq} "
                                  f"Sk={Sk} window={window} err={err}")
-    log("flash_attention: fp32 masks exact (causal, window, ragged, "
-        "right-aligned Sq < Sk)")
-
-    tol = 2.0 ** -5
-    row = long_prompt = None
-    for S in sorted({7, 32, 300, 2048, main_S}):
-        q = torch.from_numpy(rng.normal(size=(1, S, H, Dh)).astype(
-            np.float32)).to(dev).bfloat16()
-        k = torch.from_numpy(rng.normal(size=(1, S, K, Dh)).astype(
-            np.float32)).to(dev).bfloat16()
-        v = torch.from_numpy(rng.normal(size=(1, S, K, Dh)).astype(
-            np.float32)).to(dev).bfloat16()
-        o_k = attention(q, k, v, causal=True)
-        o_r = chunked_attention(q, k, v, causal=True, q_offset=0,
-                                chunk=1024)
-        err = (o_k.float() - o_r.float()).abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"flash_attention S={S}: max abs err "
-                                 f"{err} > {tol}")
-        ms = cuda_ms(torch, lambda: attention(q, k, v, causal=True))
-        dev_ms = device_ms(torch, lambda: attention(q, k, v, causal=True))
-        plain = cuda_ms(torch, lambda: chunked_attention(
-            q, k, v, causal=True, q_offset=0, chunk=1024))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        lib = cuda_ms(torch, sdpa)
-        lib_dev = device_ms(torch, sdpa)
-        flops = 2 * 2 * S * S * H * Dh / 2
-        nbytes = (2 * S * H * Dh + 2 * S * K * Dh) * 2
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
-        by = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"flash_attention S={S}: max abs err {err:.3e} (tol {tol}); "
-            f"{ms:.4f} ms, device {dev_ms:.4f} ms; plain {plain:.4f} ms; "
-            f"sdpa {lib:.4f} ms, device {lib_dev:.4f} ms; bound "
-            f"{bound:.6f} ms ({by})")
-        if S == main_S:
-            row = {"name": "flash_attention", "route": "cuda",
-                   "source": "src/repro_torch/csrc/flash_attention.cu",
-                   "replaces": "src/repro/kernels/flash_attention/"
-                               "kernel.py:71",
-                   "launches": 0, "max_abs_err": err, "ms": ms,
-                   "device_ms": dev_ms, "plain_ms": plain,
-                   "bound_ms": bound, "bound_by": by, "library_ms": lib,
-                   "library_device_ms": lib_dev}
-        if S == 2048:
-            long_prompt = {"S": S, "max_abs_err": err, "ms": ms,
-                           "device_ms": dev_ms, "plain_ms": plain,
-                           "bound_ms": bound, "bound_by": by,
-                           "library_ms": lib, "library_device_ms": lib_dev}
-    row["long_prompt"] = long_prompt
+    log("flash_attention: fp32 masks exact (window, right-aligned Sq < Sk)")
+    sizes = sorted({7, 32, 300, 2048, main_S})
+    rows = dict(zip(sizes, attention_rows(
+        torch, np, "smollm-360m", H, K, Dh, [(S, 0) for S in sizes],
+        main_S)))
+    row = rows[main_S]
+    row["long_prompt"] = {key: rows[2048][key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "library_device_ms")}
+    row["long_prompt"]["S"] = 2048
     return row
 
 
@@ -415,7 +475,7 @@ def phase_masked_logits(torch, np, engine):
     ids). Beside them, one `masked_fill` over an already unpacked mask:
     an informational floor for one elementwise pass at this V (not the
     same function, so `library_ms` stays null)."""
-    from repro_torch.core.constrain import GrammarConstraint, MAX_ACCEPT
+    from repro_torch.core.constrain import MAX_ACCEPT
     from repro_torch.core.decoding import union_packed_rows, \
         unpack_mask_words
     from repro_torch.core.tokenizer import EOS_ID
@@ -424,18 +484,9 @@ def phase_masked_logits(torch, np, engine):
     from repro_torch.kernels.masked_logits.ref import (
         NEG_INF, masked_logits_ref, masked_logits_span_ref)
     dev = torch.device("cuda")
-    g, tab, store_np = engine.bundles["json"]
-    store = torch.from_numpy(store_np.packed.view(np.int32)).to(dev)
+    store, rows, eos, cd, cons_on = json_rows(torch, np, engine)
     R, W = store.shape
     V = engine.model.cfg.vocab_size
-    texts = [b"", b"{", b'{"a', b'{"key": ', b"[1, 2", b'"str', b"tru",
-             b'{"a": [1, {"b": nu']
-    cons_on = np.array([True, True, True, False, True, True, False, True])
-    cons = [GrammarConstraint(g, tab, store_np, engine.tok) if c else None
-            for c in cons_on]
-    rows, eos, _, groups = GrammarConstraint.ci_rows_batch(
-        cons, texts, max_accept=MAX_ACCEPT)
-    cd = GrammarConstraint.cd_overlay_batch(cons, groups, W)
     A = 8 * MAX_ACCEPT                    # a row at a wide accept bucket
     wide = np.full((8, A), -1, np.int32)
     wide[:, :rows.shape[1]] = rows
@@ -527,27 +578,28 @@ def _mask_bytes(np, logit_bytes, rows, cons, W):
             + rows.size * 4 + 2 * n)
 
 
-def phase_paged_attention(torch, np):
-    """paged_attention_span at smollm-360m's attention shapes against the
-    plain version, with sdpa on the gathered dense view as yardstick."""
+def phase_paged_attention(torch, np, H=15, K=5, Dh=64, sizes=(1, 8, 32)):
+    """paged_attention_span at one model's attention shapes (smollm-360m's
+    by default) against the plain version, with sdpa on the gathered
+    dense view as yardstick. -> {S: bf16 row}."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention, paged_attention_decode)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     dev = torch.device("cuda")
-    B, H, K, Dh, ps, nP, P = 8, 15, 5, 64, 16, 32, 256
+    B, ps, nP, P = 8, 16, 32, 256
     L = nP * ps
     rng = np.random.default_rng(7)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     pt = rng.permutation(P)[:B * nP].reshape(B, nP).astype(np.int32)
     pt[:, 1:][rng.random((B, nP - 1)) < 0.15] = -1    # holes
     pt[1:4, :4] = pt[0, :4]                           # shared prefix pages
-    row = None
+    rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         tol = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-5
         kp = t(rng.normal(size=(P, ps, K, Dh)).astype(np.float32)).to(dtype)
         vp = t(rng.normal(size=(P, ps, K, Dh)).astype(np.float32)).to(dtype)
-        for S in (1, 8, 32):
+        for S in sizes:
             q = t(rng.normal(size=(B, S, H, Dh)).astype(np.float32)).to(
                 dtype)
             pos = rng.integers(S, L - S, size=B).astype(np.int32)
@@ -588,7 +640,8 @@ def phase_paged_attention(torch, np):
             t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             bound = max(t_ops, t_bytes)
             by = "operations" if t_ops >= t_bytes else "bytes"
-            log(f"paged_attention S={S} {str(dtype)[6:]}: max abs err "
+            log(f"paged_attention H={H} K={K} Dh={Dh} S={S} "
+                f"{str(dtype)[6:]}: max abs err "
                 f"{err:.3e} (tol {tol}); {ms:.4f} ms, device {dev_ms:.4f} "
                 f"ms; plain {plain:.4f} ms; sdpa on the gathered view "
                 f"{lib:.4f} ms, device {lib_dev:.4f} ms; bound "
@@ -606,18 +659,21 @@ def phase_paged_attention(torch, np):
                 log(f"paged_attention_decode {str(dtype)[6:]}: equal to the "
                     f"span form at S=1; {ms_d:.4f} ms, device {dev_d:.4f} "
                     f"ms")
-            if S == 1 and dtype == torch.bfloat16:
-                row = {"name": "paged_attention_span", "route": "cuda",
-                       "source": "src/repro_torch/csrc/paged_attention.cu",
-                       "replaces": "src/repro/kernels/paged_attention/"
-                                   "kernel.py:83",
-                       "launches": 0, "max_abs_err": err, "ms": ms,
-                       "device_ms": dev_ms, "plain_ms": plain,
-                       "bound_ms": bound, "bound_by": by, "library_ms": lib,
-                       "library_device_ms": lib_dev}
+            if dtype == torch.bfloat16:
+                rows[S] = {
+                    "name": "paged_attention_span", "route": "cuda",
+                    "source": "src/repro_torch/csrc/paged_attention.cu",
+                    "replaces": "src/repro/kernels/paged_attention/"
+                                "kernel.py:83",
+                    "shape": f"B={B} S={S} H={H} K={K} Dh={Dh} bf16, "
+                             f"{nP} pages of {ps}",
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "device_ms": dev_ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                    "library_device_ms": lib_dev}
     log("  (sdpa's time leaves out the page gather: it reads the already "
         "gathered dense view)")
-    return row
+    return rows
 
 
 def e2e_requests():
@@ -1243,6 +1299,277 @@ def phase_front_end(torch, engine, bundles, counters, dense_states):
             f"{stats.mask_computations} masked steps")
 
 
+# ---------------------------------------------------- phase 8: architectures
+
+# (arch, depth or None for all layers): each built at full width with
+# seeded random weights, served, checked and freed before the next.
+# qwen3-moe at all 48 layers fits the card but takes the script past half
+# its time limit (PERF.md §4).
+ARCHS = (("mamba2-370m", None), ("recurrentgemma-9b", None),
+         ("qwen3-moe-30b-a3b", 8))
+
+
+def arch_requests():
+    """Phase 5's first 8 requests (half greedy, half sampled at
+    temperature 0.8, top_k 40, top_p 0.95; json and jsonmsg) x 32 new
+    tokens."""
+    reqs = e2e_requests()[:8]
+    for r in reqs:
+        r.max_new_tokens = 32
+    return reqs
+
+
+def arch_mask_rows(torch, np, engine, model, forms):
+    """masked_logits ("row", B) and masked_logits_span ("span", B, K) at
+    one model's vocab, bf16, real json rows at the engine's accept bucket
+    (A = 48), bitwise against the plain version. -> rows."""
+    from repro_torch.core.constrain import MAX_ACCEPT
+    from repro_torch.kernels.masked_logits.ops import (
+        apply_grammar_mask, apply_grammar_mask_span)
+    from repro_torch.kernels.masked_logits.ref import (
+        masked_logits_ref, masked_logits_span_ref)
+    dev = torch.device("cuda")
+    store, rows, eos, cd, cons_on = json_rows(torch, np, engine)
+    W = store.shape[1]
+    V = engine.model.cfg.vocab_size
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rng = np.random.default_rng(13)
+    out = []
+    for form in forms:
+        B = form[1]
+        if form[0] == "row":
+            fn, ref, K = apply_grammar_mask, masked_logits_ref, 1
+            rset, cset = rows[:B], cons_on[:B]
+            args = (t(rng.normal(scale=3.0, size=(B, V)).astype(
+                np.float32)).bfloat16(), store, t(rset), t(eos[:B]))
+            kw = {"constrained": t(cset), "cd": t(cd[:B].view(np.int32))}
+            name, line, shape = "masked_logits", 164, f"B={B} V={V} bf16"
+        else:
+            fn, ref, K = apply_grammar_mask_span, masked_logits_span_ref, \
+                form[2]
+            rset = np.repeat(rows[:B, None], K, axis=1)
+            cset = np.repeat(cons_on[:B, None], K, axis=1)
+            args = (t(rng.normal(scale=3.0, size=(B, K, V)).astype(
+                np.float32)).bfloat16(), store, t(rset),
+                t(np.repeat(eos[:B, None], K, axis=1)))
+            kw = {"constrained": t(cset), "cd": t(np.repeat(
+                cd[:B, None], K, axis=1).view(np.int32))}
+            name, line, shape = ("masked_logits_span", 112,
+                                 f"B={B} K={K} V={V} bf16")
+        mk, mr = fn(*args, **kw), ref(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(mk.view(torch.int16), mr.view(torch.int16)):
+            raise AssertionError(f"{name} {model} {shape}: differs from the "
+                                 f"plain version")
+        ms = cuda_ms(torch, lambda: fn(*args, **kw))
+        dev_ms = device_ms(torch, lambda: fn(*args, **kw))
+        plain = cuda_ms(torch, lambda: ref(*args, **kw))
+        nbytes = _mask_bytes(np, args[0].numel() * 2,
+                             rset.reshape(B * K, -1), cset.reshape(-1), W)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"{name} {model} {shape} A={MAX_ACCEPT}: bitwise equal; "
+            f"{ms:.4f} ms, device {dev_ms:.4f} ms; plain {plain:.4f} ms; "
+            f"bound {bound:.6f} ms ({nbytes} bytes)")
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/csrc/masked_logits.cu",
+                    "replaces": f"src/repro/kernels/masked_logits/"
+                                f"kernel.py:{line}",
+                    "model": model, "shape": f"{shape} A={MAX_ACCEPT}",
+                    "launches": 0, "max_abs_err": float(
+                        (mk.float() - mr.float()).abs().max()),
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": "bytes",
+                    "library_ms": None, "library_device_ms": None})
+    return out
+
+
+def _scan_cost(torch, S, R):
+    """The RG-LRU prefill scan (`models/rglru.py::linear_scan`, log depth)
+    at [1, S, R] fp32, beside a sequential loop over the S positions."""
+    from repro_torch.models.rglru import linear_scan
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(4)
+    a = torch.rand((1, S, R), device=dev, generator=g)
+    b = torch.randn((1, S, R), device=dev, generator=g)
+    scan_ms = cuda_ms(torch, lambda: linear_scan(a, b))
+    scan_dev = device_ms(torch, lambda: linear_scan(a, b))
+
+    def loop():
+        h, hs = torch.zeros_like(b[:, 0]), []
+        for i in range(S):
+            h = a[:, i] * h + b[:, i]
+            hs.append(h)
+        return torch.stack(hs, 1)
+
+    err = (linear_scan(a, b) - loop()).abs().max().item()
+    log(f"RG-LRU prefill scan [1,{S},{R}] fp32: log-depth "
+        f"({(S - 1).bit_length()} rounds) {scan_ms:.4f} ms, device "
+        f"{scan_dev:.4f} ms; sequential loop {cuda_ms(torch, loop):.4f} ms, "
+        f"device {device_ms(torch, loop):.4f} ms; max abs difference "
+        f"{err:.3e}")
+
+
+def phase_arch(torch, np, counters, arch, depth):
+    """One model of phase 8 at full width (and `depth` layers, or all):
+    build it through `build_engine`, check its kernels at its shapes,
+    serve its runs with the counters zeroed just before each and read
+    just after, then free it. -> its kernel rows, launches filled from
+    its runs."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models.model import layer_groups
+    from repro_torch.serving.engine import Engine
+    t0 = time.perf_counter()
+    engine, bundles, _ = build_engine(
+        arch, grammars=("json", "jsonmsg"), max_len=512, slots=8,
+        device="cuda", num_layers=depth)
+    torch.cuda.synchronize()
+    cfg = engine.model.cfg
+    numel = lambda t: (sum(map(numel, t.values())) if isinstance(t, dict)
+                       else sum(map(numel, t)) if isinstance(t, (list, tuple))
+                       else t.numel())
+    n_params = numel(engine.params)
+    log(f"phase 8, {arch}: {cfg.num_layers} of "
+        f"{get_config(arch).num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, groups {layer_groups(cfg)}; "
+        f"{n_params / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+        f"engine build (mask stores + random weights) "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = len(engine._request_ids(arch_requests()[0])) - 1
+    path_S = engine._bucketed_prompt(list(range(n)))[0].shape[1]
+    n_attn = sum(count for pat, count in layer_groups(cfg) for kind in pat
+                 if kind in ("attn", "moe"))
+    H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    sel = phase_fused_select(torch, np, engine)
+    sel.update(model=arch, shape=f"B=8 V={cfg.vocab_size} bf16")
+    rows = [sel]
+    flash, paged, masks = [], {}, []
+    if arch == "recurrentgemma-9b":
+        w = cfg.local_window
+        flash = attention_rows(torch, np, arch, H, K, Dh, [
+            (path_S, w), (2048, w), (4096, w)], path_S)
+        _scan_cost(torch, path_S, cfg.lru_dim)
+    if arch == "qwen3-moe-30b-a3b":
+        flash = attention_rows(torch, np, arch, H, K, Dh, [
+            (path_S, 0), (2048, 0)], path_S)
+        paged = phase_paged_attention(torch, np, H, K, Dh, sizes=(1, 8))
+        masks = arch_mask_rows(torch, np, engine, arch, [("span", 8, 8)])
+    if arch == "mamba2-370m":
+        masks = arch_mask_rows(torch, np, engine, arch, [("row", 1),
+                                                         ("row", 8)])
+
+    # ---- dense generate() -------------------------------------------
+    states, stats, launches = run_counted(
+        torch, counters, lambda: engine.generate(arch_requests()))
+    report(f"{arch} dense generate (json+jsonmsg, 8 slots, 8 requests x 32 "
+           f"new tokens)", states, stats, bundles, launches,
+           f"; overlap hits {stats.overlap_hits}/{stats.overlap_dispatched}")
+    if launches["fused_mask_select"] < stats.decode_steps or \
+            stats.decode_steps == 0:
+        raise AssertionError(f"{arch}: fused_select launched fewer times "
+                             f"than the engine stepped")
+    if launches["attention"] != stats.requests * n_attn:
+        raise AssertionError(f"{arch}: flash_attention launched "
+                             f"{launches['attention']} times, want "
+                             f"{stats.requests} admissions x {n_attn}")
+    sel["launches"] = launches["fused_mask_select"]
+    for r in flash:
+        r["launches"] = launches["attention"]
+    # devtime twin: the same requests with device spans synchronized
+    _, dstats = Engine(engine.model, engine.params, engine.tok, bundles,
+                       max_len=engine.max_len, slots=engine.slots,
+                       devtime=True, device="cuda").generate(arch_requests())
+    log(f"{arch} devtime run: {dstats.tokens} tokens in {dstats.wall:.3f} "
+        f"s; device_forward_s {dstats.device_forward_s:.4f}; "
+        f"device_mask_sample_s {dstats.device_mask_sample_s:.4f}; decode "
+        f"steps {dstats.decode_steps}; attribution seconds "
+        f"{json.dumps(dstats.attribution['seconds'])}")
+
+    if arch == "mamba2-370m":
+        seq = arch_requests()[:4]
+        for r in seq:
+            r.max_new_tokens = 16
+        states, stats, launches = run_counted(
+            torch, counters, lambda: engine.generate_sequential(seq))
+        report(f"{arch} sequential (4 requests x 16 new tokens)", states,
+               stats, bundles, launches,
+               f"; constrained steps {stats.mask_computations}")
+        if launches["apply_grammar_mask"] != stats.mask_computations or \
+                stats.mask_computations == 0:
+            raise AssertionError(f"{arch} sequential: masked_logits launched "
+                                 f"{launches['apply_grammar_mask']} times for "
+                                 f"{stats.mask_computations} steps")
+        for r in masks:
+            r["launches"] = launches["apply_grammar_mask"]
+
+    if arch == "qwen3-moe-30b-a3b":
+        pg = Engine(engine.model, engine.params, engine.tok, bundles,
+                    max_len=engine.max_len, slots=engine.slots, paged=True,
+                    page_size=16, device="cuda")
+        states, stats, launches = run_counted(
+            torch, counters, lambda: pg.generate(arch_requests()))
+        report(f"{arch} paged generate (page_size 16, 8 requests x 32 new "
+               f"tokens)", states, stats, bundles, launches,
+               f"; peak pages {stats.kv_peak_utilization * pg.num_pages:.0f}"
+               f"/{pg.num_pages}; page allocations {stats.kv_page_allocs}; "
+               f"prefix hit rate {stats.prefix_hit_rate:.4f}")
+        if launches["paged_attention"] != stats.decode_steps * n_attn or \
+                not launches["fused_mask_select"]:
+            raise AssertionError(f"{arch} paged: paged_attention launched "
+                                 f"{launches['paged_attention']} times in "
+                                 f"{stats.decode_steps} steps x {n_attn}")
+        for r in paged.values():
+            r.update(model=arch, launches=launches["paged_attention"])
+        del pg
+        states, stats, launches = run_counted(
+            torch, counters, lambda: engine.generate_speculative(
+                arch_requests()))
+        report(f"{arch} speculative, dense caches (8 requests x 32 new "
+               f"tokens)", states, stats, bundles, launches,
+               f"; jump tokens {stats.jump_tokens}; drafts accepted "
+               f"{stats.draft_accepted}/{stats.draft_proposed}")
+        if launches["apply_grammar_mask_span"] != stats.decode_steps or \
+                stats.decode_steps == 0:
+            raise AssertionError(f"{arch} speculative: masked_logits_span "
+                                 f"launched "
+                                 f"{launches['apply_grammar_mask_span']} "
+                                 f"times in {stats.decode_steps} steps")
+        for r in masks:
+            r["launches"] = launches["apply_grammar_mask_span"]
+
+    # ---- one dense decode step, forward + selection ------------------
+    B = engine.slots
+    dev = torch.device("cuda")
+    from repro_torch.kernels.fused_select.ops import fused_mask_select
+    from repro_torch.kernels.fused_select.ref import gumbel_noise
+    full = lambda v, dt: torch.full((B,), v, dtype=dt, device=dev)
+    noise = gumbel_noise(np.arange(2 * B, dtype=np.uint32).reshape(B, 2),
+                         cfg.vocab_size, dev)
+    caches = engine.model.init_decode_caches(B, engine.max_len)
+    tok = torch.full((B,), 7, dtype=torch.int32, device=dev)
+    pos = torch.full((B,), 40, dtype=torch.int32, device=dev)
+    sel_args = (engine._store_cat,
+                torch.full((B, 1), -1, dtype=torch.int32, device=dev), None,
+                full(False, torch.bool), full(False, torch.bool),
+                torch.arange(B, device=dev) % 2 == 0,
+                full(0.8, torch.float32), full(40, torch.int32),
+                full(0.95, torch.float32))
+    _step_breakdown(torch, f"{arch} decode step breakdown, forward + select "
+                    f"(B={B}, {cfg.num_layers} layers, dense caches)",
+                    lambda: fused_mask_select(
+                        engine._decode(caches, tok, pos), *sel_args,
+                        noise=noise), share_of=("fused_select",))
+    del engine, bundles, caches, states
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"phase 8, {arch}: freed; {left:.2f} GiB still allocated")
+    return rows + flash + list(paged.values()) + masks
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1290,7 +1617,9 @@ def main():
     rows = [phase_fused_select(torch, np, engine),
             phase_attention(torch, np, main_S),
             *phase_masked_logits(torch, np, engine),
-            phase_paged_attention(torch, np)]
+            phase_paged_attention(torch, np)[1]]
+    for r in rows:
+        r["model"] = "smollm-360m"
     launches, dense_states = phase_e2e(torch, engine, bundles, counters)
     rows[0]["launches"] = launches["fused_mask_select"]
     rows[1]["launches"] = launches["attention"]
@@ -1299,6 +1628,8 @@ def main():
         r["launches"] = found[r["name"]]
     phase_forward_breakdown(torch, engine)
     phase_front_end(torch, engine, bundles, counters, dense_states)
+    for arch, depth in ARCHS:
+        rows += phase_arch(torch, np, counters, arch, depth)
 
     log(smi)
     log(json.dumps({"kernels": rows}))

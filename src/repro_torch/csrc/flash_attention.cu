@@ -21,8 +21,14 @@
 // bf16: tensor cores, FlashAttention-2 form. One block of 4 warps per
 // (64-row q tile, head, batch); each warp owns 16 query rows. T(q*scale)
 // is held in registers as the A fragments of mma.sync.m16n8k16 (bf16 in,
-// fp32 accumulate). K/V tiles of 128 keys go through a ring of 2-3
-// stages in shared memory (Tiles<D>), filled by cp.async 16-byte copies
+// fp32 accumulate) up to head_dim 128. At head_dim 256 (RecurrentGemma)
+// a warp's O accumulator alone is 128 registers per thread, so the Q
+// fragments stay in shared memory and are read by ldmatrix at each k-step
+// (64 registers fewer), and the K/V tiles hold 64 keys, so that the Q tile
+// and two stages of K and V fit a block's shared memory (160 KB; 128-key
+// tiles would need 288 KB). K/V tiles of 128 keys (64 at head_dim 256) go
+// through a ring of 2-3 stages in shared memory (Tiles<D>), filled by
+// cp.async 16-byte copies
 // of the bf16 data, rows swizzled by an XOR on their 16-byte chunks so
 // that ldmatrix (ldmatrix.trans for V) is free of bank conflicts. S = QK^T
 // is masked in registers, only on tiles that meet an edge; the online
@@ -205,11 +211,14 @@ constexpr int kWarps = 4;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Keys per K/V tile and cp.async stages per head_dim: the fastest of the
-// sizes tried on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+// sizes tried on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md) up to head_dim
+// 128; at 256 the largest tile that fits two stages in shared memory.
+// QREG: the Q fragments live in registers for the whole block.
 template <int D>
 struct Tiles {
-  static constexpr int BK = 128;
+  static constexpr int BK = D >= 256 ? 64 : 128;
   static constexpr int ST = D == 32 ? 3 : 2;
+  static constexpr bool QREG = D <= 128;
 };
 
 template <int D>
@@ -352,11 +361,16 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16_kernel(
 
   const int wr0 = warp * 16;                 // the warp's first tile row
   const bool active = q0 + wr0 < Sq;         // any of its rows real
-  uint32_t qf[KQ][4];
+  auto q_frag = [&](uint32_t (&r)[4], int kk) {
+    ldsm_x4(r, smem_u32(Qs + swz<D>(wr0 + (lane & 15),
+                                    kk * 2 + (lane >> 4))));
+  };
+  constexpr bool QREG = Tiles<D>::QREG;
+  uint32_t qf[QREG ? KQ : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KQ; ++kk)
-    ldsm_x4(qf[kk], smem_u32(Qs + swz<D>(wr0 + (lane & 15),
-                                         kk * 2 + (lane >> 4))));
+    for (int kk = 0; kk < KQ; ++kk) q_frag(qf[kk], kk);
+  }
 
   // rows g and g + 8 of the warp's 16
   const int pos0 = q0 + wr0 + g + q_offset, pos1 = pos0 + 8;
@@ -385,14 +399,21 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16_kernel(
         for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KQ; ++kk) {
+        uint32_t qa[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+        } else {
+          q_frag(qa, kk);
+        }
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t kf[4];
           ldsm_x4(kf, smem_u32(kt + swz<D>(np * 16 + (lane & 7) +
                                                ((lane >> 4) << 3),
                                            kk * 2 + ((lane >> 3) & 1))));
-          mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+          mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
         }
       }
 
@@ -551,12 +572,15 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
     case 128:
       return (int)(dtype == 1 ? smem_bytes_bf16<128>()
                               : smem_bytes_f32<128>());
+    case 256:
+      return (int)(dtype == 1 ? smem_bytes_bf16<256>()
+                              : smem_bytes_f32<256>());
     default:
       return -1;
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim in {32, 64, 128}. Pointers
+// dtype: 0 = float32, 1 = bfloat16. head_dim in {32, 64, 128, 256}. Pointers
 // 16-byte aligned (the wrapper copies a tensor that is not).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
@@ -575,6 +599,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     REPRO_FA_CASE(32)
     REPRO_FA_CASE(64)
     REPRO_FA_CASE(128)
+    REPRO_FA_CASE(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -26,7 +26,10 @@
 //
 // Design: one block of 1024 threads per row, 16-byte loads (8 bf16 or 4
 // fp32 entries per thread and step, two steps in flight); the union lives
-// in shared memory. Greedy rows (and the noise=None mode) take one pass:
+// in shared memory. V is a multiple of 8, so every row starts 16-byte
+// aligned and one access never straddles two union words; it need not be
+// a multiple of 32 (mamba2's 50280): the last word covers V % 32 tokens
+// and its higher bits, zero in the store, are never read. Greedy rows (and the noise=None mode) take one pass:
 // mask, write, argmax. Division by t > 0 is monotone, so ranks and bins
 // are taken on the unscaled values' order-preserving keys, and t divides
 // only what a route keeps. A sampled row with a filter first tries the
@@ -812,7 +815,7 @@ extern "C" int fused_select_smem_bytes(int dtype, int W) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Flags are bytes (torch.bool). Rows of
-// logits 16-byte aligned (V % 32 == 0 and an aligned base; the wrapper
+// logits 16-byte aligned (V % 8 == 0 and an aligned base; the wrapper
 // copies a tensor that is not). cd may be null (no residue); noise may be
 // null when sample == 0.
 extern "C" int fused_select_launch(
@@ -822,7 +825,8 @@ extern "C" int fused_select_launch(
     void* ids, void* masked, void* ok, int B, int V, int W, int A, int R,
     int eos_id, float neg_value, int sample, void* stream) {
   if (B == 0) return 0;
-  if (W < 1 || W > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  if (W < 1 || W > kMaxWords || V % 8 || (long long)W * 32 < V)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch<__nv_bfloat16>(logits, store, rows, cd, eos, cons, greedy,

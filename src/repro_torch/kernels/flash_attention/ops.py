@@ -24,8 +24,8 @@ _SMEM_CHECKED: set = set()  # (dtype code, Dh) whose plan the library confirmed
 
 
 # bf16 keys per K/V tile and cp.async stages, by head_dim (Tiles<D> in
-# the kernel)
-BF16_TILES = {32: (128, 3), 64: (128, 2), 128: (128, 2)}
+# the kernel); the kernel is instantiated for these head_dims only
+BF16_TILES = {32: (128, 3), 64: (128, 2), 128: (128, 2), 256: (64, 2)}
 
 
 class Plan(NamedTuple):
@@ -99,7 +99,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype} (need one of f32/bf16)")
     if tuple(k.shape) != (B, Sk, K, Dh) or tuple(v.shape) != tuple(k.shape) \
-            or H % K or Sq > Sk or Dh not in (32, 64, 128):
+            or H % K or Sq > Sk or Dh not in BF16_TILES:
         raise ValueError(f"flash_attention: unsupported shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")

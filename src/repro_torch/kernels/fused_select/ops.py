@@ -13,6 +13,7 @@ launches (never plain-version calls).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -36,11 +37,15 @@ MAX_WORDS = 12288           # union words the kernel takes (V <= 393216)
 
 class Plan(NamedTuple):
     """One launch: threads per block (one block per row), the candidate
-    list's capacity and dynamic shared memory per block."""
+    list's capacity, dynamic shared memory per block, the entries of one
+    16-byte access (`vec`) and the tokens the union's last word covers
+    (`tail`: V % 32, or 32 when V is a multiple of 32)."""
     V: int
     threads: int
     cap: int
     smem: int
+    vec: int
+    tail: int
 
     def list_route(self, top_k: int) -> bool:
         """Whether a sampled row whose top_k is on may take the candidate
@@ -51,13 +56,24 @@ class Plan(NamedTuple):
         return 0 < top_k < self.V and top_k <= self.cap
 
 
+@functools.lru_cache(maxsize=64)
 def launch_plan(V: int, W: int, dtype) -> Plan:
     """The kernel's launch for [B, V] logits of `dtype` and W union words:
     the candidate list (8 B per entry: fp32 key and index, whatever the
     dtype), the first-level histogram (4 B per bin) and the union (4 B per
-    word). `fused_select_smem_bytes` in the library must agree."""
-    del dtype   # the list holds fp32 keys for either logit type
-    return Plan(V, THREADS, CAP, 8 * CAP + 4 * BINS + 4 * W)
+    word). `fused_select_smem_bytes` in the library must agree.
+
+    Every pass reads a row 16 bytes at a time (8 bf16 or 4 fp32 entries),
+    so V must be a multiple of 8: each row then starts 16-byte aligned,
+    and no access straddles two union words (32 is a multiple of 8). V
+    need not be a multiple of 32 (mamba2's 50280): the last word covers
+    V % 32 tokens, its higher bits are zero in the store and never read.
+    Raises ValueError for a shape the kernel does not take."""
+    if V < 8 or V % 8 or W * 32 < V or W > MAX_WORDS:
+        raise ValueError(f"fused_select: unsupported V={V}, W={W}")
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    return Plan(V, THREADS, CAP, 8 * CAP + 4 * BINS + 4 * W, vec,
+                V % 32 or 32)
 
 
 def _neg(dtype) -> float:
@@ -120,8 +136,9 @@ def fused_mask_select(logits, store, rows, cd, eos_allowed, constrained,
     B, V = logits.shape
     R, W = store.shape
     A = rows.shape[1]
-    if V % 32 or W * 32 < V or W > MAX_WORDS or A < 1:
-        raise ValueError(f"fused_select: unsupported V={V}, W={W}, A={A}")
+    if A < 1:
+        raise ValueError(f"fused_select: unsupported A={A}")
+    plan = launch_plan(V, W, logits.dtype)
     _check(store, "store", torch.int32, (R, W), dev)
     _check(rows, "rows", torch.int32, (B, A), dev)
     if cd is not None:
@@ -140,7 +157,7 @@ def fused_mask_select(logits, store, rows, cd, eos_allowed, constrained,
     lib, fn = _launcher()
     code = _DTYPES[logits.dtype]
     if (code, W) not in _SMEM_CHECKED:
-        want = launch_plan(V, W, logits.dtype).smem
+        want = plan.smem
         got = lib.fused_select_smem_bytes(code, W)
         if got != want:
             raise RuntimeError(f"fused_select: launch plan asks for {want} "

@@ -15,6 +15,12 @@ Usage (on the card; `--device cpu` runs the same path on the CPU):
     curl -N localhost:8400/generate \
         -d '{"prompt": "Q:", "grammar": "json", "max_new_tokens": 32}'
 
+`--arch` takes every config of `repro_torch.configs`: the dense
+smollm-360m and syncode-demo, the MoE qwen3-moe-30b-a3b (all 48 layers,
+61 GB in bf16), the SSM mamba2-370m and the hybrid recurrentgemma-9b.
+The recurrent archs (mamba2, recurrentgemma) prefill at exact length and
+refuse `--paged` and `--speculative`, as the reference does.
+
 Weights are random, drawn from `--seed` by a torch.Generator on the
 device: the repository ships no checkpoint. The summary line matches the
 JAX launcher's, ending in "valid among complete: k/k".
@@ -22,6 +28,7 @@ JAX launcher's, ending in "valid among complete: k/k".
 from __future__ import annotations
 
 import argparse
+from dataclasses import replace
 
 import torch
 
@@ -41,12 +48,16 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
                  seed=0, opportunistic=False, slots=4, paged=False,
                  page_size=16, num_pages=None, prefill_chunk=32, overlap=True,
                  grammar_mode="grammar_mask", telemetry=True, devtime=False,
-                 noise_fn=None, device="cuda", params=None):
+                 noise_fn=None, device="cuda", params=None, num_layers=None):
     """-> (engine, bundles, tokenizer). `params` (a port param tree on
     `device`) replaces the seeded random init, e.g. bridged reference
-    weights in the parity tests. The other keywords are the Engine's."""
+    weights in the parity tests. `num_layers` keeps the config's first
+    layers and every width (chip_smoke.py serves qwen3-moe at 8 of 48 to
+    bound its run time). The other keywords are the Engine's."""
     dev = resolve_device(device)
     cfg = get_config(arch)
+    if num_layers:
+        cfg = replace(cfg, num_layers=num_layers)
     tok = ByteTokenizer(cfg.vocab_size)
     bundles = {}
     for name in grammars:

@@ -28,12 +28,18 @@ def dtype_of(cfg) -> torch.dtype:
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
                dtype=torch.bfloat16) -> torch.Tensor:
     """Normal(0, 1) * scale (default 1/sqrt(fan_in), fan_in = shape[-2]),
-    drawn in fp32 on the generator's device and cast to `dtype`."""
+    drawn in fp32 on the generator's device and cast to `dtype`. A leaf
+    stacked over layers (3 dims or more) is drawn one layer at a time, so
+    the fp32 draw never holds more than one layer: qwen3-moe's expert
+    leaf [48, 128, 2048, 768] would take 38.6 GB in fp32 at once."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (x * scale).to(dtype)
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    for part in (out if len(shape) >= 3 else (out,)):
+        part.copy_(torch.randn(part.shape, generator=gen,
+                               dtype=torch.float32, device=gen.device)
+                   * scale)
+    return out
 
 
 # ----------------------------- norms / rope -------------------------------

@@ -1,5 +1,14 @@
-"""The `attn` layer kind with its explicit KV cache (port of the dense
-subset of `repro.models.layers`).
+"""Layer kinds with their explicit caches (port of `repro.models.layers`):
+`attn` (self-attention + dense FFN), `moe` (self-attention + routed
+experts), `rec` (RG-LRU + dense FFN, RecurrentGemma) and `ssm` (Mamba2).
+The `cross`, `enc` and `dec` kinds (vlm, audio) are not ported: the
+reference's serving engine never feeds them their side inputs.
+
+Each kind has init_<kind>(gen, cfg, dtype, lead) -> params stacked on
+`lead`, <kind>_prefill(params, x, cfg, ctx) -> (x, cache) and
+<kind>_decode(params, x, cache, cfg, ctx) -> (x, cache). ctx holds
+"cache_len", "true_len", "pos", "feed_mask", "page_table" and "window"
+(a per-model window override: the hybrid arch's local attention).
 
 KV caches store rotated K plus a per-slot absolute-position array
 (`kv_pos`, -1 = empty) so ring-buffer (sliding-window) and linear caches
@@ -16,7 +25,11 @@ from __future__ import annotations
 
 import torch
 
-from .common import apply_rope, attn_out, ffn, qkv_proj, rms_norm
+from .common import (apply_rope, attn_out, ffn, init_attention, init_ffn,
+                     qkv_proj, rms_norm)
+from .moe import init_moe, moe_ffn
+from .rglru import init_rglru, rglru_decode, rglru_prefill
+from .ssm import init_ssm, ssm_decode, ssm_prefill
 from ..kernels.flash_attention.ops import attention
 from ..kernels.paged_attention.ops import paged_attention
 from ..kernels.paged_attention.ref import attend
@@ -157,6 +170,17 @@ def _self_attention_decode(p, x, cache, cfg, ctx):
 
 # ---- "attn": self-attention + dense FFN (pre-norm residual) ----
 
+def _norm(gen, cfg, dtype, lead):
+    return torch.ones((*lead, cfg.d_model), dtype=dtype, device=gen.device)
+
+
+def init_attn_layer(gen, cfg, dtype, lead=()):
+    return {"ln1": _norm(gen, cfg, dtype, lead),
+            "attn": init_attention(gen, cfg, dtype, lead),
+            "ln2": _norm(gen, cfg, dtype, lead),
+            "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, lead)}
+
+
 def attn_prefill(p, x, cfg, ctx):
     o, cache = _self_attention_prefill(p["attn"],
                                        rms_norm(x, p["ln1"], cfg.norm_eps),
@@ -175,5 +199,80 @@ def attn_decode(p, x, cache, cfg, ctx):
     return x, cache
 
 
-KIND_PREFILL = {"attn": attn_prefill}
-KIND_DECODE = {"attn": attn_decode}
+# ---- "moe": self-attention + MoE FFN ----
+
+def init_moe_layer(gen, cfg, dtype, lead=()):
+    return {"ln1": _norm(gen, cfg, dtype, lead),
+            "attn": init_attention(gen, cfg, dtype, lead),
+            "ln2": _norm(gen, cfg, dtype, lead),
+            "moe": init_moe(gen, cfg, dtype, lead)}
+
+
+def moe_prefill(p, x, cfg, ctx):
+    o, cache = _self_attention_prefill(p["attn"],
+                                       rms_norm(x, p["ln1"], cfg.norm_eps),
+                                       cfg, ctx)
+    x = x + o
+    y, _ = moe_ffn(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, cache
+
+
+def moe_decode(p, x, cache, cfg, ctx):
+    o, cache = _self_attention_decode(p["attn"],
+                                      rms_norm(x, p["ln1"], cfg.norm_eps),
+                                      cache, cfg, ctx)
+    x = x + o
+    y, _ = moe_ffn(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, cache
+
+
+# ---- "rec": RG-LRU recurrent block + FFN (RecurrentGemma) ----
+
+def init_rec_layer(gen, cfg, dtype, lead=()):
+    return {"ln1": _norm(gen, cfg, dtype, lead),
+            "rec": init_rglru(gen, cfg, dtype, lead),
+            "ln2": _norm(gen, cfg, dtype, lead),
+            "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, lead)}
+
+
+def rec_prefill(p, x, cfg, ctx):
+    o, cache = rglru_prefill(p["rec"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                             cfg)
+    x = x + o
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, cache
+
+
+def rec_decode(p, x, cache, cfg, ctx):
+    o, cache = rglru_decode(p["rec"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                            cache, cfg)
+    x = x + o
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, cache
+
+
+# ---- "ssm": Mamba2 block (no separate FFN; norm + SSD + residual) ----
+
+def init_ssm_layer(gen, cfg, dtype, lead=()):
+    return {"ln1": _norm(gen, cfg, dtype, lead),
+            "ssm": init_ssm(gen, cfg, dtype, lead)}
+
+
+def ssm_layer_prefill(p, x, cfg, ctx):
+    o, cache = ssm_prefill(p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                           cfg)
+    return x + o, cache
+
+
+def ssm_layer_decode(p, x, cache, cfg, ctx):
+    o, cache = ssm_decode(p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                          cache, cfg)
+    return x + o, cache
+
+
+KIND_INIT = {"attn": init_attn_layer, "moe": init_moe_layer,
+             "rec": init_rec_layer, "ssm": init_ssm_layer}
+KIND_PREFILL = {"attn": attn_prefill, "moe": moe_prefill,
+                "rec": rec_prefill, "ssm": ssm_layer_prefill}
+KIND_DECODE = {"attn": attn_decode, "moe": moe_decode,
+               "rec": rec_decode, "ssm": ssm_layer_decode}

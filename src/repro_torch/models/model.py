@@ -1,10 +1,15 @@
-"""Model assembly, dense arch (port of `repro.models.model`).
+"""Model assembly (port of `repro.models.model`) for the dense, moe, ssm
+and hybrid archs; vlm and audio are not ported (training slice).
 
-The parameter tree keeps the JAX layout: {"embed_block": {...},
-"groups": [(layer_params_stacked_on_[L, ...],)]}. The reference scans the
-stacked layers with `lax.scan`; here a Python loop walks the layer axis
-(each slice is a view). Caches keep the reference's layout too:
-[(({"k","v": [L, B, T, K, Dh], "kv_pos": [L, B, T]}),)].
+Layers of one structure are stacked into groups, each a fixed pattern of
+kinds (hybrid: ("rec", "rec", "attn") x n plus a remainder group; moe: a
+leading dense group when `first_dense_layers`). The parameter tree keeps
+the JAX layout: {"embed_block": {...}, "groups": [(kind_params_stacked_on_
+[count, ...], ...)]}. The reference scans each group with `lax.scan`;
+here a Python loop walks the layer axis (each slice is a view). Caches
+keep the reference's layout too, one dict per pattern position stacked
+on [count, ...]: attention {"k","v": [L, B, T, K, Dh], "kv_pos": [L, B,
+T]}, rec {"h": [L, B, R], "conv"}, ssm {"h": [L, B, Hs, N, P], "conv"}.
 
 Public API (functions over a params tree):
   model.init(generator)                          -> params
@@ -24,19 +29,35 @@ from dataclasses import dataclass
 
 import torch
 
-from .common import (dtype_of, embed_tokens, init_attention, init_embed,
-                     init_ffn, lm_logits)
+from .common import dtype_of, embed_tokens, init_embed, lm_logits
 from .config import ModelConfig
-from .layers import KIND_DECODE, KIND_PREFILL, init_kv_cache
+from .layers import KIND_DECODE, KIND_INIT, KIND_PREFILL, init_kv_cache
+from .rglru import init_rglru_cache
+from .ssm import init_ssm_cache
 from ..device import resolve_device
 
 
 def layer_groups(cfg: ModelConfig):
-    """-> list of (pattern tuple, count). Only the dense arch is ported."""
-    if cfg.arch_type == "dense":
-        return [(("attn",), cfg.num_layers)]
-    raise NotImplementedError(
-        f"arch_type {cfg.arch_type!r} is not ported to PyTorch yet")
+    """-> list of (pattern tuple, count), the decoder-side stack."""
+    L = cfg.num_layers
+    at = cfg.arch_type
+    if at == "dense":
+        return [(("attn",), L)]
+    if at == "moe":
+        fd = cfg.first_dense_layers
+        return ([(("attn",), fd)] if fd else []) + [(("moe",), L - fd)]
+    if at == "ssm":
+        return [(("ssm",), L)]
+    if at == "hybrid":
+        pat = tuple(cfg.block_pattern)
+        n, rem = divmod(L, len(pat))
+        return ([(pat, n)] if n else []) + ([(pat[:rem], 1)] if rem else [])
+    if at in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"arch_type {at!r} is not served by the port: the reference's "
+            f"engine never feeds its side inputs, so it moves to the "
+            f"training slice")
+    raise ValueError(at)
 
 
 def _slice(tree, i):
@@ -57,25 +78,25 @@ class Model:
     # ------------------------------ init ---------------------------------
     def init(self, gen: torch.Generator):
         """Random params with the reference's shapes and scales (normal x
-        1/sqrt(fan_in); embedding scale 1.0; norms ones; biases zeros),
-        drawn from `gen` on its device. The numbers are torch's, not
-        jax.random's: parity tests bridge the reference's params
-        instead (`repro_torch.bridge`)."""
+        1/sqrt(fan_in); embedding scale 1.0; conv kernels 0.5; norms
+        ones; biases zeros; the MoE router and the recurrent gates' fp32
+        leaves as the reference keeps them), drawn from `gen` on its
+        device. The numbers are torch's, not jax.random's: parity tests
+        bridge the reference's params instead (`repro_torch.bridge`)."""
         cfg = self.cfg
         dtype = dtype_of(cfg)
         params = {"embed_block": init_embed(gen, cfg, dtype), "groups": []}
         for pat, count in layer_groups(cfg):
-            lead = (count,)
-            layer = {
-                "ln1": torch.ones((count, cfg.d_model), dtype=dtype,
-                                  device=gen.device),
-                "attn": init_attention(gen, cfg, dtype, lead),
-                "ln2": torch.ones((count, cfg.d_model), dtype=dtype,
-                                  device=gen.device),
-                "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, lead),
-            }
-            params["groups"].append((layer,))
+            params["groups"].append(tuple(
+                KIND_INIT[kind](gen, cfg, dtype, (count,)) for kind in pat))
         return params
+
+    def _base_ctx(self):
+        """Per-model ctx: the hybrid arch's attention layers are local
+        (RecurrentGemma 1:2) with window `local_window`."""
+        if self.cfg.arch_type == "hybrid":
+            return {"window": self.cfg.local_window}
+        return {}
 
     # ----------------------------- prefill -------------------------------
     def prefill(self, params, batch, cache_len=None, true_len=None):
@@ -83,7 +104,7 @@ class Model:
         `tokens` is padded to a bucket length — padded positions get
         kv_pos = -1 so they can never be attended."""
         cfg = self.cfg
-        ctx = {}
+        ctx = self._base_ctx()
         if cache_len is not None:
             ctx["cache_len"] = cache_len
         if true_len is not None:
@@ -121,7 +142,8 @@ class Model:
     def decode_step(self, params, caches, token, pos, batch_ctx=None):
         """token [B] int, pos [B] or scalar int -> (logits [B,V], caches);
         the caches are written in place."""
-        ctx = dict(batch_ctx or {})
+        ctx = self._base_ctx()
+        ctx.update(batch_ctx or {})
         ctx["pos"] = pos
         return self._decode_trunk(params, caches, token[:, None],
                                   ctx)[:, 0], caches
@@ -132,7 +154,8 @@ class Model:
         (logits [B,S,V], caches). One call scores a whole draft window or
         prefill chunk; feed_mask [B,S] bool gates per-position cache
         writes for ragged spans. Requires supports_span_decode."""
-        ctx = dict(batch_ctx or {})
+        ctx = self._base_ctx()
+        ctx.update(batch_ctx or {})
         ctx["pos"] = pos
         if feed_mask is not None:
             ctx["feed_mask"] = feed_mask
@@ -154,13 +177,22 @@ class Model:
 
     # ------------------------- cache construction ------------------------
     def init_decode_caches(self, batch_size: int, cache_len: int):
-        """Zero caches shaped for decode (the serving engine's slot pool)."""
+        """Zero caches shaped for decode (the serving engine's slot pool);
+        attention rings hold min(cache_len, window) positions."""
         cfg = self.cfg
-        L = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
-            else cache_len
-        return [tuple(init_kv_cache(cfg, batch_size, L, dtype_of(cfg),
-                                    self.device, lead=(count,))
-                      for _ in pat)
+        dtype, dev = dtype_of(cfg), self.device
+        w = cfg.local_window if cfg.arch_type == "hybrid" else \
+            cfg.sliding_window
+        L = min(cache_len, w) if w else cache_len
+
+        def one(kind, lead):
+            if kind in ("attn", "moe"):
+                return init_kv_cache(cfg, batch_size, L, dtype, dev, lead)
+            if kind == "rec":
+                return init_rglru_cache(cfg, batch_size, dtype, dev, lead)
+            return init_ssm_cache(cfg, batch_size, dtype, dev, lead)
+
+        return [tuple(one(kind, (count,)) for kind in pat)
                 for pat, count in layer_groups(cfg)]
 
 

@@ -1,0 +1,101 @@
+"""Top-k routed Mixture-of-Experts FFN (port of `repro.models.moe`).
+
+Capacity-based grouped dispatch, as the reference: each batch row is a
+routing group. A pair (token, slot) gets its position within its expert
+from a stable argsort over the row's expert ids; pairs past the capacity
+C are dropped. Tokens are scattered into a [B, E, C, D] buffer, the
+expert FFNs run as batched matrix products over E (every expert runs on
+every call, whatever its load), and the outputs are gathered back and
+combined with the gates.
+
+Parity points with the reference:
+- the router runs in fp32 (`x.float() @ router`, the router leaf is
+  fp32) while the experts run in the model dtype;
+- top-k breaks ties by the lower expert index, as `jax.lax.top_k` does:
+  a stable descending sort of the probabilities, cut at k;
+- the dispatch is an accumulating `index_put_` in which a dropped pair
+  adds an exact zero at (expert 0, slot 0), as the reference's
+  `.at[].add` does, so the kept set and its values are exact.
+
+Aux outputs: load-balance loss (Switch-style f.P) and router z-loss.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .common import dense_init
+
+
+def init_moe(gen, cfg, dtype, lead=()):
+    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.expert_d_ff
+    return {
+        "router": dense_init(gen, (*lead, D, E), dtype=torch.float32),
+        "w_gate": dense_init(gen, (*lead, E, D, Fd), dtype=dtype),
+        "w_up": dense_init(gen, (*lead, E, D, Fd), dtype=dtype),
+        "w_down": dense_init(gen, (*lead, E, Fd, D), dtype=dtype),
+    }
+
+
+def capacity(cfg, num_tokens: int) -> int:
+    k, E = cfg.experts_per_token, cfg.num_experts
+    c = math.ceil(k * num_tokens / E * cfg.moe_capacity_factor)
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def moe_ffn(params, x, cfg):
+    """x [B,S,D] -> (y [B,S,D], aux dict)."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = capacity(cfg, S)
+    dev = x.device
+
+    logits = x.float() @ params["router"]                     # [B,S,E]
+    probs = torch.softmax(logits, dim=-1)
+    srt, order_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = srt[..., :k], order_e[..., :k]               # [B,S,k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    # ---- slot positions within (row, expert): stable argsort ----
+    e_flat = idx.reshape(B, S * k)                            # [B,S*k]
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    sorted_e = torch.gather(e_flat, 1, order)
+    counts = torch.zeros((B, E), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, e_flat, torch.ones_like(e_flat))
+    starts = torch.cumsum(counts, dim=-1) - counts            # exclusive
+    pos_sorted = torch.arange(S * k, device=dev)[None, :] - \
+        torch.gather(starts, 1, sorted_e)
+    pos = torch.zeros((B, S * k), dtype=torch.int64, device=dev)
+    pos.scatter_(1, order, pos_sorted)
+    keep = pos < C
+
+    # ---- dispatch: accumulate into [B, E, C, D] (row-local) ----
+    tok_of_pair = torch.arange(S * k, device=dev) // k
+    src = x[:, tok_of_pair]                                   # [B,S*k,D]
+    contrib = torch.where(keep[..., None], src, torch.zeros_like(src))
+    e_safe = torch.where(keep, e_flat, 0)
+    p_safe = torch.where(keep, pos, 0)
+    bidx = torch.arange(B, device=dev)[:, None].expand(B, S * k)
+    buf = torch.zeros((B, E, C, D), dtype=x.dtype, device=dev)
+    buf.index_put_((bidx, e_safe, p_safe), contrib, accumulate=True)
+
+    # ---- expert FFNs (batched over B, E) ----
+    h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"])) * \
+        torch.einsum("becd,edf->becf", buf, params["w_up"])
+    y_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
+
+    # ---- combine: gather back, weight by gates, sum the k slots ----
+    out_pairs = y_buf[bidx, e_safe, p_safe]
+    out_pairs = torch.where(keep[..., None], out_pairs,
+                            torch.zeros_like(out_pairs))
+    out_pairs = out_pairs * gates.reshape(B, S * k)[..., None].to(x.dtype)
+    y = out_pairs.reshape(B, S, k, D).sum(dim=2)
+
+    # ---- aux losses (Switch f.P, router z-loss) ----
+    me = probs.mean(dim=(0, 1))                               # [E]
+    ce = counts.sum(0).float() / (B * S * k)
+    lb_loss = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return y, {"lb_loss": lb_loss, "z_loss": z_loss}

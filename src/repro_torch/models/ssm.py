@@ -1,0 +1,174 @@
+"""Mamba2 / SSD (state-space duality) block (port of `repro.models.ssm`)
+[arXiv:2405.21060].
+
+Prefill runs the chunked SSD algorithm in fp32 as the reference does:
+the sequence is split into chunks of Q = min(ssm_chunk, S) tokens; the
+intra-chunk terms are batched products, and the inter-chunk term is a
+first-order recurrence over the chunk states (a Python loop over the
+chunks, the reference's `lax.scan`). The reference asserts S % Q == 0,
+and so does the port: a recurrent arch prefills at exact length, so a
+prompt longer than one chunk must be a whole number of chunks. Decode is
+the O(1) recurrent update h' = exp(dt.A).h + dt.(B x) with the depthwise
+conv's last K-1 inputs carried in the cache.
+
+Layout: d_inner = expand * d_model, heads Hs = d_inner / ssm_head_dim
+(P), state N = cfg.ssm_state, one B/C group. Decode writes the new `h`
+and `conv` into the cache dict it is given IN PLACE (the model's decode
+loop hands in views of the stacked cache) and returns the same dict.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .common import dense_init
+
+
+def init_ssm(gen, cfg, dtype, lead=()):
+    D, Din, Hs, N, Kc = (cfg.d_model, cfg.ssm_inner, cfg.ssm_heads,
+                         cfg.ssm_state, cfg.conv_kernel)
+    conv_dim = Din + 2 * N           # conv over x, B, C (mamba2 layout)
+    dev = gen.device
+    f32 = torch.float32
+    return {
+        # in_proj -> [z, xBC, dt]
+        "w_in": dense_init(gen, (*lead, D, 2 * Din + 2 * N + Hs),
+                           dtype=dtype),
+        "conv_w": dense_init(gen, (*lead, Kc, conv_dim), scale=0.5,
+                             dtype=dtype),
+        "conv_b": torch.zeros((*lead, conv_dim), dtype=dtype, device=dev),
+        "A_log": torch.zeros((*lead, Hs), dtype=f32, device=dev),
+        "D": torch.ones((*lead, Hs), dtype=f32, device=dev),
+        "dt_bias": torch.zeros((*lead, Hs), dtype=f32, device=dev),
+        "w_out": dense_init(gen, (*lead, Din, D), dtype=dtype),
+        "norm_w": torch.ones((*lead, Din), dtype=dtype, device=dev),
+    }
+
+
+def _split_proj(cfg, proj):
+    Din, N = cfg.ssm_inner, cfg.ssm_state
+    z = proj[..., :Din]
+    xBC = proj[..., Din:Din + Din + 2 * N]
+    dt = proj[..., Din + Din + 2 * N:]
+    return z, xBC, dt
+
+
+def _causal_conv_train(xBC, w, b):
+    """Depthwise causal conv over seq. xBC [B,S,C], w [K,C]."""
+    K, S = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, K - 1, 0))
+    out = sum(pad[:, i: i + S, :] * w[i] for i in range(K))
+    return F.silu(out + b)
+
+
+def _gated_norm(y, z, w, eps=1e-6):
+    y = y * F.silu(z.float())
+    var = torch.mean(torch.square(y), dim=-1, keepdim=True)
+    return y * torch.rsqrt(var + eps) * w.float()
+
+
+def ssm_prefill(params, x, cfg):
+    """x [B,S,D] -> (y [B,S,D], cache {"h", "conv"}); the final recurrent
+    state feeds decode."""
+    B, S, D = x.shape
+    Din, N, Hs, P = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
+                     cfg.ssm_head_dim)
+    Q = min(cfg.ssm_chunk, S)
+    assert S % Q == 0, (S, Q)
+    nch = S // Q
+
+    proj = x @ params["w_in"]
+    z, xBC_raw, dt_raw = _split_proj(cfg, proj)
+    xBC = _causal_conv_train(xBC_raw, params["conv_w"], params["conv_b"])
+    xs = xBC[..., :Din].reshape(B, S, Hs, P).float()
+    Bmat = xBC[..., Din:Din + N].float()                    # [B,S,N]
+    Cmat = xBC[..., Din + N:].float()                       # [B,S,N]
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])     # [B,S,Hs]
+    A = -torch.exp(params["A_log"])                         # [Hs]
+    a = dt * A                                              # log-decay
+
+    xs_c = xs.reshape(B, nch, Q, Hs, P)
+    B_c = Bmat.reshape(B, nch, Q, N)
+    C_c = Cmat.reshape(B, nch, Q, N)
+    dt_c = dt.reshape(B, nch, Q, Hs)
+    acs = torch.cumsum(a.reshape(B, nch, Q, Hs), dim=2)     # [B,nch,Q,Hs]
+
+    # --- intra-chunk: L[b,c,i,j,h] = exp(acs_i - acs_j) for i >= j ---
+    diff = acs[:, :, :, None, :] - acs[:, :, None, :, :]    # [B,nch,Q,Q,Hs]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))
+    Lmat = torch.where(causal[None, None, :, :, None], torch.exp(diff),
+                       torch.zeros((), device=x.device))
+    CB = torch.einsum("bcin,bcjn->bcij", C_c, B_c)
+    M = CB[..., None] * Lmat                                # [B,nch,Q,Q,Hs]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", M,
+                           xs_c * dt_c[..., None])
+
+    # --- chunk states: S_c = sum_j exp(acs_Q - acs_j) B_j (dt_j x_j)^T ---
+    decay_to_end = torch.exp(acs[:, :, -1:, :] - acs)       # [B,nch,Q,Hs]
+    state_c = torch.einsum("bcjn,bcjh,bcjhp->bchnp",
+                           B_c, decay_to_end * dt_c, xs_c)  # [B,nch,Hs,N,P]
+
+    # --- inter-chunk recurrence over the chunk states ---
+    chunk_decay = torch.exp(acs[:, :, -1, :])               # [B,nch,Hs]
+    h = torch.zeros((B, Hs, N, P), dtype=torch.float32, device=x.device)
+    h_prevs = []
+    for c in range(nch):
+        h_prevs.append(h)                                   # state BEFORE c
+        h = h * chunk_decay[:, c, :, None, None] + state_c[:, c]
+    h_prev = torch.stack(h_prevs, dim=1)                    # [B,nch,Hs,N,P]
+
+    # --- inter-chunk output: y_j += C_j exp(acs_j) h_prev ---
+    y_inter = torch.einsum("bcin,bchnp,bcih->bcihp", C_c, h_prev,
+                           torch.exp(acs))
+
+    y = (y_intra + y_inter).reshape(B, S, Hs, P)
+    y = y + params["D"][None, None, :, None] * xs
+    y = _gated_norm(y.reshape(B, S, Din), z, params["norm_w"])
+    out = y.to(x.dtype) @ params["w_out"]
+    K = cfg.conv_kernel - 1
+    conv_cache = (xBC_raw[:, S - K:, :] if S >= K else
+                  F.pad(xBC_raw, (0, 0, K - S, 0)))
+    return out, {"h": h, "conv": conv_cache.to(x.dtype)}
+
+
+def init_ssm_cache(cfg, batch, dtype, device, lead=()):
+    Hs, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    conv_dim = cfg.ssm_inner + 2 * N
+    return {
+        "h": torch.zeros((*lead, batch, Hs, N, P), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((*lead, batch, cfg.conv_kernel - 1, conv_dim),
+                            dtype=dtype, device=device),
+    }
+
+
+def ssm_decode(params, x, cache, cfg):
+    """x [B,1,D], one step -> ([B,1,D], cache written in place)."""
+    B = x.shape[0]
+    Din, N, Hs, P = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
+                     cfg.ssm_head_dim)
+    proj = x[:, 0] @ params["w_in"]
+    z, xBC, dt_raw = _split_proj(cfg, proj)
+    hist = torch.cat([cache["conv"],
+                      xBC[:, None, :].to(cache["conv"].dtype)], dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", hist.float(),
+                            params["conv_w"].float()) + \
+        params["conv_b"].float()
+    xBC = F.silu(conv_out)
+
+    xs = xBC[:, :Din].reshape(B, Hs, P)
+    Bv = xBC[:, Din:Din + N]
+    Cv = xBC[:, Din + N:]
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    dec = torch.exp(dt * A)                                 # [B,Hs]
+    h = cache["h"] * dec[..., None, None] + torch.einsum(
+        "bn,bh,bhp->bhnp", Bv, dt, xs)
+    y = torch.einsum("bn,bhnp->bhp", Cv, h)
+    y = y + params["D"][None, :, None] * xs
+    y = _gated_norm(y.reshape(B, Din), z, params["norm_w"])
+    out = (y.to(x.dtype) @ params["w_out"])[:, None, :]
+    cache["h"].copy_(h)
+    cache["conv"].copy_(hist[:, 1:])
+    return out, cache

@@ -1,7 +1,8 @@
 """Shared set-up of the engine-level parity tests of the PyTorch port:
-both systems on one fp32 copy of syncode-demo (the reference's
-`Model.init(PRNGKey(0))` weights bridged into the port), each with its
-own mask stores built by its own copy of the host layer."""
+both systems on one fp32 copy of a config (syncode-demo unless asked
+otherwise; the reference's `Model.init(PRNGKey(0))` weights bridged
+into the port), each with its own mask stores built by its own copy of
+the host layer."""
 from dataclasses import replace
 
 import jax
@@ -41,11 +42,13 @@ NARROW = dict(vocab_size=1024, num_layers=2, d_model=128, d_ff=256,
               num_heads=4, num_kv_heads=2, head_dim=32)
 
 
-def build_sides(**overrides):
+def build_sides(arch="syncode-demo", reduced=False, **overrides):
     """-> (jax model, jax params, jax tokenizer, jax bundles, port model,
-    port params, port tokenizer, port bundles). `overrides` replace
-    fields of the syncode-demo config on both sides (e.g. NARROW)."""
-    cfg = replace(get_config("syncode-demo"), dtype="float32", **overrides)
+    port params, port tokenizer, port bundles). `reduced` takes the
+    arch's `cfg.reduced()`; `overrides` replace fields of the config on
+    both sides (e.g. NARROW)."""
+    pick = lambda c: c.reduced() if reduced else c
+    cfg = replace(pick(get_config(arch)), dtype="float32", **overrides)
     jm = build_model(cfg)
     jp = jm.init(jax.random.PRNGKey(0))
     jtok = ByteTokenizer(cfg.vocab_size)
@@ -53,7 +56,7 @@ def build_sides(**overrides):
     for name in BUILTIN:
         g, tab = load_grammar(name)
         jb[name] = (g, tab, build_mask_store(g, jtok))
-    tcfg = replace(torch_get_config("syncode-demo"), dtype="float32",
+    tcfg = replace(pick(torch_get_config(arch)), dtype="float32",
                    **overrides)
     ttok = TorchByteTokenizer(tcfg.vocab_size)
     tb = {}

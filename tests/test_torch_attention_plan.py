@@ -75,7 +75,7 @@ def test_paged_plan_served_shape():
     assert not launch_plan(32, 15, 5, 64, 16, 32, 4).mma   # fp32: FMA
 
 
-@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Dh", [32, 64, 128, 256])
 @pytest.mark.parametrize("Sq", [1, 16, 17, 300, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_plan_fits_and_covers_every_row(Sq, Dh, dtype):
@@ -85,3 +85,24 @@ def test_flash_plan_fits_and_covers_every_row(Sq, Dh, dtype):
     tiles = plan.grid[1] if dtype == torch.bfloat16 else plan.grid[0]
     assert tiles * 64 >= Sq > (tiles - 1) * 64
     assert sorted(plan.grid) == sorted((tiles, 15, 2)) and plan.grid[2] == 2
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plan_at_the_new_archs(arch, dtype):
+    """recurrentgemma-9b (16 query heads over one KV head, head_dim 256)
+    and qwen3-moe-30b-a3b (32 over 4, head_dim 128) at their prompt
+    bucket and at 4096 keys: the plan fits a block's shared memory. At
+    head_dim 256 the bf16 kernel takes 64-key tiles in two stages (160
+    KB); the 128-key tiles of the narrower heads would need 288 KB."""
+    from repro_torch.kernels.flash_attention.ops import BF16_TILES
+    cfg = get_config(arch)
+    Dh = cfg.resolved_head_dim
+    for Sq in (32, 2048, 4096):
+        plan = flash_plan(dtype, 1, Sq, cfg.num_heads, Dh)
+        assert plan.smem <= SMEM_LIMIT
+    if Dh == 256:
+        assert BF16_TILES[256] == (64, 2)
+        assert flash_plan(torch.bfloat16, 1, 32, 16, 256).smem == \
+            2 * (64 + 2 * 2 * 64) * 256 == 163840
+        assert 2 * (64 + 2 * 2 * 128) * 256 > SMEM_LIMIT

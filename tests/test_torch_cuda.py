@@ -53,14 +53,21 @@ def _off_edge(scaled, top_k, top_p, edge=1e-5):
 
 @pytest.mark.parametrize("B,V,R,A", [(1, 512, 32, 4), (4, 2048, 300, 12),
                                      (3, 1024, 64, 48), (8, 49152, 200, 48),
-                                     (4, 2048, 300, 96)])
+                                     (4, 2048, 300, 96),
+                                     (8, 50280, 200, 48),
+                                     (8, 151936, 200, 48),
+                                     (8, 256000, 200, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_select_kernel_matches_plain(dev, B, V, R, A, dtype):
+    """Random store words (the tail word's bits past V too, which the
+    kernel must not read), and the vocabularies of mamba2-370m (50280,
+    not a multiple of 32), qwen3-moe (151936) and recurrentgemma
+    (256000)."""
     from repro_torch.kernels.fused_select.ops import fused_mask_select
     from repro_torch.kernels.fused_select.ref import fused_select_ref
     from repro_torch.kernels.masked_logits.ref import masked_logits_ref
     rng = np.random.default_rng(B * V + A)
-    W = V // 32
+    W = -(-V // 32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     store = t(rng.integers(0, 2 ** 32, size=(R, W), dtype=np.uint32)
               .view(np.int32))
@@ -267,6 +274,20 @@ def test_flash_attention_head_dims_and_groups(dev, Dh, G, dtype):
     _flash_check(dev, 2, 130, 130, 2 * G, 2, Dh, 0, True, dtype)
 
 
+@pytest.mark.parametrize("Sq,Sk,H,K,Dh,window", [
+    (32, 32, 16, 1, 256, 2048), (17, 300, 16, 1, 256, 2048),
+    (2048, 2048, 16, 1, 256, 2048), (4096, 4096, 16, 1, 256, 2048),
+    (300, 4096, 16, 1, 256, 2048), (130, 130, 4, 2, 256, 0),
+    (32, 32, 32, 4, 128, 0), (2048, 2048, 32, 4, 128, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_new_arch_shapes(dev, Sq, Sk, H, K, Dh, window,
+                                         dtype):
+    """recurrentgemma-9b's local attention (head_dim 256, 16 query heads
+    over one KV head, window 2048; at 4096 keys half of them fall out of
+    the window) and qwen3-moe-30b-a3b's (head_dim 128, 32 over 4)."""
+    _flash_check(dev, 1, Sq, Sk, H, K, Dh, window, True, dtype)
+
+
 def test_model_on_card_matches_cpu(dev):
     """syncode-demo in fp32: prefill (bucket-padded) and decode logits and
     the caches on the card against the same weights on the CPU."""
@@ -309,7 +330,8 @@ def _mask_inputs(rng, dev, N, V, R, A, W=None):
 
 @pytest.mark.parametrize("N,V,R,A", [(1, 49152, 200, 48), (8, 49152, 300, 96),
                                      (3, 1000, 40, 5), (5, 2080, 64, 300),
-                                     (2, 4096, 16, 1)])
+                                     (2, 4096, 16, 1), (1, 50280, 200, 48),
+                                     (8, 50280, 300, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_masked_logits_kernel_matches_plain(dev, N, V, R, A, dtype):
     """[B, V] form, bitwise: cd, EOS, -1 pads, constrained pass-through,
@@ -332,7 +354,8 @@ def test_masked_logits_kernel_matches_plain(dev, N, V, R, A, dtype):
         assert torch.equal(out.view(bits), want.view(bits))
 
 
-@pytest.mark.parametrize("B,K,V,A", [(8, 8, 49152, 48), (2, 3, 1000, 7)])
+@pytest.mark.parametrize("B,K,V,A", [(8, 8, 49152, 48), (2, 3, 1000, 7),
+                                     (8, 8, 151936, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_masked_logits_span_kernel_matches_plain(dev, B, K, V, A, dtype):
     from repro_torch.kernels.masked_logits.ops import apply_grammar_mask_span
@@ -464,7 +487,8 @@ def test_masked_logits_plan_matches_the_kernel(dev):
 @pytest.mark.parametrize("B,S,H,K,Dh,ps,nP,P", [
     (8, 1, 15, 5, 64, 16, 32, 256), (8, 8, 15, 5, 64, 16, 32, 256),
     (8, 32, 15, 5, 64, 16, 32, 256), (3, 5, 4, 2, 32, 8, 6, 20),
-    (2, 3, 8, 8, 128, 4, 9, 30)])
+    (2, 3, 8, 8, 128, 4, 9, 30), (8, 1, 32, 4, 128, 16, 32, 256),
+    (8, 8, 32, 4, 128, 16, 32, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_matches_plain(dev, B, S, H, K, Dh, ps, nP,
                                               P, dtype):
@@ -602,9 +626,10 @@ def test_flash_attention_plan_matches_the_kernel(dev):
     from repro_torch.kernels.flash_attention.ops import _launcher, launch_plan
     lib, _ = _launcher()
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-        for Dh in (32, 64, 128):
+        for Dh in (32, 64, 128, 256):
             assert lib.flash_attention_smem_bytes(code, Dh) == \
                 launch_plan(dtype, 1, 16, 15, Dh).smem
+        assert lib.flash_attention_smem_bytes(code, 96) == -1
 
 
 @pytest.mark.parametrize("S", [1, 8])

@@ -25,6 +25,8 @@ COPIED = [
     "obs/lifecycle.py", "obs/trace.py", "obs/buildinfo.py",
     "obs/devtime.py", "obs/telemetry.py", "models/config.py",
     "configs/syncode_demo.py", "configs/smollm_360m.py",
+    "configs/qwen3_moe_30b_a3b.py", "configs/mamba2_370m.py",
+    "configs/recurrentgemma_9b.py",
     "spec/__init__.py", "spec/jump.py", "spec/proposer.py",
     "spec/scheduler.py", "serving/kvpool/__init__.py",
     "serving/kvpool/allocator.py",
@@ -94,10 +96,11 @@ def test_copied_host_module_matches_reference(rel):
 
 
 def test_config_registry_is_the_reference_subset():
-    """configs/__init__.py keeps the reference's code with only the two
+    """configs/__init__.py keeps the reference's code with only the
     served configs registered."""
     orig = (SRC / "repro" / "configs" / "__init__.py").read_text()
-    keep = {"syncode-demo", "smollm-360m"}
+    keep = {"syncode-demo", "smollm-360m", "qwen3-moe-30b-a3b",
+            "mamba2-370m", "recurrentgemma-9b"}
     lines = [ln for ln in orig.splitlines(keepends=True)
              if not (re.match(r'\s+"[^"]+": "[^"]+",\n', ln)
                      and ln.split('"')[1] not in keep)]
