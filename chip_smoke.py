@@ -75,12 +75,30 @@ no result line):
    32 new tokens in 8 slots (phase 5's mix): dense `generate()` for all
    three; `generate_sequential` (4 x 16) for mamba2; paged `generate()`
    and `generate_speculative` for qwen3-moe; and one dense decode step's
-   breakdown per model.
+   breakdown per model;
+9. training: the attention backward kernel against its plain version at
+   the training shapes (smollm-360m [8,1024,15,64] over 5 KV heads and
+   fp32 [2,1024,15,64]; qwen3-moe [4,1024,32,128] over 4; recurrentgemma
+   [2,4096,16,256] over 1 with window 2048), fed the forward kernel's LSE
+   (whose output must equal the plain forward launch's bit for bit),
+   timed beside the plain version, its bound and one sdpa forward and
+   backward; then smollm-360m trained at full width (all 32 layers,
+   remat on) for 20 AdamW steps on `GrammarDataPipeline` json batches (B
+   8, S 1024): every loss finite, the last at least 1.0 below the first,
+   the forward and backward attention counters exactly 32 x 20 x 2 and
+   32 x 20; a profiled train step; the checkpoint saved, served through
+   `build_engine(..., checkpoint=)` (4 json requests x 32 new tokens,
+   every eos output parsed) and loaded back equal leaf for leaf; then 5
+   steps each of mamba2-370m (all 48 layers, B 4, S 1024), qwen3-moe
+   (2 of 48 layers, B 4, S 1024) and recurrentgemma-9b (3 of 38 layers,
+   one (rec, rec, attn) block, B 2, S 4096), each freed before the next.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
 """
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -877,7 +895,7 @@ def phase_new_paths(torch, engine, bundles, counters, dense_states):
     return found
 
 
-def _step_breakdown(torch, label, step, steps=20, share_of=()):
+def _step_breakdown(torch, label, step, steps=10, share_of=()):
     """Where one decode step's time goes: the host's dispatch time (no
     sync), the synced wall time, and the device busy time summed over the
     kernels the profiler saw in the window; busy / wall is the card's busy
@@ -1570,6 +1588,307 @@ def phase_arch(torch, np, counters, arch, depth):
     return rows + flash + list(paged.values()) + masks
 
 
+# ------------------------------------------------------- phase 9: training
+
+# (model, B, S, H, K, Dh, window, dtype) of the backward kernel check: the
+# training shapes of phase 9's runs, plus one fp32 shape
+BWD_CASES = (("smollm-360m", 8, 1024, 15, 5, 64, 0, "bfloat16"),
+             ("qwen3-moe-30b-a3b", 4, 1024, 32, 4, 128, 0, "bfloat16"),
+             ("recurrentgemma-9b", 2, 4096, 16, 1, 256, 2048, "bfloat16"),
+             ("smollm-360m", 2, 1024, 15, 5, 64, 0, "float32"))
+# the backward kernel against its plain version: within this share of the
+# plain version's largest magnitude (dq, dk and dv each)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+# smollm-360m's run: 20 steps of 32 attention layers; with remat each
+# layer's forward runs twice a step (the step's, and the recompute in the
+# backward), its backward once
+TRAIN_STEPS = 20
+TRAIN_FWD_LAUNCHES = 32 * TRAIN_STEPS * 2
+TRAIN_BWD_LAUNCHES = 32 * TRAIN_STEPS
+# (arch, layers kept or None for all, B, S) of the other families' runs,
+# 5 steps each; PERF.md §4 gives each cut's reason
+TRAIN_ARCHS = (("mamba2-370m", None, 4, 1024),
+               ("qwen3-moe-30b-a3b", 2, 4, 1024),
+               ("recurrentgemma-9b", 3, 2, 4096))
+ARCH_TRAIN_STEPS = 5
+
+
+def phase_attention_backward(torch):
+    """The backward kernel at the training shapes against the plain
+    version on the card, fed the forward kernel's output and LSE; the
+    forward with the LSE requested gives the serving launch's output bit
+    for bit. -> rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        attention, attention_backward, attention_with_lse)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd
+    dev = torch.device("cuda")
+    rows = []
+    for model, B, S, H, K, Dh, window, dt in BWD_CASES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(dev).manual_seed(S + H + Dh)
+        mk = lambda *shape: torch.randn(shape, device=dev,
+                                        generator=g).to(dtype)
+        q, k, v, do = mk(B, S, H, Dh), mk(B, S, K, Dh), mk(B, S, K, Dh), \
+            mk(B, S, H, Dh)
+        o, lse = attention_with_lse(q, k, v, causal=True, window=window)
+        if not torch.equal(o, attention(q, k, v, causal=True,
+                                        window=window)):
+            raise AssertionError(f"flash_attention {model}: the forward "
+                                 f"with LSE differs from the serving launch")
+        run = lambda: attention_backward(q, k, v, o, lse, do, causal=True,
+                                         window=window)
+        plain_fn = lambda: attention_bwd(q, k, v, o, lse, do, causal=True,
+                                         window=window)
+        errs, rels = [], []
+        for name, a, b in zip(("dq", "dk", "dv"), run(), plain_fn()):
+            scale = b.float().abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
+            if not err <= BWD_TOL[dt] * scale:
+                raise AssertionError(f"flash_attention_bwd {model} {dt}: "
+                                     f"{name} max abs err {err} > "
+                                     f"{BWD_TOL[dt]} x {scale}")
+            errs.append(err)
+            rels.append(err / scale)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+        pos = torch.arange(S, device=dev)
+        amask = ((pos[None, :] <= pos[:, None])
+                 & (pos[None, :] > pos[:, None] - window)) if window else None
+
+        def sdpa():
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=amask, is_causal=amask is None,
+                enable_gqa=True)
+            out.backward(dot)
+
+        both = lambda: (attention_backward(q, k, v, *attention_with_lse(
+            q, k, v, causal=True, window=window), do, causal=True,
+            window=window))
+        ms, dev_ms = cuda_ms(torch, run), device_ms(torch, run)
+        plain = cuda_ms(torch, plain_fn, reps=5, warmup=1)
+        fb_dev = device_ms(torch, both)
+        lib, lib_dev = cuda_ms(torch, sdpa), device_ms(torch, sdpa)
+        i = torch.arange(S)
+        visible = int(((i[None, :] <= i[:, None]) & (
+            (i[None, :] > i[:, None] - window) if window else True)).sum())
+        fwd_flops = 4 * visible * B * H * Dh     # QK^T and P.V, visible
+        flops = 2.5 * fwd_flops
+        esz = 2 if dt == "bfloat16" else 4
+        nbytes = (3 * B * S * H * Dh + 4 * B * S * K * Dh) * esz \
+            + 2 * B * S * H * Dh * esz + 4 * B * H * S   # + o, do, lse
+        t_ops = flops / PEAK_FLOPS[dt] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        shape = (f"q [{B},{S},{H},{Dh}] k/v [{B},{S},{K},{Dh}] {dt}, window "
+                 f"{window or 'none'}")
+        log(f"flash_attention_bwd {model} {shape}: forward with LSE bitwise "
+            f"equal; dq/dk/dv max abs err {errs[0]:.3e}/{errs[1]:.3e}/"
+            f"{errs[2]:.3e} (at most {max(rels):.2e} of the largest "
+            f"magnitude, tol {BWD_TOL[dt]:.3g}); {ms:.4f} ms, device "
+            f"{dev_ms:.4f} ms; forward + backward device {fb_dev:.4f} ms; "
+            f"plain {plain:.4f} ms; sdpa forward + backward {lib:.4f} ms, "
+            f"device {lib_dev:.4f} ms; bound {bound:.6f} ms ({by}: "
+            f"{flops:.4e} FLOPs = 2.5 x the forward's 4 x {visible} visible "
+            f"pairs x B x H x Dh, {nbytes} bytes)")
+        rows.append({"name": "flash_attention_bwd", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                     "replaces": "src/repro/models/common.py:95",
+                     "model": model, "shape": shape,
+                     "path_shape": dt == "bfloat16", "launches": 0,
+                     "max_abs_err": max(errs), "max_rel_err": max(rels),
+                     "ms": ms, "device_ms": dev_ms,
+                     "fwd_bwd_device_ms": fb_dev, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": by, "flops": flops,
+                     "library_ms": lib, "library_device_ms": lib_dev,
+                     "library": "sdpa forward + backward"})
+        del q, k, v, do, o, lse, qt, kt, vt, dot, amask
+        torch.cuda.empty_cache()
+    return rows
+
+
+class _TimedIter:
+    """An iterator that sums the host seconds spent in its source's
+    __next__ (the data pipeline's share of a training run)."""
+
+    def __init__(self, it):
+        self.it, self.seconds = it, 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        try:
+            return next(self.it)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+
+def _train_run(torch, counters, arch, depth, B, S, steps, opt):
+    """Build `arch` (first `depth` layers, every width) with seeded random
+    weights and train it `steps` AdamW steps on json batches, the
+    counters zeroed just before and read just after. -> (model, params,
+    result, launches, seconds, peak bytes)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.core.grammars import load_grammar
+    from repro_torch.core.tokenizer import ByteTokenizer
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import GrammarDataPipeline
+    from repro_torch.training.train_loop import train
+    from repro_torch.training.tree import leaves
+    cfg = get_config(arch)
+    if depth:
+        cfg = replace(cfg, num_layers=depth)
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    g, _ = load_grammar("json")
+    data = _TimedIter(iter(GrammarDataPipeline(
+        g, ByteTokenizer(cfg.vocab_size), S, B, seed=0)))
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"phase 9, {arch}: {cfg.num_layers} of "
+        f"{get_config(arch).num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, remat {cfg.remat}; {n_params / 1e9:.3f} "
+        f"B params; B {B}, S {S}, {steps} steps (lr {opt.lr}, warmup "
+        f"{opt.warmup_steps}, total {opt.total_steps})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(torch, counters)
+    t0 = time.perf_counter()
+    params, result = train(model, params, data, steps, opt_cfg=opt,
+                           log_every=1, verbose=True, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters(torch, counters)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in result.losses):
+        raise AssertionError(f"{arch}: a loss is not finite: "
+                             f"{result.losses}")
+    log(f"phase 9, {arch}: {steps} steps in {secs:.3f} s = "
+        f"{secs / steps * 1e3:.1f} ms/step, {steps * B * S / secs:.0f} "
+        f"tokens/s (the data pipeline's host time {data.seconds:.3f} s of "
+        f"it, {data.seconds / steps * 1e3:.1f} ms/step); losses {result.losses[0]:.4f} -> "
+        f"{result.losses[-1]:.4f}; peak memory {peak / 2 ** 30:.2f} GiB; "
+        f"kernel launches {launches}")
+    return model, params, result, launches, secs, peak
+
+
+def phase_train(torch, counters, bwd_rows):
+    """smollm-360m trained at full width, its checkpoint served and read
+    back; then the other families. Fills the backward rows' launches."""
+    from repro_torch.core.decoding import DecodeConfig
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.engine import Request
+    from repro_torch.training.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.tree import flatten_with_path
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    model, params, result, launches, secs, peak = _train_run(
+        torch, counters, "smollm-360m", None, 8, 1024, TRAIN_STEPS, opt)
+    if not result.losses[-1] <= result.losses[0] - 1.0:
+        raise AssertionError(f"smollm-360m: loss fell from "
+                             f"{result.losses[0]} to {result.losses[-1]}, "
+                             f"less than 1.0")
+    if (launches["attention"], launches["attention_backward"]) != (
+            TRAIN_FWD_LAUNCHES, TRAIN_BWD_LAUNCHES):
+        raise AssertionError(f"smollm-360m training: attention launched "
+                             f"{launches['attention']} forward and "
+                             f"{launches['attention_backward']} backward, "
+                             f"want {TRAIN_FWD_LAUNCHES} and "
+                             f"{TRAIN_BWD_LAUNCHES}")
+    for r in bwd_rows:
+        if r["model"] == "smollm-360m":
+            r["launches"] = launches["attention_backward"]
+
+    # one profiled step (the same batch shape; params are not kept)
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    dev = torch.device("cuda")
+    toks = torch.randint(0, 256, (8, 1025), device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": torch.ones((8, 1024), device=dev)}
+    state = init_opt_state(params)
+    step = make_train_step(model, opt)
+    _step_breakdown(torch, "smollm-360m train step breakdown (B 8, S 1024, "
+                    "32 layers, remat)", lambda: step(params, state, batch),
+                    steps=2, share_of=("bwd_dkdv", "bwd_dq", "bwd_dot",
+                                       "flash_fwd"))
+    del state, step, batch, toks
+
+    # ---- train -> serve ------------------------------------------------
+    path = os.path.join(ROOT, "build", "phase9", "smollm-360m.msgpack")
+    t0 = time.perf_counter()
+    save_checkpoint(path, params, step=TRAIN_STEPS)
+    log(f"phase 9: checkpoint saved ({os.path.getsize(path) / 2 ** 20:.1f} "
+        f"MiB) in {time.perf_counter() - t0:.1f} s")
+    engine, bundles, _ = build_engine(
+        "smollm-360m", grammars=("json",), max_len=512, slots=4,
+        device="cuda", checkpoint=path)
+    for (k, a), (_, b) in zip(flatten_with_path(params),
+                              flatten_with_path(engine.params)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"served params differ from the trained "
+                                 f"ones at {k}")
+    reqs = [Request(rid=i, prompt=f"Q{i}: produce output. A:".encode(),
+                    grammar="json", max_new_tokens=32, seed=i,
+                    decode=(DecodeConfig(method="greedy") if i % 2 == 0 else
+                            DecodeConfig(method="sample", temperature=0.8,
+                                         top_k=40, top_p=0.95)))
+             for i in range(4)]
+    states, stats, served = run_counted(torch, counters,
+                                        lambda: engine.generate(reqs))
+    report("trained smollm-360m served from its checkpoint (json, 4 "
+           "requests x 32 new tokens)", states, stats, bundles, served)
+    for st in states:
+        log(f"  request {st.req.rid} ({st.finish_reason}): "
+            f"{st.generated[:80]!r}")
+    if not served["fused_mask_select"] or not served["attention"]:
+        raise AssertionError(f"serving the trained checkpoint launched "
+                             f"{served}")
+    t0 = time.perf_counter()
+    back, step_n, _ = load_checkpoint(path, params)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_with_path(params), flatten_with_path(back)))
+    if step_n != TRAIN_STEPS or not same:
+        raise AssertionError(f"checkpoint read back: step {step_n}, leaves "
+                             f"equal {same}")
+    log(f"phase 9: checkpoint loaded back in {time.perf_counter() - t0:.1f}"
+        f" s, step {step_n}, equal to the trained params leaf for leaf")
+    os.remove(path)
+    del model, params, engine, bundles, back, states
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the other families ----------------------------------------------
+    from repro_torch.models.model import layer_groups
+    for arch, depth, B, S in TRAIN_ARCHS:
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2,
+                          total_steps=ARCH_TRAIN_STEPS)
+        model, params, result, launches, secs, peak = _train_run(
+            torch, counters, arch, depth, B, S, ARCH_TRAIN_STEPS, opt)
+        n_attn = sum(count for pat, count in layer_groups(model.cfg)
+                     for kind in pat if kind in ("attn", "moe"))
+        want = (n_attn * ARCH_TRAIN_STEPS * 2, n_attn * ARCH_TRAIN_STEPS)
+        got = (launches["attention"], launches["attention_backward"])
+        if got != want:
+            raise AssertionError(f"{arch} training: attention launched "
+                                 f"{got} (forward, backward), want {want}")
+        for r in bwd_rows:
+            if r["model"] == arch:
+                r["launches"] = launches["attention_backward"]
+        del model, params, result
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 9, {arch}: freed; "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+            f"allocated")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1579,15 +1898,17 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_backward)
     from repro_torch.kernels.fused_select.ops import fused_mask_select
     from repro_torch.kernels.masked_logits.ops import (
         apply_grammar_mask, apply_grammar_mask_span)
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.launch.serve import build_engine
     counters = (fused_mask_select, attention, apply_grammar_mask,
-                apply_grammar_mask_span, paged_attention)
+                apply_grammar_mask_span, paged_attention, attention_backward)
 
+    t_start = time.perf_counter()
     smi = smi_line()
     log(f"device: {smi}; torch {torch.__version__}; CUDA "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
@@ -1602,7 +1923,10 @@ def main():
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
 
+    stamp = lambda what: log(f"[{what} done at "
+                             f"{time.perf_counter() - t_start:.1f} s]")
     phase_model_check(torch, np)
+    stamp("phases 1-3")
 
     t0 = time.perf_counter()
     engine, bundles, tok = build_engine(
@@ -1620,16 +1944,29 @@ def main():
             phase_paged_attention(torch, np)[1]]
     for r in rows:
         r["model"] = "smollm-360m"
+    stamp("phase 4")
     launches, dense_states = phase_e2e(torch, engine, bundles, counters)
     rows[0]["launches"] = launches["fused_mask_select"]
     rows[1]["launches"] = launches["attention"]
     found = phase_new_paths(torch, engine, bundles, counters, dense_states)
     for r in rows[2:]:
         r["launches"] = found[r["name"]]
+    stamp("phase 5")
     phase_forward_breakdown(torch, engine)
+    stamp("phase 6")
     phase_front_end(torch, engine, bundles, counters, dense_states)
+    stamp("phase 7")
+    del engine, bundles, dense_states
+    gc.collect()
+    torch.cuda.empty_cache()
     for arch, depth in ARCHS:
         rows += phase_arch(torch, np, counters, arch, depth)
+        stamp(f"phase 8, {arch}")
+    bwd_rows = phase_attention_backward(torch)
+    stamp("phase 9, backward kernel")
+    phase_train(torch, counters, bwd_rows)
+    rows += bwd_rows
+    stamp("phase 9")
 
     log(smi)
     log(json.dumps({"kernels": rows}))

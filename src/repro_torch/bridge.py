@@ -12,6 +12,10 @@ extension. `to_torch` accepts any numpy array whose dtype is named
 "bfloat16" (the extension dtype JAX hands out); `to_numpy` returns bf16
 leaves as their uint16 bit image, which a JAX caller views back with
 `.view(jnp.bfloat16)`.
+
+The same calls carry an optimizer state ({"mu", "nu", "step"}: fp32
+moment trees and a 0-dim int32 step) between `repro.training.optimizer`
+and `repro_torch.training.optimizer`; 0-dim leaves keep their shape.
 """
 from __future__ import annotations
 
@@ -31,10 +35,11 @@ def _map(tree, fn):
 
 def leaf_to_torch(a, device="cpu") -> torch.Tensor:
     a = np.asarray(a)
+    c = np.ascontiguousarray(a).reshape(a.shape)   # ndim 0 stays 0
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = torch.from_numpy(c.view(np.int16).copy())
         return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(c.copy()).to(device)
 
 
 def leaf_to_numpy(t: torch.Tensor) -> np.ndarray:

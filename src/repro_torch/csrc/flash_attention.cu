@@ -15,6 +15,11 @@
 // -1e30 (keys past Sk: -inf, they contribute exactly nothing), and the
 // probabilities are rounded to the value dtype before the P.V product.
 //
+// With a non-null `lse` the kernel also writes each row's log-sum-exp of
+// its scaled, masked scores, m + log(l) in fp32, [B, H, Sq]: the training
+// forward keeps it for the backward kernel (flash_attention_bwd.cu). The
+// output does not depend on it, bit for bit.
+//
 // Bound: operations at long prompts (2*2*Sq*Sk*H*Dh/2 FLOPs causal);
 // launch and latency at serving prompt lengths (tens of tokens).
 //
@@ -68,8 +73,9 @@ constexpr size_t smem_bytes_f32() {
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
-    int H, int KH, float qscale, int causal, int window) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Sk, int H, int KH, float qscale,
+    int causal, int window) {
   constexpr int DP = D + 1;     // padded rows spread the banks
   constexpr int BKP = kBK + 1;
   constexpr int DC = D / 8;     // output columns per thread
@@ -198,6 +204,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
     const int qi = q0 + rg * 4 + i;
     if (qi >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0)
+      lse[((size_t)b * H + h) * Sq + qi] = m[i] + logf(den);
     float* orow = o + ((size_t)b * Sq + qi) * qs + (size_t)h * D;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj) orow[cg + 8 * jj] = acc[i][jj] / den;
@@ -293,7 +301,8 @@ template <int D>
 __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int Sq, int Sk, int H, int KH, float qscale, int causal, int window) {
+    float* __restrict__ lse, int Sq, int Sk, int H, int KH, float qscale,
+    int causal, int window) {
   constexpr int kTK = Tiles<D>::BK, ST = Tiles<D>::ST;
   constexpr int NCH = D / 8;    // 16-byte chunks per row
   constexpr int NT = kTK / 8;   // n-tiles of S per warp
@@ -499,6 +508,11 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16_kernel(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   const int qi0 = q0 + wr0 + g, qi1 = qi0 + 8;
+  if (lse != nullptr && tq == 0) {
+    float* lrow = lse + ((size_t)b * H + h) * Sq;
+    if (qi0 < Sq) lrow[qi0] = m0 + logf(d0);
+    if (qi1 < Sq) lrow[qi1] = m1 + logf(d1);
+  }
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     const int d = n * 8 + 2 * tq;
@@ -525,9 +539,9 @@ cudaError_t allow_smem(Kern kern, size_t smem, bool& configured) {
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KH, float qscale, int causal,
-               int window, cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int Sq, int Sk, int H, int KH, float qscale,
+               int causal, int window, cudaStream_t st) {
   constexpr size_t smem = smem_bytes_f32<D>();
   auto kern = flash_fwd_f32_kernel<D>;
   static bool configured = false;
@@ -536,15 +550,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KH,
-      qscale, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), Sq, Sk, H, KH, qscale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int KH, float qscale, int causal,
-                int window, cudaStream_t st) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int Sq, int Sk, int H, int KH, float qscale,
+                int causal, int window, cudaStream_t st) {
   constexpr size_t smem = smem_bytes_bf16<D>();
   auto kern = flash_fwd_bf16_kernel<D>;
   static bool configured = false;
@@ -555,7 +569,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Sk, H, KH, qscale, causal, window);
+      static_cast<float*>(lse), Sq, Sk, H, KH, qscale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -581,19 +595,20 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim in {32, 64, 128, 256}. Pointers
-// 16-byte aligned (the wrapper copies a tensor that is not).
+// 16-byte aligned (the wrapper copies a tensor that is not). `lse` (fp32
+// [B, H, Sq]) may be null: then no log-sum-exp is written.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
-                                      int B, int Sq, int Sk, int H, int KH,
-                                      int D, float qscale, int causal,
+                                      const void* v, void* o, void* lse,
+                                      int dtype, int B, int Sq, int Sk, int H,
+                                      int KH, int D, float qscale, int causal,
                                       int window, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FA_CASE(DIM)                                                  \
   case DIM:                                                                 \
-    return dtype == 1 ? launch_bf16<DIM>(q, k, v, o, B, Sq, Sk, H, KH,      \
+    return dtype == 1 ? launch_bf16<DIM>(q, k, v, o, lse, B, Sq, Sk, H, KH, \
                                          qscale, causal, window, st)        \
-                      : launch_f32<DIM>(q, k, v, o, B, Sq, Sk, H, KH,       \
+                      : launch_f32<DIM>(q, k, v, o, lse, B, Sq, Sk, H, KH,  \
                                         qscale, causal, window, st);
   switch (D) {
     REPRO_FA_CASE(32)

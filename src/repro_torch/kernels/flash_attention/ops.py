@@ -1,8 +1,15 @@
-"""Public op: blocked attention with queries right-aligned to keys.
+"""Public op: blocked attention with queries right-aligned to keys, and
+its gradient.
 
-A CPU tensor takes the plain version (`ref.chunked_attention`); a CUDA
-tensor launches the Hopper kernel (`csrc/flash_attention.cu`) or raises.
-`attention.launches` counts kernel launches.
+A CPU tensor takes the plain versions (`ref.chunked_attention`,
+`ref.attention_bwd`); a CUDA tensor launches the Hopper kernels
+(`csrc/flash_attention.cu` forward, `csrc/flash_attention_bwd.cu`
+backward) or raises. `attention` is differentiable: when grad is enabled
+and an input needs it, it runs as a `torch.autograd.Function` whose
+forward also keeps each row's log-sum-exp and whose backward is
+`attention_backward`. Without grad (serving) it is the plain forward
+launch, writing no LSE. `attention.launches` counts forward launches,
+`attention_backward.launches` backward ones.
 """
 from __future__ import annotations
 
@@ -13,11 +20,14 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .ref import chunked_attention
+from .ref import attention_bwd, chunked_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
 _QSCALE: dict = {}          # (dtype, Dh) -> 1/sqrt(Dh) rounded to dtype
 _LAUNCH: dict = {}          # "fn" -> the C entry point, typed once
 _SMEM_CHECKED: set = set()  # (dtype code, Dh) whose plan the library confirmed
@@ -33,6 +43,32 @@ class Plan(NamedTuple):
     grid: tuple
     threads: int
     smem: int
+
+
+# backward: (query rows, keys) per tile by head_dim (BwdTiles<D> in
+# csrc/flash_attention_bwd.cu). dK and dV accumulate in registers, so
+# shared memory holds fp32 K, V, q^, dO tiles and the P and dS tiles; at
+# head_dim 256 the tiles shrink to 32 x 16 to stay small.
+BWD_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 32), 256: (32, 16)}
+BWD_THREADS = 256
+
+
+def bwd_launch_plan(B: int, Sq: int, Sk: int, H: int, KH: int,
+                    Dh: int) -> dict:
+    """The backward's three launches: "dot" (D = rowsum dO*O, a warp per
+    row, 8 rows per block), "dkdv" (grid (key tiles, KV heads, B)) and
+    "dq" (grid (query tiles, H, B)), all of BWD_THREADS threads. Shared
+    memory in fp32 words: padded [rows][Dh + 1] tiles of K and V plus q^
+    and dO, the [BQ][BK + 1] P and dS tiles (dq keeps only dS) and two
+    [BQ] row vectors (lse, D). `flash_attention_bwd_smem_bytes` in the
+    library must agree."""
+    BQ, BK = BWD_TILES[Dh]
+    tiles = 2 * BK * (Dh + 1) + 2 * BQ * (Dh + 1) + 2 * BQ
+    return {"dot": Plan((-(-B * Sq * H // 8), 1, 1), BWD_THREADS, 0),
+            "dkdv": Plan((-(-Sk // BK), KH, B), BWD_THREADS,
+                         4 * (tiles + 2 * BQ * (BK + 1))),
+            "dq": Plan((-(-Sq // BQ), H, B), BWD_THREADS,
+                       4 * (tiles + BQ * (BK + 1)))}
 
 
 def launch_plan(dtype, B: int, Sq: int, H: int, Dh: int) -> Plan:
@@ -69,7 +105,13 @@ def _launcher():
         fn.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
+        bwd = lib.flash_attention_bwd_launch
+        bwd.argtypes = _BWD_ARGTYPES
+        bwd.restype = ctypes.c_int
+        lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
         _LAUNCH["lib"] = lib
+        _LAUNCH["bwd"] = bwd
         _LAUNCH["fn"] = fn
     return _LAUNCH["lib"], fn
 
@@ -81,20 +123,13 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def attention(q, k, v, *, causal: bool = True, window: int = 0,
-              chunk: int = 1024):
-    """q [B,Sq,H,Dh]; k,v [B,Sk,K,Dh] (H a multiple of K, Sq <= Sk) ->
-    [B,Sq,H,Dh] in q's dtype. q positions are right-aligned to k
-    positions (q_offset = Sk - Sq). `chunk` is the plain version's KV
-    chunk (the model config's attn_chunk); the kernel tiles on its own."""
-    dev = q.device
+def _check_inputs(q, k, v):
+    """Device, dtype and shape checks of a kernel launch -> (B, Sq, Sk,
+    H, K, Dh)."""
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if dev.type == "cpu":
-        return chunked_attention(q, k, v, causal=causal, q_offset=Sk - Sq,
-                                 window=window, chunk=chunk)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype} (need one of f32/bf16)")
@@ -103,6 +138,19 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: unsupported shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")
+    return B, Sq, Sk, H, K, Dh
+
+
+def _forward(q, k, v, causal, window, chunk, want_lse):
+    """One forward -> (out, lse [B,H,Sq] fp32 or None). CPU: the plain
+    version; CUDA: the kernel, which writes the LSE only when asked."""
+    if q.device.type == "cpu":
+        res = chunked_attention(q, k, v, causal=causal,
+                                q_offset=k.shape[1] - q.shape[1],
+                                window=window, chunk=chunk,
+                                return_lse=want_lse)
+        return res if want_lse else (res, None)
+    B, Sq, Sk, H, K, Dh = _check_inputs(q, k, v)
     q, k, v = aligned(q), aligned(k), aligned(v)
     lib, fn = _launcher()
     code = _DTYPES[q.dtype]
@@ -115,13 +163,105 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                                f"for {q.dtype}, Dh={Dh} uses {got}")
         _SMEM_CHECKED.add((code, Dh))
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
-            B, Sq, Sk, H, K, Dh, qscale(q.dtype, Dh), int(causal),
-            int(window), stream)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if want_lse else None, code, B, Sq, Sk, H, K,
+            Dh, qscale(q.dtype, Dh), int(causal), int(window), stream)
     _build.check(lib, rc, "flash_attention launch")
     attention.launches += 1
-    return out
+    return out, lse
+
+
+class _Attention(torch.autograd.Function):
+    """Differentiable attention: forward with LSE, backward by
+    `attention_backward` (the kernel on the card, the plain version on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk):
+        out, lse = _forward(q, k, v, causal, window, chunk, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, lse, do,
+                                        causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              chunk: int = 1024):
+    """q [B,Sq,H,Dh]; k,v [B,Sk,K,Dh] (H a multiple of K, Sq <= Sk) ->
+    [B,Sq,H,Dh] in q's dtype. q positions are right-aligned to k
+    positions (q_offset = Sk - Sq). `chunk` is the plain version's KV
+    chunk (the model config's attn_chunk); the kernel tiles on its own.
+    Differentiable in q, k and v."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, window, chunk)
+    return _forward(q, k, v, causal, window, chunk, want_lse=False)[0]
 
 
 attention.launches = 0
+
+
+def attention_with_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                       chunk: int = 1024):
+    """The forward that training runs -> (out, lse [B,H,Sq] fp32): the
+    same output as `attention`, plus each row's log-sum-exp of its
+    scaled, masked scores. Counts in `attention.launches`."""
+    return _forward(q, k, v, causal, window, chunk, want_lse=True)
+
+
+def attention_backward(q, k, v, out, lse, do, *, causal: bool = True,
+                       window: int = 0):
+    """(dq, dk, dv) of `attention(q, k, v)` for the output gradient `do`,
+    given the forward's `out` and `lse`. CPU: `ref.attention_bwd`; CUDA:
+    the backward kernel (three launches: D = rowsum(dO*O), then dK/dV
+    with one block per key tile and KV head, then dQ), or raises."""
+    if q.device.type == "cpu":
+        return attention_bwd(q, k, v, out, lse, do, causal=causal,
+                             window=window)
+    B, Sq, Sk, H, K, Dh = _check_inputs(q, k, v)
+    if out.shape != q.shape or do.shape != q.shape or \
+            out.dtype != q.dtype or lse.shape != (B, H, Sq) or \
+            lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward: out {tuple(out.shape)} "
+                         f"{out.dtype}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    q, k, v, out, lse = map(aligned, (q, k, v, out, lse))
+    do = aligned(do.to(q.dtype))
+    lib, _ = _launcher()
+    bwd = _LAUNCH["bwd"]
+    if ("bwd", Dh) not in _SMEM_CHECKED:
+        plan = bwd_launch_plan(B, Sq, Sk, H, K, Dh)
+        for i, name in enumerate(("dkdv", "dq")):
+            got = lib.flash_attention_bwd_smem_bytes(Dh, i)
+            if got != plan[name].smem:
+                raise RuntimeError(f"flash_attention backward: the {name} "
+                                   f"plan asks for {plan[name].smem} bytes "
+                                   f"of shared memory, the kernel for "
+                                   f"Dh={Dh} uses {got}")
+        _SMEM_CHECKED.add(("bwd", Dh))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), dvec.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H,
+             K, Dh, qscale(q.dtype, Dh), int(causal), int(window), stream)
+    _build.check(lib, rc, "flash_attention backward launch")
+    attention_backward.launches += 1
+    return dq, dk, dv
+
+
+attention_backward.launches = 0

@@ -22,8 +22,10 @@ The recurrent archs (mamba2, recurrentgemma) prefill at exact length and
 refuse `--paged` and `--speculative`, as the reference does.
 
 Weights are random, drawn from `--seed` by a torch.Generator on the
-device: the repository ships no checkpoint. The summary line matches the
-JAX launcher's, ending in "valid among complete: k/k".
+device, or loaded with `--checkpoint` from a msgpack checkpoint that
+either package's trainer wrote (`python -m repro_torch.launch.train
+... --checkpoint PATH`, or the reference's). The summary line matches
+the JAX launcher's, ending in "valid among complete: k/k".
 """
 from __future__ import annotations
 
@@ -48,12 +50,15 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
                  seed=0, opportunistic=False, slots=4, paged=False,
                  page_size=16, num_pages=None, prefill_chunk=32, overlap=True,
                  grammar_mode="grammar_mask", telemetry=True, devtime=False,
-                 noise_fn=None, device="cuda", params=None, num_layers=None):
+                 noise_fn=None, device="cuda", params=None, num_layers=None,
+                 checkpoint=None):
     """-> (engine, bundles, tokenizer). `params` (a port param tree on
     `device`) replaces the seeded random init, e.g. bridged reference
-    weights in the parity tests. `num_layers` keeps the config's first
-    layers and every width (chip_smoke.py serves qwen3-moe at 8 of 48 to
-    bound its run time). The other keywords are the Engine's."""
+    weights in the parity tests; `checkpoint` (a msgpack file of either
+    package) then replaces every leaf, as the reference's flag does.
+    `num_layers` keeps the config's first layers and every width
+    (chip_smoke.py serves qwen3-moe at 8 of 48 to bound its run time).
+    The other keywords are the Engine's."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if num_layers:
@@ -68,6 +73,10 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = model.init(gen)
+    if checkpoint:
+        from ..training.checkpoint import load_checkpoint
+        params, step, _ = load_checkpoint(checkpoint, params)
+        print(f"loaded checkpoint at step {step}")
     return Engine(model, params, tok, bundles, max_len=max_len,
                   opportunistic=opportunistic, slots=slots, paged=paged,
                   page_size=page_size, num_pages=num_pages,
@@ -90,6 +99,8 @@ def main(argv=None):
     ap.add_argument("--opportunistic", action="store_true",
                     help="opportunistic masking: check the unconstrained "
                          "proposal first, mask only on a miss")
+    ap.add_argument("--checkpoint", default=None,
+                    help="msgpack checkpoint to serve (either package's)")
     ap.add_argument("--prompt", default="Q: produce output. A:")
     ap.add_argument("-B", "--slots", type=int, default=4,
                     help="continuous-batching decode pool width")
@@ -138,7 +149,8 @@ def main(argv=None):
         seed=args.seed, paged=args.paged, page_size=args.page_size,
         num_pages=args.num_pages, overlap=not args.no_overlap,
         grammar_mode=args.grammar_mode, telemetry=not args.no_telemetry,
-        devtime=args.devtime, device=args.device)
+        devtime=args.devtime, device=args.device,
+        checkpoint=args.checkpoint)
 
     spec = None
     if args.speculative:

@@ -1,0 +1,86 @@
+"""Training launcher for the PyTorch port (the reference's
+`repro.launch.train` CLI, on the card by default).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+      --grammar json --steps 20 --batch 8 --seq 1024 \
+      [--checkpoint build/smollm.msgpack] [--num-layers N] [--device cpu]
+
+`--arch` takes the port's configs (dense, moe, ssm, hybrid); `--reduced`
+trains the config's small variant, `--num-layers` keeps the first layers
+at full width. Weights start random from `--seed` (a torch.Generator on
+the device). The checkpoint is the reference's msgpack format: both
+packages' `--checkpoint` flags load it.
+"""
+from __future__ import annotations
+
+import argparse
+from dataclasses import replace
+
+import torch
+
+from ..configs import get_config
+from ..core.grammars import load_grammar
+from ..core.tokenizer import ByteTokenizer
+from ..device import resolve_device
+from ..models.model import build_model
+from ..training.data import GrammarDataPipeline, RandomTokenPipeline
+from ..training.optimizer import AdamWConfig
+from ..training.train_loop import train
+from ..training.tree import leaves
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="syncode-demo")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-test reduced variant")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="keep the first N layers at full width")
+    ap.add_argument("--grammar", default="json",
+                    help="grammar for the synthetic data pipeline, or "
+                         "'random' for random tokens")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.num_layers:
+        cfg = replace(cfg, num_layers=args.num_layers)
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in leaves(params))
+    print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
+          f"vocab={cfg.vocab_size}")
+
+    if args.grammar == "random":
+        data = iter(RandomTokenPipeline(cfg, args.seq, args.batch,
+                                        seed=args.seed))
+    else:
+        tok = ByteTokenizer(cfg.vocab_size)
+        g, _ = load_grammar(args.grammar)
+        data = iter(GrammarDataPipeline(g, tok, args.seq, args.batch,
+                                        seed=args.seed))
+
+    opt = AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20),
+                      total_steps=args.steps)
+    params, result = train(model, params, data, args.steps, opt_cfg=opt,
+                           checkpoint_path=args.checkpoint, device=dev)
+    print(f"final loss {result.losses[-1]:.4f} "
+          f"({result.steps_per_sec:.2f} steps/s)")
+    return params, result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
 """Shared model components of the dense path: norms, RoPE, projections,
-FFN, embeddings and their init (port of `repro.models.common`).
+FFN, embeddings, the loss and their init (port of `repro.models.common`).
 
 Parameters are plain dicts of tensors in the JAX package's layout
 (`wq [D, H*Dh]`, ...), so the weight bridge is a copy per leaf. Rounding
@@ -149,3 +149,17 @@ def lm_logits(p, x, cfg):
     if cfg.tie_embeddings:
         return x @ p["embed"].T
     return x @ p["lm_head"]
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """logits [B,S,V] (any float dtype), labels [B,S] int -> mean NLL in
+    fp32 over the positions `mask` keeps. The gold logit is gathered
+    (the reference's iota compare picks the same value)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

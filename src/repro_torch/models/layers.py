@@ -1,12 +1,14 @@
 """Layer kinds with their explicit caches (port of `repro.models.layers`):
 `attn` (self-attention + dense FFN), `moe` (self-attention + routed
 experts), `rec` (RG-LRU + dense FFN, RecurrentGemma) and `ssm` (Mamba2).
-The `cross`, `enc` and `dec` kinds (vlm, audio) are not ported: the
-reference's serving engine never feeds them their side inputs.
+The `cross`, `enc` and `dec` kinds (vlm, audio) are not ported yet.
 
 Each kind has init_<kind>(gen, cfg, dtype, lead) -> params stacked on
-`lead`, <kind>_prefill(params, x, cfg, ctx) -> (x, cache) and
-<kind>_decode(params, x, cache, cfg, ctx) -> (x, cache). ctx holds
+`lead`, <kind>_train(params, x, cfg, ctx) -> (x, aux {"lb", "z"}),
+<kind>_prefill(params, x, cfg, ctx) -> (x, cache) and
+<kind>_decode(params, x, cache, cfg, ctx) -> (x, cache). Training runs
+attention through the differentiable flash_attention op (the Hopper
+forward and backward kernels on the card). ctx holds
 "cache_len", "true_len", "pos", "feed_mask", "page_table" and "window"
 (a per-model window override: the hybrid arch's local attention).
 
@@ -28,8 +30,8 @@ import torch
 from .common import (apply_rope, attn_out, ffn, init_attention, init_ffn,
                      qkv_proj, rms_norm)
 from .moe import init_moe, moe_ffn
-from .rglru import init_rglru, rglru_decode, rglru_prefill
-from .ssm import init_ssm, ssm_decode, ssm_prefill
+from .rglru import init_rglru, rglru_decode, rglru_prefill, rglru_train
+from .ssm import init_ssm, ssm_decode, ssm_prefill, ssm_train
 from ..kernels.flash_attention.ops import attention
 from ..kernels.paged_attention.ops import paged_attention
 from ..kernels.paged_attention.ref import attend
@@ -56,6 +58,19 @@ def init_kv_cache(cfg, batch, length, dtype, device, lead=()):
         "kv_pos": torch.full((*lead, batch, length), -1, dtype=torch.int32,
                              device=device),
     }
+
+
+def _self_attention_train(p, x, cfg, ctx):
+    """Causal self-attention over the whole sequence (the ctx window, if
+    any) through the differentiable attention op."""
+    B, S, D = x.shape
+    q, k, v = qkv_proj(p, x, cfg)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, causal=True, window=_window_of(cfg, ctx),
+                  chunk=cfg.attn_chunk)
+    return attn_out(p, o)
 
 
 def _self_attention_prefill(p, x, cfg, ctx):
@@ -181,6 +196,19 @@ def init_attn_layer(gen, cfg, dtype, lead=()):
             "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, lead)}
 
 
+def _zero_aux(x):
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    return {"lb": z, "z": z}
+
+
+def attn_train(p, x, cfg, ctx):
+    x = x + _self_attention_train(p["attn"],
+                                  rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                                  ctx)
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, _zero_aux(x)
+
+
 def attn_prefill(p, x, cfg, ctx):
     o, cache = _self_attention_prefill(p["attn"],
                                        rms_norm(x, p["ln1"], cfg.norm_eps),
@@ -206,6 +234,14 @@ def init_moe_layer(gen, cfg, dtype, lead=()):
             "attn": init_attention(gen, cfg, dtype, lead),
             "ln2": _norm(gen, cfg, dtype, lead),
             "moe": init_moe(gen, cfg, dtype, lead)}
+
+
+def moe_train(p, x, cfg, ctx):
+    x = x + _self_attention_train(p["attn"],
+                                  rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                                  ctx)
+    y, aux = moe_ffn(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, {"lb": aux["lb_loss"], "z": aux["z_loss"]}
 
 
 def moe_prefill(p, x, cfg, ctx):
@@ -235,6 +271,12 @@ def init_rec_layer(gen, cfg, dtype, lead=()):
             "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, lead)}
 
 
+def rec_train(p, x, cfg, ctx):
+    x = x + rglru_train(p["rec"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, _zero_aux(x)
+
+
 def rec_prefill(p, x, cfg, ctx):
     o, cache = rglru_prefill(p["rec"], rms_norm(x, p["ln1"], cfg.norm_eps),
                              cfg)
@@ -258,6 +300,11 @@ def init_ssm_layer(gen, cfg, dtype, lead=()):
             "ssm": init_ssm(gen, cfg, dtype, lead)}
 
 
+def ssm_layer_train(p, x, cfg, ctx):
+    return (x + ssm_train(p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                          cfg), _zero_aux(x))
+
+
 def ssm_layer_prefill(p, x, cfg, ctx):
     o, cache = ssm_prefill(p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps),
                            cfg)
@@ -272,6 +319,8 @@ def ssm_layer_decode(p, x, cache, cfg, ctx):
 
 KIND_INIT = {"attn": init_attn_layer, "moe": init_moe_layer,
              "rec": init_rec_layer, "ssm": init_ssm_layer}
+KIND_TRAIN = {"attn": attn_train, "moe": moe_train, "rec": rec_train,
+              "ssm": ssm_layer_train}
 KIND_PREFILL = {"attn": attn_prefill, "moe": moe_prefill,
                 "rec": rec_prefill, "ssm": ssm_layer_prefill}
 KIND_DECODE = {"attn": attn_decode, "moe": moe_decode,

@@ -1,5 +1,5 @@
 """Model assembly (port of `repro.models.model`) for the dense, moe, ssm
-and hybrid archs; vlm and audio are not ported (training slice).
+and hybrid archs; vlm and audio are not ported yet.
 
 Layers of one structure are stacked into groups, each a fixed pattern of
 kinds (hybrid: ("rec", "rec", "attn") x n plus a remainder group; moe: a
@@ -13,12 +13,17 @@ T]}, rec {"h": [L, B, R], "conv"}, ssm {"h": [L, B, Hs, N, P], "conv"}.
 
 Public API (functions over a params tree):
   model.init(generator)                          -> params
+  model.train_logits(params, batch)              -> (logits [B,S,V], aux)
+  model.loss(params, batch)                      -> (scalar, metrics)
   model.prefill(params, batch, cache_len, true_len)
                                                  -> (logits [B,S,V], caches)
   model.decode_step(params, caches, token, pos)  -> (logits [B,V], caches)
   model.decode_span(params, caches, tokens, pos, feed_mask, batch_ctx)
                                                  -> (logits [B,S,V], caches)
-Decode updates `caches` in place and returns the same object. Paged KV
+Decode updates `caches` in place and returns the same object. Training
+differentiates with torch autograd; `cfg.remat` checkpoints each layer
+(`torch.utils.checkpoint`, non-reentrant) where the reference wraps its
+scan body in `jax.checkpoint`. Paged KV
 pools (`init_paged_caches`) keep the reference's leaf layout
 {"k","v": [count, P, ps, K, Dh]}; a page table in `batch_ctx` routes the
 attention layers to them.
@@ -28,13 +33,19 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .common import dtype_of, embed_tokens, init_embed, lm_logits
+from .common import (cross_entropy_loss, dtype_of, embed_tokens, init_embed,
+                     lm_logits)
 from .config import ModelConfig
-from .layers import KIND_DECODE, KIND_INIT, KIND_PREFILL, init_kv_cache
+from .layers import (KIND_DECODE, KIND_INIT, KIND_PREFILL, KIND_TRAIN,
+                     init_kv_cache)
 from .rglru import init_rglru_cache
 from .ssm import init_ssm_cache
 from ..device import resolve_device
+
+LB_COEF = 0.01
+Z_COEF = 0.001
 
 
 def layer_groups(cfg: ModelConfig):
@@ -54,9 +65,8 @@ def layer_groups(cfg: ModelConfig):
         return ([(pat, n)] if n else []) + ([(pat[:rem], 1)] if rem else [])
     if at in ("vlm", "audio"):
         raise NotImplementedError(
-            f"arch_type {at!r} is not served by the port: the reference's "
-            f"engine never feeds its side inputs, so it moves to the "
-            f"training slice")
+            f"arch_type {at!r} is not ported yet: its cross/enc/dec layer "
+            f"kinds come with port slice 9 (vlm and audio)")
     raise ValueError(at)
 
 
@@ -97,6 +107,73 @@ class Model:
         if self.cfg.arch_type == "hybrid":
             return {"window": self.cfg.local_window}
         return {}
+
+    # ------------------------------ train --------------------------------
+    def _trunk(self, params, batch):
+        """Embed + layer stacks -> (hidden [B,S,D], aux losses {"lb",
+        "z"} summed over the layers)."""
+        cfg = self.cfg
+        ctx = self._base_ctx()
+        x = embed_tokens(params["embed_block"], batch["tokens"])
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {"lb": zero, "z": zero}
+        for (pat, count), gp in zip(layer_groups(cfg), params["groups"]):
+            for i in range(count):
+                ps = [_slice(gp[j], i) for j in range(len(pat))]
+
+                def body(x, ps=ps, pat=pat):
+                    lb = z = zero
+                    for j, kind in enumerate(pat):
+                        x, a = KIND_TRAIN[kind](ps[j], x, cfg, ctx)
+                        lb, z = lb + a["lb"], z + a["z"]
+                    return x, lb, z
+
+                if cfg.remat:
+                    x, lb, z = checkpoint(body, x, use_reentrant=False)
+                else:
+                    x, lb, z = body(x)
+                aux = {"lb": aux["lb"] + lb, "z": aux["z"] + z}
+        return x, aux
+
+    def train_logits(self, params, batch):
+        x, aux = self._trunk(params, batch)
+        return lm_logits(params["embed_block"], x, self.cfg), aux
+
+    def loss(self, params, batch, seq_chunk: int = 1024):
+        """Sequence-chunked softmax cross-entropy: each chunk's logits
+        and NLL run under a checkpoint, so the [B,S,V] logits never exist
+        whole (recomputed in the backward). S % chunk != 0 takes one
+        unchunked pass, as the reference does. -> (ce + LB_COEF * lb +
+        Z_COEF * z, {"ce", "lb", "z"})."""
+        cfg = self.cfg
+        x, aux = self._trunk(params, batch)
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        B, S, D = x.shape
+        C = min(seq_chunk, S)
+        eb = params["embed_block"]
+        if S % C != 0:
+            ce = cross_entropy_loss(lm_logits(eb, x, cfg), labels, mask)
+        else:
+            if mask is None:
+                mask = torch.ones((B, S), dtype=torch.float32,
+                                  device=x.device)
+
+            def chunk_nll(xc, lc, mc):
+                logits = lm_logits(eb, xc, cfg).float()
+                logz = torch.logsumexp(logits, dim=-1)
+                gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+                return ((logz - gold) * mc).sum(), mc.sum()
+
+            tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+            for c in range(S // C):
+                sl = slice(c * C, (c + 1) * C)
+                s, m = checkpoint(chunk_nll, x[:, sl], labels[:, sl],
+                                  mask[:, sl], use_reentrant=False)
+                tot, cnt = tot + s, cnt + m
+            ce = tot / torch.clamp(cnt, min=1.0)
+        total = ce + LB_COEF * aux["lb"] + Z_COEF * aux["z"]
+        return total, {"ce": ce, "lb": aux["lb"], "z": aux["z"]}
 
     # ----------------------------- prefill -------------------------------
     def prefill(self, params, batch, cache_len=None, true_len=None):

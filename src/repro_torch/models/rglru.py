@@ -6,7 +6,8 @@ with a_t = exp(-c.softplus(lambda).r_t), inside Griffin's block: a GeLU
 branch (the tanh approximation, `jax.nn.gelu`'s default) times conv1d ->
 RG-LRU, then an output projection.
 
-Prefill scans the sequence in log depth (Hillis-Steele): ceil(log2 S)
+Prefill (and training, `rglru_train`: the same forward without the
+cache) scans the sequence in log depth (Hillis-Steele): ceil(log2 S)
 rounds, each combining every position with the one `offset` before it
 by (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2), the operator of the
 reference's `lax.associative_scan`. That is a handful of elementwise
@@ -80,14 +81,25 @@ def linear_scan(a, b):
     return b
 
 
+def rglru_train(params, x, cfg):
+    """x [B,S,D] -> [B,S,D] (no cache)."""
+    return _rglru_forward(params, x, cfg, return_state=False)[0]
+
+
 def rglru_prefill(params, x, cfg):
     """x [B,S,D] -> (y [B,S,D], cache {"h", "conv"})."""
+    return _rglru_forward(params, x, cfg, return_state=True)
+
+
+def _rglru_forward(params, x, cfg, return_state: bool):
     u = F.gelu(x @ params["w_gelu"], approximate="tanh")
     v_raw = x @ params["w_rec"]
     v = _causal_conv(v_raw, params["conv_w"], params["conv_b"])
     a, b = _gates(params, v)
     h = linear_scan(a, b)                            # [B,S,R] fp32
     y = (u.float() * h).to(x.dtype) @ params["w_out"]
+    if not return_state:
+        return y, None
     K = cfg.conv_kernel - 1
     S = x.shape[1]
     conv_cache = (v_raw[:, S - K:, :] if S >= K else

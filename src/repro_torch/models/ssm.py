@@ -1,7 +1,8 @@
 """Mamba2 / SSD (state-space duality) block (port of `repro.models.ssm`)
 [arXiv:2405.21060].
 
-Prefill runs the chunked SSD algorithm in fp32 as the reference does:
+Prefill (and training, `ssm_train`: the same forward without the cache)
+runs the chunked SSD algorithm in fp32 as the reference does:
 the sequence is split into chunks of Q = min(ssm_chunk, S) tokens; the
 intra-chunk terms are batched products, and the inter-chunk term is a
 first-order recurrence over the chunk states (a Python loop over the
@@ -67,9 +68,18 @@ def _gated_norm(y, z, w, eps=1e-6):
     return y * torch.rsqrt(var + eps) * w.float()
 
 
+def ssm_train(params, x, cfg):
+    """x [B,S,D] -> [B,S,D] via chunked SSD (no cache)."""
+    return _ssd_forward(params, x, cfg, return_state=False)[0]
+
+
 def ssm_prefill(params, x, cfg):
     """x [B,S,D] -> (y [B,S,D], cache {"h", "conv"}); the final recurrent
     state feeds decode."""
+    return _ssd_forward(params, x, cfg, return_state=True)
+
+
+def _ssd_forward(params, x, cfg, return_state: bool):
     B, S, D = x.shape
     Din, N, Hs, P = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
                      cfg.ssm_head_dim)
@@ -97,8 +107,12 @@ def ssm_prefill(params, x, cfg):
     diff = acs[:, :, :, None, :] - acs[:, :, None, :, :]    # [B,nch,Q,Q,Hs]
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device))
-    Lmat = torch.where(causal[None, None, :, :, None], torch.exp(diff),
-                       torch.zeros((), device=x.device))
+    # exp of the masked entries' -inf, not where(causal, exp(diff), 0):
+    # the same values, but exp(diff) overflows above the diagonal (diff >
+    # 88 within a 256-token chunk) and its gradient is then 0 * inf = NaN
+    # (the reference's gradient at mamba2-370m's chunk; ROADMAP queue 3)
+    Lmat = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                                 -torch.inf))
     CB = torch.einsum("bcin,bcjn->bcij", C_c, B_c)
     M = CB[..., None] * Lmat                                # [B,nch,Q,Q,Hs]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M,
@@ -126,6 +140,8 @@ def ssm_prefill(params, x, cfg):
     y = y + params["D"][None, None, :, None] * xs
     y = _gated_norm(y.reshape(B, S, Din), z, params["norm_w"])
     out = y.to(x.dtype) @ params["w_out"]
+    if not return_state:
+        return out, None
     K = cfg.conv_kernel - 1
     conv_cache = (xBC_raw[:, S - K:, :] if S >= K else
                   F.pad(xBC_raw, (0, 0, K - S, 0)))

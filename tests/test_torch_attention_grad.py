@@ -1,0 +1,152 @@
+"""The attention gradient of the port on the CPU: `ref.attention_bwd` (the
+plain version of the backward kernel) against `jax.vjp` of the
+reference's `chunked_attention`, the differentiable `attention` op
+against torch autograd through the plain forward, and a float64
+`gradcheck`. Inputs are drawn with numpy.
+
+Tolerances: fp32 gradients within 1e-5 of each gradient's largest
+magnitude (sum orders differ: XLA's autodiff of the online softmax
+against the FlashAttention-2 form); the LSE within 1e-5 of an fp64
+numpy log-sum-exp; bf16 within 2**-6 of the largest magnitude (the
+reference's autodiff rounds dP to bf16 where the FA-2 form keeps it in
+fp32)."""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.common import chunked_attention as jax_attention
+from repro_torch.kernels.flash_attention.ops import (
+    attention, attention_backward, attention_with_lse)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd,
+                                                    chunked_attention)
+
+torch.set_num_threads(1)
+
+
+def _inputs(B, S, H, K, Dh, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(dtype) for s in
+            ((B, S, H, Dh), (B, S, K, Dh), (B, S, K, Dh), (B, S, H, Dh))]
+
+
+def _close(got, want, rel):
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        g = g.float().numpy()
+        assert g.shape == w.shape
+        scale = max(np.abs(w).max(), 1e-30)
+        assert np.abs(g - w).max() <= rel * scale, (
+            np.abs(g - w).max(), scale)
+
+
+@pytest.mark.parametrize("chunk", [64, 1024], ids=["scan", "softmax"])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("Dh", [32, 64])
+@pytest.mark.parametrize("H,K", [(8, 4), (15, 5)])
+def test_plain_backward_matches_jax_vjp(H, K, Dh, window, chunk):
+    """S = 192 over chunk 64 runs the reference's query-blocked online
+    softmax scan (three KV chunks); chunk 1024 its one-shot softmax."""
+    q, k, v, do = _inputs(2, 192, H, K, Dh, seed=H * Dh + window)
+    out, vjp = jax.vjp(lambda q, k, v: jax_attention(
+        q, k, v, causal=True, window=window, chunk=chunk),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = chunked_attention(tq, tk, tv, causal=True, window=window,
+                               chunk=chunk, return_lse=True)
+    _close([o], [out], 1e-5)
+    _close(attention_bwd(tq, tk, tv, o, lse, tdo, causal=True,
+                         window=window), want, 1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 40])
+def test_plain_backward_bf16_matches_jax_vjp(window):
+    q, k, v, do = _inputs(1, 128, 15, 5, 64, seed=9)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
+                       for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda q, k, v: jax_attention(
+        q, k, v, causal=True, window=window, chunk=1024), jq, jk, jv)
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    o, lse = chunked_attention(tq, tk, tv, causal=True, window=window,
+                               return_lse=True)
+    got = attention_bwd(tq, tk, tv, o, lse, tdo, causal=True, window=window)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _close(got, want, 2.0 ** -6)
+
+
+@pytest.mark.parametrize("chunk", [32, 1024], ids=["scan", "softmax"])
+def test_lse_matches_fp64(chunk):
+    """The plain forward's LSE (either branch) is the log-sum-exp of the
+    scaled, masked scores, with the window."""
+    q, k, v, _ = _inputs(1, 96, 4, 2, 32, seed=4)
+    _, lse = chunked_attention(*map(torch.from_numpy, (q, k, v)),
+                               causal=True, window=40, chunk=chunk,
+                               return_lse=True)
+    s = np.einsum("bqkgd,bskd->bkgqs", q.reshape(1, 96, 2, 2, 32)
+                  .astype(np.float64), k.astype(np.float64)) / math.sqrt(32)
+    s = s.reshape(1, 4, 96, 96)
+    i, j = np.arange(96)[:, None], np.arange(96)[None, :]
+    s = np.where((j <= i) & (j > i - 40), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    assert lse.shape == (1, 4, 96) and lse.dtype == torch.float32
+    assert np.abs(lse.numpy() - want).max() <= 1e-5
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_attention_op_grads_match_torch_autograd(window):
+    """The differentiable op on the CPU (a Function: plain forward with
+    LSE, `ref.attention_bwd` backward) against torch autograd through
+    the plain forward; the kernels' launch counters do not move."""
+    q, k, v, do = map(torch.from_numpy, _inputs(2, 80, 6, 2, 32, seed=2))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    launches = attention.launches, attention_backward.launches
+    attention(*ins, causal=True, window=window, chunk=32).backward(do)
+    assert (attention.launches, attention_backward.launches) == launches
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    chunked_attention(*ref_ins, causal=True, window=window,
+                      chunk=32).backward(do)
+    _close([t.grad for t in ins], [t.grad.numpy() for t in ref_ins], 1e-5)
+
+
+def test_attention_op_without_grad_is_the_plain_forward():
+    """No grad needed: the serving path, the same values, no LSE."""
+    q, k, v, _ = map(torch.from_numpy, _inputs(1, 40, 4, 2, 32, seed=3))
+    out = attention(q, k, v, causal=True, window=0, chunk=16)
+    assert torch.equal(out, chunked_attention(q, k, v, causal=True,
+                                              chunk=16))
+    o2, lse = attention_with_lse(q, k, v, causal=True, chunk=16)
+    assert torch.equal(out, o2) and lse.shape == (1, 4, 40)
+
+
+@pytest.mark.parametrize("window", [0, 3])
+def test_attention_op_gradcheck_fp64(window):
+    """torch.autograd.gradcheck of the Function in float64 (the plain
+    versions accumulate fp64 inputs in fp64), GQA 4/2, causal."""
+    rng = np.random.default_rng(5)
+    ins = [torch.from_numpy(rng.normal(size=s)).requires_grad_()
+           for s in ((1, 7, 4, 8), (1, 7, 2, 8), (1, 7, 2, 8))]
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: attention(q, k, v, causal=True, window=window),
+        ins, eps=1e-6, atol=1e-6)
+
+
+def test_backward_right_aligned_queries():
+    """Sq < Sk (queries right-aligned to keys): the plain backward
+    against torch autograd through the plain forward."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.normal(size=(1, 20, 4, 32)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(1, 50, 2, 32))
+                             .astype(np.float32)) for _ in range(2))
+    do = torch.from_numpy(rng.normal(size=(1, 20, 4, 32)).astype(np.float32))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    chunked_attention(*ins, causal=True, q_offset=30).backward(do)
+    o, lse = chunked_attention(q, k, v, causal=True, q_offset=30,
+                               return_lse=True)
+    _close(attention_bwd(q, k, v, o, lse, do, causal=True),
+           [t.grad.numpy() for t in ins], 1e-5)

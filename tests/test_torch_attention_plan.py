@@ -106,3 +106,35 @@ def test_flash_plan_at_the_new_archs(arch, dtype):
         assert flash_plan(torch.bfloat16, 1, 32, 16, 256).smem == \
             2 * (64 + 2 * 2 * 64) * 256 == 163840
         assert 2 * (64 + 2 * 2 * 128) * 256 > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128, 256])
+def test_backward_plan_fits_at_every_head_dim(Dh):
+    """The backward kernel's plan: dK and dV accumulate in registers, so a
+    block's shared memory holds fp32 K, V, q^ and dO tiles, P and dS and
+    two row vectors, within 227 KB at every head_dim (at 256 with 32 x 16
+    tiles: 64-key fp32 tiles of K, V, dK and dV alone would be 256 KB);
+    the grids cover every key and query row; each product's register
+    tile splits its block's output over the 256 threads exactly."""
+    from repro_torch.kernels.flash_attention.ops import (
+        BWD_THREADS, BWD_TILES, bwd_launch_plan)
+    BQ, BK = BWD_TILES[Dh]
+    assert 4 * 4 * 64 * Dh > SMEM_LIMIT or Dh < 256
+    for (B, S, H, K) in ((8, 1024, 15, 5), (4, 1024, 32, 4),
+                         (2, 4096, 16, 1), (1, 17, 8, 8)):
+        plan = bwd_launch_plan(B, S, S, H, K, Dh)
+        for name in ("dkdv", "dq"):
+            assert plan[name].threads == BWD_THREADS == 256
+            assert 0 < plan[name].smem <= SMEM_LIMIT, (name, plan[name])
+        assert plan["dkdv"].grid == (-(-S // BK), K, B)
+        assert plan["dq"].grid == (-(-S // BQ), H, B)
+        assert plan["dot"].grid[0] * 8 >= B * S * H
+        assert plan["dkdv"].smem == 4 * (
+            2 * BK * (Dh + 1) + 2 * BQ * (Dh + 1) + 2 * BQ
+            + 2 * BQ * (BK + 1))
+    # per-thread register tiles (BwdTiles<D> in the kernel): the S tile
+    # BQ x BK, dK/dV BK x Dh and dQ BQ x Dh each hold a whole number of
+    # elements per thread, 16 or 32 fp32 accumulators at most
+    for rows, cols in ((BQ, BK), (BK, Dh), (BQ, Dh)):
+        per = rows * cols / BWD_THREADS
+        assert per == int(per) and 1 <= per <= 32

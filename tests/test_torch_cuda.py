@@ -646,3 +646,127 @@ def test_paged_attention_pages_in_chunks(dev, S):
     pt[0, 1:][rng.random(nP - 1) < 0.2] = -1
     pt[2] = -1
     _paged_check(dev, q, kp, vp, pt, pos, torch.float32)
+
+
+# --------------------------------------------- attention backward (training)
+
+def _bwd_inputs(dev, B, Sq, Sk, H, K, Dh, dtype, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, device=dev, generator=g).to(dtype)
+    return mk(B, Sq, H, Dh), mk(B, Sk, K, Dh), mk(B, Sk, K, Dh), \
+        mk(B, Sq, H, Dh)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,Dh,window", [
+    (2, 128, 128, 8, 4, 32, 0), (1, 300, 300, 15, 5, 64, 0),
+    (2, 200, 200, 32, 4, 128, 0), (1, 257, 257, 16, 1, 256, 64),
+    (1, 130, 130, 8, 8, 64, 50), (1, 100, 300, 15, 5, 64, 0),
+    (1, 1024, 1024, 15, 5, 64, 0), (1, 600, 600, 16, 1, 256, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernel_matches_plain(dev, B, Sq, Sk, H, K, Dh,
+                                                 window, dtype):
+    """dq, dk, dv of the backward kernel against `ref.attention_bwd` on the
+    same inputs (the forward kernel's output and LSE), causal, GQA, with
+    and without a window, ragged tiles, right-aligned Sq < Sk. Tolerance:
+    1e-4 (fp32) and 2**-5 (bf16) of the plain version's largest
+    magnitude: the two round at the same points, only fp32 sum orders
+    differ (and, in bf16, a rounding of P or dq may fall the other way)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        attention_backward, attention_with_lse)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd
+    q, k, v, do = _bwd_inputs(dev, B, Sq, Sk, H, K, Dh, dtype,
+                              Sq * 7 + Dh + window)
+    out, lse = attention_with_lse(q, k, v, causal=True, window=window)
+    before = attention_backward.launches
+    got = attention_backward(q, k, v, out, lse, do, causal=True,
+                             window=window)
+    assert attention_backward.launches == before + 1
+    want = attention_bwd(q, k, v, out, lse, do, causal=True, window=window)
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rel * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("Dh,H,K,window", [(64, 15, 5, 0), (128, 32, 4, 0),
+                                           (256, 16, 1, 100), (32, 8, 4, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_lse_and_forward_unchanged(dev, Dh, H, K, window, dtype):
+    """The forward with the LSE requested writes the same output, bit for
+    bit, as without it, and its LSE is the plain version's within 1e-4
+    (fp32) or 1e-3 (bf16: exp2 against exp, other sum orders)."""
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_with_lse)
+    from repro_torch.kernels.flash_attention.ref import chunked_attention
+    q, k, v, _ = _bwd_inputs(dev, 2, 333, 333, H, K, Dh, dtype, Dh + H)
+    plain_out = attention(q, k, v, causal=True, window=window)
+    out, lse = attention_with_lse(q, k, v, causal=True, window=window)
+    assert torch.equal(out, plain_out)
+    assert lse.dtype == torch.float32 and lse.shape == (2, H, 333)
+    _, want = chunked_attention(q, k, v, causal=True, window=window,
+                                return_lse=True)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert (lse - want).abs().max().item() <= tol
+
+
+def test_attention_autograd_on_card(dev):
+    """`attention` under autograd on the card (forward and backward
+    kernels) against torch autograd through the plain version, fp32,
+    within 1e-4 of each gradient's largest magnitude."""
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_backward)
+    from repro_torch.kernels.flash_attention.ref import chunked_attention
+    q, k, v, do = _bwd_inputs(dev, 2, 200, 200, 8, 4, 64, torch.float32, 5)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = attention_backward.launches
+    attention(*ins, causal=True, window=64).backward(do)
+    assert attention_backward.launches == before + 1
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    chunked_attention(*ref_ins, causal=True, window=64).backward(do)
+    for a, b in zip(ins, ref_ins):
+        scale = b.grad.abs().max().item()
+        assert (a.grad - b.grad).abs().max().item() <= 1e-4 * scale
+
+
+def test_smollm_width_train_step_matches_cpu(dev):
+    """One bf16 AdamW step of smollm-360m at full width (2 of its 32
+    layers, B 2, S 128, remat on) on the card and on the CPU (plain
+    versions) from the same weights: the step's loss and the loss after
+    the update agree within 1% (bf16 matmuls accumulate in other orders
+    on the two sides), and the card step ran the attention kernels."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_backward)
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import tree_map
+    cfg = replace(get_config("smollm-360m"), num_layers=2)
+    gen = torch.Generator().manual_seed(0)
+    params = build_model(cfg, device="cpu").init(gen)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 256, (2, 129)).astype(np.int32)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    losses = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device(where)
+        model = build_model(cfg, device=d)
+        p = tree_map(lambda t: t.to(d), params)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(d),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(d),
+                 "loss_mask": torch.ones((2, 128), device=d)}
+        step = make_train_step(model, opt)
+        fwd, bwd = attention.launches, attention_backward.launches
+        p, state, m = step(p, init_opt_state(p), batch)
+        if where == "cuda":
+            assert attention.launches - fwd == 2 * 2   # forward + remat
+            assert attention_backward.launches - bwd == 2
+        with torch.no_grad():
+            after, _ = model.loss(p, batch)
+        losses[where] = (float(m["loss"]), float(after))
+    for a, b in zip(losses["cpu"], losses["cuda"]):
+        assert abs(a - b) <= 0.01 * abs(a), losses

@@ -20,7 +20,8 @@ PORT = SRC / "repro_torch"
 COPIED = [
     "core/__init__.py", "core/tokenizer.py", "core/regex.py",
     "core/grammar.py", "core/lexer.py", "core/lr.py", "core/parser.py",
-    "core/mask_store.py", "core/constrain.py", "core/grammars/__init__.py",
+    "core/mask_store.py", "core/constrain.py", "core/sampling.py",
+    "core/grammars/__init__.py",
     "core/grammars/builtin_defs.py", "obs/__init__.py", "obs/registry.py",
     "obs/lifecycle.py", "obs/trace.py", "obs/buildinfo.py",
     "obs/devtime.py", "obs/telemetry.py", "models/config.py",
