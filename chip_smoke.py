@@ -76,9 +76,15 @@ no result line):
    three; `generate_sequential` (4 x 16) for mamba2; paged `generate()`
    and `generate_speculative` for qwen3-moe; and one dense decode step's
    breakdown per model;
-9. training: the attention backward kernel against its plain version at
-   the training shapes (smollm-360m [8,1024,15,64] over 5 KV heads and
-   fp32 [2,1024,15,64]; qwen3-moe [4,1024,32,128] over 4; recurrentgemma
+9. training: first the attention backward kernels' compiler report
+   (`-Xptxas -v` in the build log: registers, spill bytes and stack of
+   each of the dot, dK/dV and dQ kernels per head_dim and dtype, and each
+   pass's dynamic shared memory from the library; a bf16 backward kernel
+   that spills fails the phase); then the backward kernel (bf16:
+   `mma.sync` tensor-core products over swizzled tiles that `cp.async`
+   fills; fp32: FMA tiles) against its plain version at the training
+   shapes (smollm-360m [8,1024,15,64] over 5 KV heads and fp32
+   [2,1024,15,64]; qwen3-moe [4,1024,32,128] over 4; recurrentgemma
    [2,4096,16,256] over 1 with window 2048), fed the forward kernel's LSE
    (whose output must equal the plain forward launch's bit for bit),
    timed beside the plain version, its bound and one sdpa forward and
@@ -100,6 +106,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1590,8 +1597,8 @@ def phase_arch(torch, np, counters, arch, depth):
 
 # ------------------------------------------------------- phase 9: training
 
-# (model, B, S, H, K, Dh, window, dtype) of the backward kernel check: the
-# training shapes of phase 9's runs, plus one fp32 shape
+# (model, B, S, H, K, Dh, window, dtype) of the backward kernel check:
+# the training shapes of phase 9's runs, plus one fp32 shape
 BWD_CASES = (("smollm-360m", 8, 1024, 15, 5, 64, 0, "bfloat16"),
              ("qwen3-moe-30b-a3b", 4, 1024, 32, 4, 128, 0, "bfloat16"),
              ("recurrentgemma-9b", 2, 4096, 16, 1, 256, 2048, "bfloat16"),
@@ -1613,6 +1620,54 @@ TRAIN_ARCHS = (("mamba2-370m", None, 4, 1024),
 ARCH_TRAIN_STEPS = 5
 
 
+def short_kernel(mangled):
+    """`bwd_dkdv_bf16_kernel<64>` from a mangled backward kernel name
+    (the kernels without `bf16` in the name are the fp32 route's)."""
+    m = re.search(r"\d(bwd_(?:dot|dkdv|dq)(?:_bf16)?_kernel)(?:ILi(\d+)E)?",
+                  mangled)
+    name, dh = m.groups()
+    return f"{name}<{dh}>" if dh else name
+
+
+def backward_build_report():
+    """Log the backward kernels' registers, spills and stack from the
+    build log's `-Xptxas -v` report, with each pass's dynamic shared
+    memory from the library; fails if a bf16 backward kernel spills."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import _launcher
+    lib, _ = _launcher()
+    text = (_build.BUILD_DIR / f"build_{_build.source_hash()}.log").read_text()
+    found = [r for r in _build.ptxas_report(text) if "bwd_" in r["kernel"]]
+    if not found:
+        raise AssertionError("the build log reports no backward kernel")
+    for r in found:
+        r["kernel"] = short_kernel(r["kernel"])
+    log("flash_attention_bwd build (ptxas -v): " + "; ".join(
+        f"{r['kernel']} {r['registers']} registers, spill stores/loads "
+        f"{r['spill_stores']}/{r['spill_loads']} B, stack {r['stack']} B"
+        for r in found))
+    smem = lib.flash_attention_bwd_smem_bytes
+    log("flash_attention_bwd dynamic shared memory (bytes, dkdv / dq): " +
+        "; ".join(f"{dt} Dh {dh}: {smem(c, dh, 0)} / {smem(c, dh, 1)}"
+                  for c, dt in ((1, "bf16"), (0, "fp32"))
+                  for dh in (32, 64, 128, 256)))
+    spills = [r["kernel"] for r in found if "bf16" in r["kernel"] and
+              (r["spill_stores"] or r["spill_loads"])]
+    if spills:
+        raise AssertionError(f"bf16 backward kernels spill: {spills}")
+
+
+def bwd_case_inputs(torch, B, S, H, K, Dh, dt):
+    """q, k, v, dO of one of BWD_CASES on the card, from a seeded
+    generator (`scripts/attention_bwd_ab.py` makes the same)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(S + H + Dh)
+    mk = lambda *shape: torch.randn(shape, device=dev, generator=g).to(
+        getattr(torch, dt))
+    return mk(B, S, H, Dh), mk(B, S, K, Dh), mk(B, S, K, Dh), \
+        mk(B, S, H, Dh)
+
+
 def phase_attention_backward(torch):
     """The backward kernel at the training shapes against the plain
     version on the card, fed the forward kernel's output and LSE; the
@@ -1623,14 +1678,10 @@ def phase_attention_backward(torch):
         attention, attention_backward, attention_with_lse)
     from repro_torch.kernels.flash_attention.ref import attention_bwd
     dev = torch.device("cuda")
+    backward_build_report()
     rows = []
     for model, B, S, H, K, Dh, window, dt in BWD_CASES:
-        dtype = getattr(torch, dt)
-        g = torch.Generator(dev).manual_seed(S + H + Dh)
-        mk = lambda *shape: torch.randn(shape, device=dev,
-                                        generator=g).to(dtype)
-        q, k, v, do = mk(B, S, H, Dh), mk(B, S, K, Dh), mk(B, S, K, Dh), \
-            mk(B, S, H, Dh)
+        q, k, v, do = bwd_case_inputs(torch, B, S, H, K, Dh, dt)
         o, lse = attention_with_lse(q, k, v, causal=True, window=window)
         if not torch.equal(o, attention(q, k, v, causal=True,
                                         window=window)):
@@ -1688,7 +1739,8 @@ def phase_attention_backward(torch):
             f"equal; dq/dk/dv max abs err {errs[0]:.3e}/{errs[1]:.3e}/"
             f"{errs[2]:.3e} (at most {max(rels):.2e} of the largest "
             f"magnitude, tol {BWD_TOL[dt]:.3g}); {ms:.4f} ms, device "
-            f"{dev_ms:.4f} ms; forward + backward device {fb_dev:.4f} ms; "
+            f"{dev_ms:.4f} ms; forward + "
+            f"backward device {fb_dev:.4f} ms; "
             f"plain {plain:.4f} ms; sdpa forward + backward {lib:.4f} ms, "
             f"device {lib_dev:.4f} ms; bound {bound:.6f} ms ({by}: "
             f"{flops:.4e} FLOPs = 2.5 x the forward's 4 x {visible} visible "

@@ -54,6 +54,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -216,7 +218,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
 
 constexpr int kTQ = 64;        // query rows per block (16 per warp)
 constexpr int kWarps = 4;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Keys per K/V tile and cp.async stages per head_dim: the fastest of the
 // sizes tried on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md) up to head_dim
@@ -234,67 +235,6 @@ constexpr size_t smem_bytes_bf16() {
   // Q tile + a ring of ST K tiles and ST V tiles, bf16
   return sizeof(__nv_bfloat16) *
          (size_t)(kTQ + 2 * Tiles<D>::ST * Tiles<D>::BK) * D;
-}
-
-// Element offset of 16-byte chunk c of row r in a [rows][D] bf16 tile.
-// Eight consecutive rows put one logical chunk in eight distinct bank
-// groups, which is what one 8x8 ldmatrix phase reads.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  if constexpr (D >= 64)
-    return r * D + ((c ^ (r & 7)) << 3);
-  else  // D == 32: two rows per 128-byte bank line
-    return r * D + ((c ^ ((r >> 1) & 3)) << 3);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {  // <= N groups pending
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int D>

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -91,6 +92,32 @@ def build() -> Path:
         raise RuntimeError(f"nvcc link failed:\n{r.stdout}{r.stderr}")
     os.replace(tmp, so)         # atomic publish: concurrent builds race
     return so
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Each kernel's entry in a build log's `-Xptxas -v` report, in order:
+    {"kernel": the mangled name, "registers", "spill_stores",
+    "spill_loads", "stack"} (the last three in bytes)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None,
+                   "spill_stores": 0, "spill_loads": 0, "stack": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
 
 
 def load() -> ctypes.CDLL:

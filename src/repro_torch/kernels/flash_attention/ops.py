@@ -25,7 +25,7 @@ from .ref import attention_bwd, chunked_attention
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
 _QSCALE: dict = {}          # (dtype, Dh) -> 1/sqrt(Dh) rounded to dtype
@@ -45,23 +45,66 @@ class Plan(NamedTuple):
     smem: int
 
 
-# backward: (query rows, keys) per tile by head_dim (BwdTiles<D> in
-# csrc/flash_attention_bwd.cu). dK and dV accumulate in registers, so
-# shared memory holds fp32 K, V, q^, dO tiles and the P and dS tiles; at
-# head_dim 256 the tiles shrink to 32 x 16 to stay small.
+# backward, bf16 (Bf16Bwd<D> in csrc/flash_attention_bwd.cu): dK/dV
+# blocks of BWD_KEYS keys, 16 keys a warp, BWD_KEY_WARPS[Dh] warps sharing
+# each 16 keys (each accumulating Dh / that many columns of dK and dV),
+# in steps of BWD_STEP[Dh] query columns; dq blocks of BWD_ROWS query
+# rows, 4 warps; 64-row q^/dO tiles (dkdv) and 64-key K/V tiles (dq)
+# through a ring of BWD_STAGES in bf16.
+BWD_KEYS = BWD_ROWS = 64
+BWD_STAGES = 2
+BWD_KEY_WARPS = {32: 1, 64: 1, 128: 1, 256: 2}
+BWD_STEP = {32: 64, 64: 64, 128: 32, 256: 32}
+
+
+def bwd_exchange_bytes(Dh: int) -> int:
+    """Shared memory in which the warps that share each 16 keys trade
+    their part of a step's packed P^T and dS^T (4 words per 8 columns a
+    lane), in two parities; 0 where one warp holds the 16 keys."""
+    wd = BWD_KEY_WARPS[Dh]
+    if wd == 1:
+        return 0
+    words = 4 * BWD_STEP[Dh] // wd // 8
+    return 4 * 2 * (4 * wd) * 32 * words
+
+
+# backward, fp32: (query rows, keys) per tile by head_dim (BwdTiles<D>).
+# dK and dV accumulate in registers, so shared memory holds fp32 K, V,
+# q^, dO tiles and the P and dS tiles; at head_dim 256 the tiles shrink
+# to 32 x 16 to stay small.
 BWD_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 32), 256: (32, 16)}
 BWD_THREADS = 256
 
 
-def bwd_launch_plan(B: int, Sq: int, Sk: int, H: int, KH: int,
+def bwd_launch_plan(dtype, B: int, Sq: int, Sk: int, H: int, KH: int,
                     Dh: int) -> dict:
-    """The backward's three launches: "dot" (D = rowsum dO*O, a warp per
-    row, 8 rows per block), "dkdv" (grid (key tiles, KV heads, B)) and
-    "dq" (grid (query tiles, H, B)), all of BWD_THREADS threads. Shared
-    memory in fp32 words: padded [rows][Dh + 1] tiles of K and V plus q^
-    and dO, the [BQ][BK + 1] P and dS tiles (dq keeps only dS) and two
-    [BQ] row vectors (lse, D). `flash_attention_bwd_smem_bytes` in the
-    library must agree."""
+    """The backward's three launches for q of `dtype`: "dot" (D =
+    rowsum dO*O), "dkdv" and "dq". `flash_attention_bwd_smem_bytes` in
+    the library must agree.
+
+    bf16: "dot" runs Dh / 8 lanes a row (one 16-byte chunk each; it also
+    writes q^), 256 threads a block; "dkdv" grid (KH * B, key tiles), key
+    tile 0 (which sees every query in causal attention) first, 128 *
+    BWD_KEY_WARPS[Dh] threads, shared memory for the K and V tiles,
+    BWD_STAGES of (q^ and dO tiles, lse and D rows) and, where two warps
+    share each 16 keys, their exchange slots; "dq" grid (H * B,
+    query tiles), 128 threads, the q^ and dO tiles and BWD_STAGES of K
+    and V tiles. fp32: "dot" a warp per row, 8 rows per block; "dkdv"
+    grid (key tiles, KH, B) and "dq" grid (query tiles, H, B), all of
+    BWD_THREADS threads; padded [rows][Dh + 1] fp32 tiles of K and V plus
+    q^ and dO, the [BQ][BK + 1] P and dS tiles (dq keeps only dS) and two
+    [BQ] row vectors (lse, D)."""
+    if dtype == torch.bfloat16:
+        tile = 2 * BWD_KEYS * Dh                  # bytes of a bf16 tile
+        return {"dot": Plan((-(-B * Sq * H * (Dh // 8) // 256), 1, 1), 256,
+                            0),
+                "dkdv": Plan((KH * B, -(-Sk // BWD_KEYS), 1),
+                             128 * BWD_KEY_WARPS[Dh],
+                             2 * tile + BWD_STAGES * (2 * tile
+                                                      + 4 * 2 * BWD_ROWS)
+                             + bwd_exchange_bytes(Dh)),
+                "dq": Plan((H * B, -(-Sq // BWD_ROWS), 1), 128,
+                           2 * tile + BWD_STAGES * 2 * tile)}
     BQ, BK = BWD_TILES[Dh]
     tiles = 2 * BK * (Dh + 1) + 2 * BQ * (Dh + 1) + 2 * BQ
     return {"dot": Plan((-(-B * Sq * H // 8), 1, 1), BWD_THREADS, 0),
@@ -69,6 +112,16 @@ def bwd_launch_plan(B: int, Sq: int, Sk: int, H: int, KH: int,
                          4 * (tiles + 2 * BQ * (BK + 1))),
             "dq": Plan((-(-Sq // BQ), H, B), BWD_THREADS,
                        4 * (tiles + BQ * (BK + 1)))}
+
+
+def bwd_scratch(q):
+    """The backward kernel's scratch for q [B,Sq,H,Dh]: (D [B,H,Sq] fp32,
+    q^ of q's shape in bf16, or None for fp32, whose kernel scales q in
+    shared memory), both from torch.empty on q's device."""
+    B, Sq, H, _ = q.shape
+    dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    return dvec, (torch.empty_like(q) if q.dtype == torch.bfloat16
+                  else None)
 
 
 def launch_plan(dtype, B: int, Sq: int, H: int, Dh: int) -> Plan:
@@ -108,7 +161,7 @@ def _launcher():
         bwd = lib.flash_attention_bwd_launch
         bwd.argtypes = _BWD_ARGTYPES
         bwd.restype = ctypes.c_int
-        lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
         _LAUNCH["lib"] = lib
         _LAUNCH["bwd"] = bwd
@@ -224,8 +277,9 @@ def attention_backward(q, k, v, out, lse, do, *, causal: bool = True,
                        window: int = 0):
     """(dq, dk, dv) of `attention(q, k, v)` for the output gradient `do`,
     given the forward's `out` and `lse`. CPU: `ref.attention_bwd`; CUDA:
-    the backward kernel (three launches: D = rowsum(dO*O), then dK/dV
-    with one block per key tile and KV head, then dQ), or raises."""
+    the backward kernel (three launches: D = rowsum(dO*O), with q^ in
+    bf16; dK/dV with one block per key tile and KV head; dQ), or
+    raises."""
     if q.device.type == "cpu":
         return attention_bwd(q, k, v, out, lse, do, causal=causal,
                              window=window)
@@ -241,24 +295,26 @@ def attention_backward(q, k, v, out, lse, do, *, causal: bool = True,
     do = aligned(do.to(q.dtype))
     lib, _ = _launcher()
     bwd = _LAUNCH["bwd"]
-    if ("bwd", Dh) not in _SMEM_CHECKED:
-        plan = bwd_launch_plan(B, Sq, Sk, H, K, Dh)
+    code = _DTYPES[q.dtype]
+    if ("bwd", code, Dh) not in _SMEM_CHECKED:
+        plan = bwd_launch_plan(q.dtype, B, Sq, Sk, H, K, Dh)
         for i, name in enumerate(("dkdv", "dq")):
-            got = lib.flash_attention_bwd_smem_bytes(Dh, i)
+            got = lib.flash_attention_bwd_smem_bytes(code, Dh, i)
             if got != plan[name].smem:
                 raise RuntimeError(f"flash_attention backward: the {name} "
                                    f"plan asks for {plan[name].smem} bytes "
                                    f"of shared memory, the kernel for "
-                                   f"Dh={Dh} uses {got}")
-        _SMEM_CHECKED.add(("bwd", Dh))
+                                   f"{q.dtype}, Dh={Dh} uses {got}")
+        _SMEM_CHECKED.add(("bwd", code, Dh))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dvec, qhat = bwd_scratch(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), dvec.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H,
-             K, Dh, qscale(q.dtype, Dh), int(causal), int(window), stream)
+             dv.data_ptr(), dvec.data_ptr(),
+             qhat.data_ptr() if qhat is not None else None, code, B, Sq, Sk,
+             H, K, Dh, qscale(q.dtype, Dh), int(causal), int(window), stream)
     _build.check(lib, rc, "flash_attention backward launch")
     attention_backward.launches += 1
     return dq, dk, dv

@@ -9,7 +9,10 @@ magnitude (sum orders differ: XLA's autodiff of the online softmax
 against the FlashAttention-2 form); the LSE within 1e-5 of an fp64
 numpy log-sum-exp; bf16 within 2**-6 of the largest magnitude (the
 reference's autodiff rounds dP to bf16 where the FA-2 form keeps it in
-fp32)."""
+fp32). A bf16 emulation of the backward kernel's rounding points (dS
+rounded to bf16 before the dK and dQ products) is held within 2**-5 of
+the plain version, the card test's tolerance, and within 2**-6 of
+`jax.vjp`."""
 import math
 
 import jax
@@ -77,6 +80,66 @@ def test_plain_backward_bf16_matches_jax_vjp(window):
     got = attention_bwd(tq, tk, tv, o, lse, tdo, causal=True, window=window)
     assert all(g.dtype == torch.bfloat16 for g in got)
     _close(got, want, 2.0 ** -6)
+
+
+def _bf16(x):
+    """x rounded to bf16 (nearest even), back in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _kernel_rounding_bwd(q, k, v, o, lse, do, window):
+    """A bf16 emulation of the backward kernel's bf16 route
+    (csrc/flash_attention_bwd.cu) at its rounding points, from bf16
+    tensors: q^ = round(q * scale); S = q^ K^T and dP = dO V^T summed in
+    fp32; P = exp(S - lse), 0 where masked; dV = round(P)^T dO; D =
+    rowsum(dO * O); dS = P (dP - D), rounded to bf16 before dK = dS^T q^
+    and d(q^) = dS K (the route's one extra rounding point); dq =
+    round(round(d(q^)) * scale); outputs rounded to bf16."""
+    B, Sq, H, Dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.bfloat16).float()
+    qh = _bf16(q.float() * scale).reshape(B, Sq, K, G, Dh)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, K, G, Dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qh, kf)
+    pos = torch.arange(Sq)[:, None] + Sk - Sq
+    kp = torch.arange(Sk)[None, :]
+    vis = (kp <= pos) & ((kp > pos - window) if window else True)
+    p = torch.where(vis, torch.exp(s - lse.reshape(B, K, G, Sq, 1)), 0.0)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", _bf16(p), dof)
+    dvec = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = _bf16(p * (dp - dvec.reshape(B, K, G, Sq, 1)))
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qh)
+    dqh = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, Sq, H, Dh)
+    return (_bf16(_bf16(dqh) * scale).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+@pytest.mark.parametrize("H,K,Dh,window", [(8, 2, 64, 0), (8, 2, 64, 40),
+                                           (6, 1, 32, 24), (4, 4, 128, 0)])
+def test_bf16_kernel_rounding_matches_plain_and_jax(H, K, Dh, window):
+    """The bf16 backward kernel's rounding design, emulated on the CPU
+    from numpy inputs (GQA, MQA, a window): within 2**-5 of the plain
+    version's largest magnitude (the card test's tolerance for the
+    kernel) and within this file's 2**-6 bf16 bound of `jax.vjp` of the
+    reference's `chunked_attention`, so a rounding point that breaks the
+    contract shows here before the card sees it."""
+    q, k, v, do = _inputs(1, 160, H, K, Dh, seed=H * Dh + window + 1)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
+                       for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda q, k, v: jax_attention(
+        q, k, v, causal=True, window=window, chunk=1024), jq, jk, jv)
+    want_jax = [np.asarray(g.astype(jnp.float32)) for g in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    o, lse = chunked_attention(tq, tk, tv, causal=True, window=window,
+                               return_lse=True)
+    got = _kernel_rounding_bwd(tq, tk, tv, o, lse, tdo, window)
+    plain = attention_bwd(tq, tk, tv, o, lse, tdo, causal=True,
+                          window=window)
+    _close(got, [g.float().numpy() for g in plain], 2.0 ** -5)
+    _close(got, want_jax, 2.0 ** -6)
 
 
 @pytest.mark.parametrize("chunk", [32, 1024], ids=["scan", "softmax"])

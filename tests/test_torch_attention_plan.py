@@ -108,21 +108,98 @@ def test_flash_plan_at_the_new_archs(arch, dtype):
         assert 2 * (64 + 2 * 2 * 128) * 256 > SMEM_LIMIT
 
 
+# The bf16 backward kernel's per-thread registers (Bf16Bwd<D> in
+# csrc/flash_attention_bwd.cu): whether dkdv keeps the K and V A fragments
+# in registers and dq the q^ and dO ones, and the steps (query columns a
+# warp forms in dkdv, keys in dq) whose S and dP accumulators (fp32) and
+# packed bf16 P and dS fragments a thread holds besides its dK/dV or dQ
+# accumulators.
+KREG_MAX, QREG_MAX = 64, 128
+DKDV_STEP = {32: 64, 64: 64, 128: 32, 256: 16}
+DQ_STEP = {32: 32, 64: 32, 128: 64, 256: 32}
+# the training and serving shapes, and ragged small ones
+BWD_SHAPES = ((8, 1024, 15, 5), (4, 1024, 32, 4), (2, 4096, 16, 1),
+              (1, 17, 8, 8), (3, 333, 16, 2))
+
+
+def _bwd_registers(Dh):
+    """fp32 accumulators plus register-held fragments of one thread in
+    each product pass of the bf16 backward -> (dkdv, dq)."""
+    from repro_torch.kernels.flash_attention.ops import BWD_KEY_WARPS
+    def steps(n):               # S, dP in fp32; P, dS packed in bf16
+        return 2 * 16 * n // 32 + 2 * 16 * n // 64
+    frags = 2 * 16 * Dh // 64                   # two 16 x Dh bf16 tiles
+    dkdv = 2 * 16 * (Dh // BWD_KEY_WARPS[Dh]) // 32 \
+        + steps(DKDV_STEP[Dh]) + (frags if Dh <= KREG_MAX else 0)
+    dq = 16 * Dh // 32 + steps(DQ_STEP[Dh]) \
+        + (frags if Dh <= QREG_MAX else 0)
+    return dkdv, dq
+
+
+def _dkdv_visible_rows(t, Sq, Sk, window):
+    """Query rows that see a key of causal key tile t (its block's work
+    per query head)."""
+    k0, kmax = 64 * t, min(64 * t + 64, Sk) - 1
+    lo = max(0, k0 - (Sk - Sq))
+    hi = min(Sq, kmax + window - (Sk - Sq)) if window else Sq
+    return max(0, hi - lo)
+
+
 @pytest.mark.parametrize("Dh", [32, 64, 128, 256])
 def test_backward_plan_fits_at_every_head_dim(Dh):
-    """The backward kernel's plan: dK and dV accumulate in registers, so a
-    block's shared memory holds fp32 K, V, q^ and dO tiles, P and dS and
-    two row vectors, within 227 KB at every head_dim (at 256 with 32 x 16
-    tiles: 64-key fp32 tiles of K, V, dK and dV alone would be 256 KB);
-    the grids cover every key and query row; each product's register
-    tile splits its block's output over the 256 threads exactly."""
+    """The backward kernel's plan. bf16: shared memory equals the
+    kernel's formula (K and V tiles of 64 keys, then two stages of 64-row
+    q^ and dO tiles with their lse and D rows for dK/dV; the q^ and dO
+    tiles, then two stages of 64-key K and V tiles for dQ) and fits 227
+    KB at every head_dim (at 256: 214,016, with the 16 KB in which the two
+    warps that share each 16 keys trade their halves of P^T and dS^T,
+    and 196,608 bytes); a thread's accumulators and register-held
+    fragments take at most 232 of its 255 registers (at 256 each warp of a pair
+    accumulates half of Dh: 128 registers, where one warp would need
+    256); the grids
+    cover every key and query row; dK/dV blocks go heaviest first (the
+    kernel maps block (x, y) to KV head x % K, batch x // K, key tile y:
+    causal, key tile 0 sees the most queries; with a window over Sq = Sk
+    every tile sees a window's worth but the last) and visit every
+    (batch, KV head, key tile) exactly once. fp32: the FMA kernel's plan,
+    as before."""
     from repro_torch.kernels.flash_attention.ops import (
-        BWD_THREADS, BWD_TILES, bwd_launch_plan)
+        BWD_KEY_WARPS, BWD_THREADS, BWD_TILES, bwd_launch_plan)
+    tile = 2 * 64 * Dh
+    for (B, S, H, K) in BWD_SHAPES:
+        for Sq, Sk in ((S, S), (max(1, S // 3), S)):
+            plan = bwd_launch_plan(torch.bfloat16, B, Sq, Sk, H, K, Dh)
+            assert plan["dkdv"].smem == 2 * tile + 2 * (2 * tile + 4 * 128) \
+                + (2 * 8 * 32 * 8 * 4 if Dh == 256 else 0)
+            assert plan["dq"].smem == 2 * tile + 2 * 2 * tile
+            for name in ("dkdv", "dq"):
+                assert 0 < plan[name].smem <= SMEM_LIMIT, (name, plan[name])
+            assert plan["dkdv"].threads == 128 * BWD_KEY_WARPS[Dh]
+            assert plan["dq"].threads == 128
+            assert plan["dkdv"].grid == (K * B, -(-Sk // 64), 1)
+            assert plan["dq"].grid == (H * B, -(-Sq // 64), 1)
+            assert (plan["dkdv"].grid[1] - 1) * 64 < Sk
+            assert (plan["dq"].grid[1] - 1) * 64 < Sq
+            assert plan["dot"].grid[0] * 256 >= B * Sq * H * (Dh // 8)
+            x, y, _ = plan["dkdv"].grid
+            order = [(xx // K, xx % K, yy) for yy in range(y)
+                     for xx in range(x)]
+            assert sorted(order) == [(b, kh, t) for b in range(B)
+                                     for kh in range(K) for t in range(y)]
+            for window in ((0, 2048, 100) if Sq == Sk else (0,)):
+                work = [_dkdv_visible_rows(t, Sq, Sk, window)
+                        for _, _, t in order]
+                assert work == sorted(work, reverse=True), window
+    dkdv_regs, dq_regs = _bwd_registers(Dh)
+    assert 2 * 16 * (Dh // BWD_KEY_WARPS[Dh]) // 32 <= 128
+    assert dkdv_regs <= 232 and dq_regs <= 232, (dkdv_regs, dq_regs)
+    if Dh == 256:
+        assert 2 * 16 * Dh // 32 == 256 > 255     # why two warps share
+        assert bwd_launch_plan(torch.bfloat16, 1, 64, 64, 16, 1,
+                               Dh)["dkdv"].smem == 214016
     BQ, BK = BWD_TILES[Dh]
-    assert 4 * 4 * 64 * Dh > SMEM_LIMIT or Dh < 256
-    for (B, S, H, K) in ((8, 1024, 15, 5), (4, 1024, 32, 4),
-                         (2, 4096, 16, 1), (1, 17, 8, 8)):
-        plan = bwd_launch_plan(B, S, S, H, K, Dh)
+    for (B, S, H, K) in BWD_SHAPES:
+        plan = bwd_launch_plan(torch.float32, B, S, S, H, K, Dh)
         for name in ("dkdv", "dq"):
             assert plan[name].threads == BWD_THREADS == 256
             assert 0 < plan[name].smem <= SMEM_LIMIT, (name, plan[name])
@@ -132,9 +209,49 @@ def test_backward_plan_fits_at_every_head_dim(Dh):
         assert plan["dkdv"].smem == 4 * (
             2 * BK * (Dh + 1) + 2 * BQ * (Dh + 1) + 2 * BQ
             + 2 * BQ * (BK + 1))
-    # per-thread register tiles (BwdTiles<D> in the kernel): the S tile
-    # BQ x BK, dK/dV BK x Dh and dQ BQ x Dh each hold a whole number of
-    # elements per thread, 16 or 32 fp32 accumulators at most
+    # per-thread register tiles of the fp32 kernel (BwdTiles<D>): the S
+    # tile BQ x BK, dK/dV BK x Dh and dQ BQ x Dh each hold a whole number
+    # of elements per thread, 16 or 32 fp32 accumulators at most
     for rows, cols in ((BQ, BK), (BK, Dh), (BQ, Dh)):
         per = rows * cols / BWD_THREADS
         assert per == int(per) and 1 <= per <= 32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_scratch_shapes(dtype):
+    """The backward's scratch (from torch.empty): D [B, H, Sq] in fp32,
+    and for bf16 a q^ buffer of q's shape and dtype (the dot pass writes
+    round(q * scale) there for the cp.async ring); fp32 needs none."""
+    from repro_torch.kernels.flash_attention.ops import bwd_scratch
+    q = torch.zeros((2, 37, 6, 64), dtype=dtype)
+    dvec, qhat = bwd_scratch(q)
+    assert dvec.shape == (2, 6, 37) and dvec.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        assert qhat.shape == q.shape and qhat.dtype == torch.bfloat16
+        assert qhat.data_ptr() != q.data_ptr()
+    else:
+        assert qhat is None
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    """`_build.ptxas_report` over a build log in the form nvcc 12.8's
+    `-Xptxas -v` writes (the lines phase 9 reads to fail on a spilling
+    backward kernel): one entry per kernel, in order."""
+    from repro_torch.kernels._build import ptxas_report
+    log = """== flash_attention_bwd.cu (rc 0)
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120bwd_dkdv_bf16_kernelILi256EEEvPKS' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120bwd_dkdv_bf16_kernelILi256EEEvPKS
+    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113bwd_dq_kernelILi64EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113bwd_dq_kernelILi64EEEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, used 1 barriers
+"""
+    got = ptxas_report(log)
+    assert [r["kernel"] for r in got] == [
+        "_ZN12_GLOBAL__N_120bwd_dkdv_bf16_kernelILi256EEEvPKS",
+        "_ZN12_GLOBAL__N_113bwd_dq_kernelILi64EEEvPKf"]
+    assert [(r["registers"], r["spill_stores"], r["spill_loads"],
+             r["stack"]) for r in got] == [(255, 8, 12, 8), (118, 0, 0, 0)]

@@ -661,16 +661,24 @@ def _bwd_inputs(dev, B, Sq, Sk, H, K, Dh, dtype, seed):
     (2, 128, 128, 8, 4, 32, 0), (1, 300, 300, 15, 5, 64, 0),
     (2, 200, 200, 32, 4, 128, 0), (1, 257, 257, 16, 1, 256, 64),
     (1, 130, 130, 8, 8, 64, 50), (1, 100, 300, 15, 5, 64, 0),
-    (1, 1024, 1024, 15, 5, 64, 0), (1, 600, 600, 16, 1, 256, 256)])
+    (1, 1024, 1024, 15, 5, 64, 0), (1, 600, 600, 16, 1, 256, 256),
+    (1, 77, 333, 8, 1, 128, 100), (1, 333, 333, 16, 1, 256, 2048),
+    (2, 129, 129, 4, 4, 32, 31), (1, 20, 300, 16, 2, 64, 30)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_backward_kernel_matches_plain(dev, B, Sq, Sk, H, K, Dh,
                                                  window, dtype):
     """dq, dk, dv of the backward kernel against `ref.attention_bwd` on the
     same inputs (the forward kernel's output and LSE), causal, GQA, with
-    and without a window, ragged tiles, right-aligned Sq < Sk. Tolerance:
-    1e-4 (fp32) and 2**-5 (bf16) of the plain version's largest
-    magnitude: the two round at the same points, only fp32 sum orders
-    differ (and, in bf16, a rounding of P or dq may fall the other way)."""
+    and without a window, ragged tiles, right-aligned Sq < Sk. The bf16
+    route's edges: Sk not a multiple of its 64-key tiles, Sq < Sk with a
+    window edge inside a key tile (77 over 333, window 100, G = 8), head
+    dim 256 over one KV head at B = 1 (6 key-tile blocks, far from a full
+    wave), G = 1 with a window at head_dim 32, and key tiles that no
+    query sees (20 queries over 300 keys, window 30: dK and dV zero
+    there). Tolerance: 1e-4 (fp32) and 2**-5 (bf16) of the plain
+    version's largest magnitude: fp32 sum orders differ, and the bf16
+    route also rounds dS to bf16 before the dK and dQ products (a
+    rounding of P or dq may also fall the other way)."""
     from repro_torch.kernels.flash_attention.ops import (
         attention_backward, attention_with_lse)
     from repro_torch.kernels.flash_attention.ref import attention_bwd
@@ -688,6 +696,25 @@ def test_attention_backward_kernel_matches_plain(dev, B, Sq, Sk, H, K, Dh,
         scale = b.float().abs().max().item()
         err = (a.float() - b.float()).abs().max().item()
         assert err <= rel * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("B,S,H,K,Dh,window", [
+    (2, 300, 8, 2, 64, 0), (1, 333, 16, 1, 256, 100), (2, 200, 32, 4, 128, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_is_repeatable(dev, B, S, H, K, Dh, window,
+                                          dtype):
+    """Two launches of the backward kernel on the same inputs give the
+    same bits: no pass sums with atomics (dQ is its own pass)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        attention_backward, attention_with_lse)
+    q, k, v, do = _bwd_inputs(dev, B, S, S, H, K, Dh, dtype, S + Dh)
+    out, lse = attention_with_lse(q, k, v, causal=True, window=window)
+    first = attention_backward(q, k, v, out, lse, do, causal=True,
+                               window=window)
+    second = attention_backward(q, k, v, out, lse, do, causal=True,
+                                window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("Dh,H,K,window", [(64, 15, 5, 0), (128, 32, 4, 0),
