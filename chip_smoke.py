@@ -97,7 +97,28 @@ no result line):
    every eos output parsed) and loaded back equal leaf for leaf; then 5
    steps each of mamba2-370m (all 48 layers, B 4, S 1024), qwen3-moe
    (2 of 48 layers, B 4, S 1024) and recurrentgemma-9b (3 of 38 layers,
-   one (rec, rec, attn) block, B 2, S 4096), each freed before the next.
+   one (rec, rec, attn) block, B 2, S 4096), each freed before the next;
+10. the audio family, whisper-base (6 encoder + 6 decoder layers, d_model
+   512, 8 heads of 64, V 51865, bf16, seeded random weights): first the
+   reduced config in fp32 on the card against the CPU (40 tokens over 32
+   frames: cross attention at Sq > Sk) and fp32 non-causal edges exact
+   (keys past Sk contribute nothing); then the non-causal attention
+   kernels, forward and backward, against their plain versions at the
+   path's shapes (encoder [8,1500,8,64] over 1500; cross [8,16,8,64] and
+   [8,1,8,64] over 1500; training [16,1500,8,64], [16,448,8,64] over 1500
+   and the decoder's causal [16,448,8,64]) and at edges (Sq > Sk
+   [2,2048,8,64] over 1500, GQA 8 over 2, fp32), each timed beside the
+   plain version, its bound and sdpa (forward; forward + backward); then
+   the model at full width: prefill B 8 with [8,1500,512] frames and a
+   16-token prompt, 32 greedy decode steps (counters zeroed just before,
+   read just after: flash launches must be 6 encoder + 12 at prefill + 6
+   cross a step), the logits of steps 0, 15 and 31 against a fresh
+   prefill of the extended prompt; then 10 training steps through
+   `repro_torch.launch.train.main --arch whisper-base --grammar random`
+   (B 16 x S 448, Whisper's text context; every loss finite; attention
+   launches 18 a step, forward twice with remat, backward once), its
+   checkpoint loaded back with the same logits, and the same model fitted
+   to one batch for 10 steps (the loss must fall).
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -1603,9 +1624,10 @@ BWD_CASES = (("smollm-360m", 8, 1024, 15, 5, 64, 0, "bfloat16"),
              ("qwen3-moe-30b-a3b", 4, 1024, 32, 4, 128, 0, "bfloat16"),
              ("recurrentgemma-9b", 2, 4096, 16, 1, 256, 2048, "bfloat16"),
              ("smollm-360m", 2, 1024, 15, 5, 64, 0, "float32"))
-# the backward kernel against its plain version: within this share of the
-# plain version's largest magnitude (dq, dk and dv each)
-BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+# the forward and backward kernels against their plain versions (phases 9
+# and 10): within this share of the plain version's largest magnitude (the
+# output; dq, dk and dv each)
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
 # smollm-360m's run: 20 steps of 32 attention layers; with remat each
 # layer's forward runs twice a step (the step's, and the recompute in the
 # backward), its backward once
@@ -1657,107 +1679,161 @@ def backward_build_report():
         raise AssertionError(f"bf16 backward kernels spill: {spills}")
 
 
-def bwd_case_inputs(torch, B, S, H, K, Dh, dt):
-    """q, k, v, dO of one of BWD_CASES on the card, from a seeded
-    generator (`scripts/attention_bwd_ab.py` makes the same)."""
+def bwd_case_inputs(torch, B, S, H, K, Dh, dt, Sk=None):
+    """q [B,S,H,Dh], k and v [B,Sk,K,Dh] (Sk = S unless given) and dO
+    [B,S,H,Dh] of an attention case on the card, from a seeded generator
+    (`scripts/attention_bwd_ab.py` makes the same for BWD_CASES)."""
+    Sk = S if Sk is None else Sk
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(S + H + Dh)
     mk = lambda *shape: torch.randn(shape, device=dev, generator=g).to(
         getattr(torch, dt))
-    return mk(B, S, H, Dh), mk(B, S, K, Dh), mk(B, S, K, Dh), \
+    return mk(B, S, H, Dh), mk(B, Sk, K, Dh), mk(B, Sk, K, Dh), \
         mk(B, S, H, Dh)
 
 
-def phase_attention_backward(torch):
-    """The backward kernel at the training shapes against the plain
-    version on the card, fed the forward kernel's output and LSE; the
-    forward with the LSE requested gives the serving launch's output bit
-    for bit. -> rows."""
+def attention_case_rows(torch, model, label, B, Sq, Sk, H, K, Dh, dt, *,
+                        causal, window=0, forward=True, backward=True,
+                        path_shape=True):
+    """One attention case on the card: the forward kernel (`forward`) and
+    the backward kernel fed the forward's output and LSE (`backward`; that
+    forward must give the serving launch's output bit for bit), each held
+    against its plain version within ATTN_TOL of the plain version's
+    largest magnitude and timed by CUDA events and torch.profiler beside
+    the plain version, its bound and sdpa (forward; forward + backward).
+    -> rows, launches 0 (the caller fills them from the path's runs) and
+    "key" (q shape, k shape, causal) for `_ShapeTally`'s counts."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         attention, attention_backward, attention_with_lse)
-    from repro_torch.kernels.flash_attention.ref import attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd,
+                                                         chunked_attention)
     dev = torch.device("cuda")
+    q, k, v, do = bwd_case_inputs(torch, B, Sq, H, K, Dh, dt, Sk)
+    kw = dict(causal=causal, window=window)
+    # the kernels' visibility: query i sits at key position Sk - Sq + i
+    qpos = torch.arange(Sq)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk)[None, :]
+    seen = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        seen &= kpos <= qpos
+    if window:
+        seen &= kpos > qpos - window
+    visible = int(seen.sum())
+    # sdpa's own causal flag aligns q to the top left; other masks explicit
+    amask = seen.to(dev) if window or (causal and Sq != Sk) else None
+    sdpa_kw = dict(attn_mask=amask, is_causal=causal and amask is None,
+                   enable_gqa=H != K)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    esz = 2 if dt == "bfloat16" else 4
+    fwd_flops = 4 * B * H * Dh * visible      # QK^T and P.V, visible pairs
+    fwd_bytes = (2 * B * Sq * H * Dh + 2 * B * Sk * K * Dh) * esz
+    t_fwd = max(fwd_flops / PEAK_FLOPS[dt], fwd_bytes / HBM_BYTES_PER_S)
+    shape = (f"q [{B},{Sq},{H},{Dh}] k/v [{B},{Sk},{K},{Dh}] {dt}, "
+             f"{'causal' if causal else 'non-causal'}, window "
+             f"{window or 'none'}")
+    base = {"route": "cuda", "model": model, "case": label, "shape": shape,
+            "key": ((B, Sq, H, Dh), (B, Sk, K, Dh), causal),
+            "path_shape": path_shape, "launches": 0}
+    rows = []
+
+    def measure(name, run, plain_fn, sdpa, flops, nbytes, formula, library,
+                errs, extra):
+        err, scale = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
+        if not err <= ATTN_TOL[dt] * scale:
+            raise AssertionError(f"{name} {label} {shape}: max abs err {err}"
+                                 f" > {ATTN_TOL[dt]} x {scale}")
+        t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+        bound, by = max(t_ops, t_bytes) * 1e3, (
+            "operations" if t_ops >= t_bytes else "bytes")
+        ms, dev_ms = cuda_ms(torch, run), device_ms(torch, run)
+        plain = cuda_ms(torch, plain_fn, reps=5, warmup=1)
+        lib, lib_dev = cuda_ms(torch, sdpa), device_ms(torch, sdpa)
+        log(f"{name} {model} {label} {shape}: max abs err {err:.3e} "
+            f"(largest magnitude {scale:.3e}, tol {ATTN_TOL[dt]:.3g} of it);"
+            f" {ms:.4f} ms, device {dev_ms:.4f} ms; plain {plain:.4f} ms; "
+            f"{library} {lib:.4f} ms, device {lib_dev:.4f} ms; bound "
+            f"{bound:.6f} ms ({by}: {formula})"
+            + "".join(f"; {k} {v:.6f}" for k, v in extra.items()))
+        bwd = name.endswith("_bwd")
+        rows.append({**base, "name": name,
+                     "source": "src/repro_torch/csrc/" + (
+                         "flash_attention_bwd.cu" if bwd else
+                         "flash_attention.cu"),
+                     "replaces": ("src/repro/models/common.py:95" if bwd else
+                                  "src/repro/kernels/flash_attention/"
+                                  "kernel.py:71"),
+                     "max_abs_err": err,
+                     "max_rel_err": err / max(scale, 1e-30),
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": by,
+                     "bound_formula": formula, "flops": flops,
+                     "bytes": nbytes, "library_ms": lib,
+                     "library_device_ms": lib_dev, "library": library,
+                     **extra})
+
+    if forward:
+        plain_fn = lambda: chunked_attention(q, k, v, q_offset=Sk - Sq,
+                                             chunk=1024, **kw)
+        want, got = plain_fn().float(), attention(q, k, v, **kw).float()
+        measure("flash_attention", lambda: attention(q, k, v, **kw),
+                plain_fn, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, **sdpa_kw),
+                fwd_flops, fwd_bytes,
+                f"max({fwd_flops:.4e} FLOPs = 4 x B x H x Dh x {visible} "
+                f"visible pairs / {PEAK_FLOPS[dt]:.3g}, {fwd_bytes} bytes "
+                f"(q, k, v read, o written) / 3.35e12)", "sdpa forward",
+                [((got - want).abs().max().item(), want.abs().max().item())],
+                {})
+        del want, got
+    if backward:
+        o, lse = attention_with_lse(q, k, v, **kw)
+        if not torch.equal(o, attention(q, k, v, **kw)):
+            raise AssertionError(f"flash_attention {label} {shape}: the "
+                                 f"forward with LSE differs from the "
+                                 f"serving launch")
+        run = lambda: attention_backward(q, k, v, o, lse, do, **kw)
+        plain_fn = lambda: attention_bwd(q, k, v, o, lse, do, **kw)
+        errs = [((a.float() - b.float()).abs().max().item(),
+                 b.float().abs().max().item())
+                for a, b in zip(run(), plain_fn())]
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw).backward(
+                dot)
+
+        both = lambda: attention_backward(
+            q, k, v, *attention_with_lse(q, k, v, **kw), do, **kw)
+        flops = 2.5 * fwd_flops
+        # q, o, dO read and dQ written; k, v read and dK, dV written; the
+        # fp32 LSE read
+        nbytes = (4 * B * Sq * H * Dh + 4 * B * Sk * K * Dh) * esz \
+            + 4 * B * H * Sq
+        t_bwd = max(flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S)
+        measure("flash_attention_bwd", run, plain_fn, sdpa, flops, nbytes,
+                f"max({flops:.4e} FLOPs = 2.5 x the forward's "
+                f"{fwd_flops:.4e} / {PEAK_FLOPS[dt]:.3g}, {nbytes} bytes "
+                f"(q, o, dO, k, v, LSE read, dQ, dK, dV written) / 3.35e12)",
+                "sdpa forward + backward", errs,
+                {"fwd_bwd_device_ms": device_ms(torch, both),
+                 "fwd_bwd_bound_ms": (t_fwd + t_bwd) * 1e3})
+        del o, lse, qg, kg, vg, dot
+    del q, k, v, do, qt, kt, vt, amask
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_attention_backward(torch):
+    """The backward kernel at BWD_CASES (phase 9's training shapes)
+    against the plain version on the card. -> rows."""
     backward_build_report()
     rows = []
     for model, B, S, H, K, Dh, window, dt in BWD_CASES:
-        q, k, v, do = bwd_case_inputs(torch, B, S, H, K, Dh, dt)
-        o, lse = attention_with_lse(q, k, v, causal=True, window=window)
-        if not torch.equal(o, attention(q, k, v, causal=True,
-                                        window=window)):
-            raise AssertionError(f"flash_attention {model}: the forward "
-                                 f"with LSE differs from the serving launch")
-        run = lambda: attention_backward(q, k, v, o, lse, do, causal=True,
-                                         window=window)
-        plain_fn = lambda: attention_bwd(q, k, v, o, lse, do, causal=True,
-                                         window=window)
-        errs, rels = [], []
-        for name, a, b in zip(("dq", "dk", "dv"), run(), plain_fn()):
-            scale = b.float().abs().max().item()
-            err = (a.float() - b.float()).abs().max().item()
-            if not err <= BWD_TOL[dt] * scale:
-                raise AssertionError(f"flash_attention_bwd {model} {dt}: "
-                                     f"{name} max abs err {err} > "
-                                     f"{BWD_TOL[dt]} x {scale}")
-            errs.append(err)
-            rels.append(err / scale)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k, v))
-        dot = do.transpose(1, 2)
-        pos = torch.arange(S, device=dev)
-        amask = ((pos[None, :] <= pos[:, None])
-                 & (pos[None, :] > pos[:, None] - window)) if window else None
-
-        def sdpa():
-            out = F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=amask, is_causal=amask is None,
-                enable_gqa=True)
-            out.backward(dot)
-
-        both = lambda: (attention_backward(q, k, v, *attention_with_lse(
-            q, k, v, causal=True, window=window), do, causal=True,
-            window=window))
-        ms, dev_ms = cuda_ms(torch, run), device_ms(torch, run)
-        plain = cuda_ms(torch, plain_fn, reps=5, warmup=1)
-        fb_dev = device_ms(torch, both)
-        lib, lib_dev = cuda_ms(torch, sdpa), device_ms(torch, sdpa)
-        i = torch.arange(S)
-        visible = int(((i[None, :] <= i[:, None]) & (
-            (i[None, :] > i[:, None] - window) if window else True)).sum())
-        fwd_flops = 4 * visible * B * H * Dh     # QK^T and P.V, visible
-        flops = 2.5 * fwd_flops
-        esz = 2 if dt == "bfloat16" else 4
-        nbytes = (3 * B * S * H * Dh + 4 * B * S * K * Dh) * esz \
-            + 2 * B * S * H * Dh * esz + 4 * B * H * S   # + o, do, lse
-        t_ops = flops / PEAK_FLOPS[dt] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
-        by = "operations" if t_ops >= t_bytes else "bytes"
-        shape = (f"q [{B},{S},{H},{Dh}] k/v [{B},{S},{K},{Dh}] {dt}, window "
-                 f"{window or 'none'}")
-        log(f"flash_attention_bwd {model} {shape}: forward with LSE bitwise "
-            f"equal; dq/dk/dv max abs err {errs[0]:.3e}/{errs[1]:.3e}/"
-            f"{errs[2]:.3e} (at most {max(rels):.2e} of the largest "
-            f"magnitude, tol {BWD_TOL[dt]:.3g}); {ms:.4f} ms, device "
-            f"{dev_ms:.4f} ms; forward + "
-            f"backward device {fb_dev:.4f} ms; "
-            f"plain {plain:.4f} ms; sdpa forward + backward {lib:.4f} ms, "
-            f"device {lib_dev:.4f} ms; bound {bound:.6f} ms ({by}: "
-            f"{flops:.4e} FLOPs = 2.5 x the forward's 4 x {visible} visible "
-            f"pairs x B x H x Dh, {nbytes} bytes)")
-        rows.append({"name": "flash_attention_bwd", "route": "cuda",
-                     "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-                     "replaces": "src/repro/models/common.py:95",
-                     "model": model, "shape": shape,
-                     "path_shape": dt == "bfloat16", "launches": 0,
-                     "max_abs_err": max(errs), "max_rel_err": max(rels),
-                     "ms": ms, "device_ms": dev_ms,
-                     "fwd_bwd_device_ms": fb_dev, "plain_ms": plain,
-                     "bound_ms": bound, "bound_by": by, "flops": flops,
-                     "library_ms": lib, "library_device_ms": lib_dev,
-                     "library": "sdpa forward + backward"})
-        del q, k, v, do, o, lse, qt, kt, vt, dot, amask
-        torch.cuda.empty_cache()
+        rows += attention_case_rows(
+            torch, model, model, B, S, S, H, K, Dh, dt, causal=True,
+            window=window, forward=False, path_shape=dt == "bfloat16")
     return rows
 
 
@@ -1941,6 +2017,408 @@ def phase_train(torch, counters, bwd_rows):
             f"allocated")
 
 
+# --------------------------------------------------- phase 10: audio family
+
+# whisper-base at full width: prefill B x prompt with the encoder's frames,
+# then greedy decode steps; the steps whose logits are held against a
+# fresh prefill of the extended prompt
+AUDIO_B, AUDIO_PROMPT, AUDIO_STEPS = 8, 16, 32
+AUDIO_CHECK_STEPS = (0, 15, 31)
+# training through `repro_torch.launch.train.main`: B x S, S = 448 being
+# Whisper's text context (arXiv:2212.04356); steps
+AUDIO_TRAIN_B, AUDIO_TRAIN_S, AUDIO_TRAIN_STEPS = 16, 448, 10
+# non-causal attention rows: (label, B, Sq, Sk, H, K, Dh, dtype, causal,
+# backward). The path's own shapes (prefill: the encoder, cross over the
+# prompt, cross at each decode step; training: the encoder, the decoder's
+# causal self-attention, cross) and edges: Sq > Sk, GQA, fp32
+AUDIO_CASES = (
+    ("encoder", 8, 1500, 1500, 8, 8, 64, "bfloat16", False, False),
+    ("cross, prefill", 8, AUDIO_PROMPT, 1500, 8, 8, 64, "bfloat16", False,
+     False),
+    ("cross, decode step", 8, 1, 1500, 8, 8, 64, "bfloat16", False, False),
+    ("encoder, training", AUDIO_TRAIN_B, 1500, 1500, 8, 8, 64, "bfloat16",
+     False, True),
+    ("cross, training", AUDIO_TRAIN_B, AUDIO_TRAIN_S, 1500, 8, 8, 64,
+     "bfloat16", False, True),
+    ("decoder self, training", AUDIO_TRAIN_B, AUDIO_TRAIN_S, AUDIO_TRAIN_S,
+     8, 8, 64, "bfloat16", True, True),
+    ("edge Sq > Sk", 2, 2048, 1500, 8, 8, 64, "bfloat16", False, True),
+    ("edge GQA 8 over 2", 2, AUDIO_TRAIN_S, 1500, 8, 2, 64, "bfloat16",
+     False, True),
+    ("edge fp32 Sq > Sk", 2, 2048, 1500, 8, 8, 64, "float32", False, True),
+    ("edge fp32 encoder", 2, 1500, 1500, 8, 8, 64, "float32", False, True),
+)
+
+
+class _ShapeTally:
+    """While active, counts the attention calls that the model's layers
+    make, by (q shape, k shape, causal), forward and backward: it wraps
+    `models.layers.attention` (the forward op by the name the layers call)
+    and the autograd Function's forward (which tags its ctx) and backward
+    (which counts the tag). Each call still launches once through the
+    op, whose own counter the phase checks against these counts' sum."""
+
+    def __init__(self):
+        import collections
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.models import layers
+        self.layers, self.fn = layers, ops._Attention
+        self.fwd = collections.Counter()
+        self.bwd = collections.Counter()
+
+    def __enter__(self):
+        self.orig = (self.layers.attention, self.fn.forward, self.fn.backward)
+        attn, fwd, bwd = self.orig
+
+        def counted(q, k, v, *, causal=True, **kw):
+            self.fwd[(tuple(q.shape), tuple(k.shape), causal)] += 1
+            return attn(q, k, v, causal=causal, **kw)
+
+        def tagged_forward(ctx, q, k, v, causal, *rest):
+            ctx.tally_key = (tuple(q.shape), tuple(k.shape), causal)
+            return fwd(ctx, q, k, v, causal, *rest)
+
+        def counted_backward(ctx, do):
+            self.bwd[ctx.tally_key] += 1
+            return bwd(ctx, do)
+
+        self.layers.attention = counted
+        self.fn.forward = staticmethod(tagged_forward)
+        self.fn.backward = staticmethod(counted_backward)
+        return self
+
+    def __exit__(self, *exc):
+        attn, fwd, bwd = self.orig
+        self.layers.attention = attn
+        self.fn.forward, self.fn.backward = staticmethod(fwd), \
+            staticmethod(bwd)
+
+
+def audio_model_check(torch, np):
+    """Reduced whisper-base in fp32 (2 + 2 layers, 32 frames, a 40-token
+    prompt: cross attention at Sq > Sk): prefill and decode logits on the
+    card (kernels) against the same weights on the CPU (plain versions),
+    within 1e-3 as phase 3."""
+    from dataclasses import replace
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = replace(get_config("whisper-base").reduced(), dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator(device="cpu").manual_seed(0))
+    gpu = build_model(cfg, device="cuda")
+    gparams = bridge.to_device(params, "cuda")
+    rng = np.random.default_rng(10)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, 41)))
+    frames = torch.from_numpy(rng.normal(
+        size=(2, cfg.audio_frames, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        lc, cc = cpu.prefill(params, {"tokens": toks[:, :40],
+                                      "frames": frames}, cache_len=48)
+        lg, cg = gpu.prefill(gparams, {"tokens": toks[:, :40].cuda(),
+                                       "frames": frames.cuda()},
+                             cache_len=48)
+        pos = torch.full((2,), 40, dtype=torch.int32)
+        dc, _ = cpu.decode_step(params, cc, toks[:, 40], pos)
+        dg, _ = gpu.decode_step(gparams, cg, toks[:, 40].cuda(), pos.cuda())
+    err_p = (lc - lg.cpu()).abs().max().item()
+    err_d = (dc - dg.cpu()).abs().max().item()
+    log(f"phase 10 model check (reduced whisper fp32, 40 tokens over 32 "
+        f"frames, card vs CPU plain): prefill max abs err {err_p:.3e}, "
+        f"decode {err_d:.3e} (tolerance 1e-3)")
+    if not (err_p <= 1e-3 and err_d <= 1e-3):
+        raise AssertionError("reduced whisper on the card disagrees with "
+                             "the CPU")
+
+
+def audio_edge_exactness(torch, np):
+    """fp32, q = 0: every score is equal, so output channel c is the share
+    of the keys (all visible, none past Sk) whose position has bit c set;
+    any key past Sk that leaked in shows as a whole fraction."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    dev = torch.device("cuda")
+    for Sq, Sk in ((1, 1500), (48, 32), (1500, 1500), (2048, 1500)):
+        pos = np.arange(Sk)
+        bits = ((pos[:, None] >> np.arange(11)[None, :]) & 1).astype(
+            np.float32)
+        vn = np.zeros((1, Sk, 2, 64), np.float32)
+        vn[0, :, :, :11] = bits[:, None, :]
+        out = attention(torch.zeros((1, Sq, 8, 64), device=dev),
+                        torch.randn((1, Sk, 2, 64), device=dev),
+                        torch.from_numpy(vn).to(dev),
+                        causal=False).cpu().numpy()
+        err = np.abs(out[0, :, :, :11] - bits.mean(0)).max()
+        if err > 1e-5:
+            raise AssertionError(f"non-causal flash_attention Sq={Sq} "
+                                 f"Sk={Sk}: keys past Sk leak ({err})")
+    log("phase 10: fp32 non-causal edges exact (Sk 32 and 1500, Sq 1, 48, "
+        "1500, 2048)")
+
+
+def audio_decode(torch, counters, rows):
+    """whisper-base at full width (6 + 6 layers, d_model 512, V 51865,
+    bf16, seeded random weights): prefill AUDIO_B x AUDIO_PROMPT tokens
+    with [B, 1500, 512] frames, then AUDIO_STEPS greedy decode steps, the
+    counters zeroed just before and read just after; the logits of
+    AUDIO_CHECK_STEPS against a fresh prefill of the extended prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.tree import leaves
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-base")
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in leaves(params))
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((AUDIO_B, cfg.audio_frames, cfg.d_model),
+                         device=dev, generator=g)
+    prompt = torch.randint(3, cfg.vocab_size, (AUDIO_B, AUDIO_PROMPT),
+                           device=dev, generator=g, dtype=torch.int32)
+    log(f"phase 10, whisper-base: {cfg.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, V {cfg.vocab_size}, {cfg.dtype}; "
+        f"{n_params / 1e6:.1f} M params; B {AUDIO_B}, frames "
+        f"{cfg.audio_frames}, prompt {AUDIO_PROMPT}, {AUDIO_STEPS} greedy "
+        f"steps")
+    total = AUDIO_PROMPT + AUDIO_STEPS
+    fed, step_logits, step_ms = [], {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(torch, counters)
+    with torch.no_grad(), _ShapeTally() as tally:
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": prompt,
+                                                "frames": frames},
+                                       cache_len=total)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        for s in range(AUDIO_STEPS):
+            t0 = time.perf_counter()
+            pos = torch.full((AUDIO_B,), AUDIO_PROMPT + s, device=dev,
+                             dtype=torch.int32)
+            logits, _ = model.decode_step(params, caches, tok, pos)
+            fed.append(tok)
+            nxt = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if s in AUDIO_CHECK_STEPS:
+                step_logits[s] = logits.float()
+            tok = nxt
+    launches = read_counters(torch, counters)
+    peak = torch.cuda.max_memory_allocated()
+    want_fwd = cfg.encoder_layers + 2 * cfg.num_layers + \
+        AUDIO_STEPS * cfg.num_layers
+    if launches["attention"] != want_fwd or \
+            sum(tally.fwd.values()) != want_fwd:
+        raise AssertionError(f"whisper-base prefill + {AUDIO_STEPS} steps: "
+                             f"attention launched {launches['attention']} "
+                             f"times ({dict(tally.fwd)}), want {want_fwd}")
+    for r in rows:
+        if r["name"] == "flash_attention":
+            r["launches"] += tally.fwd[r["key"]]
+    errs = []
+    with torch.no_grad():
+        for s, got in step_logits.items():
+            toks = torch.cat([prompt] + [t[:, None] for t in fed[:s + 1]],
+                             dim=1)
+            want, _ = model.prefill(params, {"tokens": toks,
+                                             "frames": frames})
+            want = want[:, -1].float()
+            top = want.abs().max().item()
+            tol = max(2.0 ** -3, 4 * 2.0 ** (math.floor(math.log2(top)) - 7))
+            err = (got - want).abs().max().item()
+            errs.append(err)
+            if not (torch.isfinite(got).all() and err <= tol):
+                raise AssertionError(f"whisper-base decode step {s}: logits "
+                                     f"differ from a fresh prefill by {err} "
+                                     f"> {tol}")
+    log(f"phase 10, whisper-base: prefill (encoder included) {prefill_ms:.2f}"
+        f" ms; decode {statistics.median(step_ms):.3f} ms/step median, "
+        f"{sum(step_ms) / len(step_ms):.3f} mean (wall, synced each step); "
+        f"flash_attention launches {launches['attention']} = "
+        f"{cfg.encoder_layers} encoder + {cfg.num_layers} self + "
+        f"{cfg.num_layers} cross at prefill + {AUDIO_STEPS} x "
+        f"{cfg.num_layers} cross; by shape {dict(tally.fwd)}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; logits at steps {AUDIO_CHECK_STEPS} vs "
+        f"a fresh prefill: max abs err {', '.join(f'{e:.3e}' for e in errs)}"
+        f" (tolerance: 4 bf16 ulps at the largest logit, at least 2**-3)")
+    pos = torch.full((AUDIO_B,), total - 1, device=dev, dtype=torch.int32)
+
+    def step():
+        with torch.no_grad():
+            model.decode_step(params, caches, tok, pos)
+
+    _step_breakdown(torch, f"whisper-base decode step breakdown (B {AUDIO_B}, "
+                    f"{cfg.num_layers} decoder layers, cross over "
+                    f"{cfg.audio_frames} frames)", step,
+                    share_of=("flash_fwd",))
+    del model, params, caches, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def audio_train(torch, counters, rows):
+    """whisper-base trained at full width through
+    `repro_torch.launch.train.main` (`--grammar random`: the random
+    pipeline draws the frames), its `train` logging every step; every
+    loss finite, attention launches exactly 18 a step forward twice
+    (remat) and once backward; the checkpoint saved, loaded back, and
+    giving the same logits; then `audio_fit_one_batch`."""
+    import repro_torch.launch.train as launch_train
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import load_checkpoint
+    from repro_torch.training.tree import flatten_with_path
+    cfg = get_config("whisper-base")
+    path = os.path.join(ROOT, "build", "phase10", "whisper-base.msgpack")
+    argv = ["--arch", "whisper-base", "--grammar", "random", "--steps",
+            str(AUDIO_TRAIN_STEPS), "--batch", str(AUDIO_TRAIN_B), "--seq",
+            str(AUDIO_TRAIN_S), "--lr", "1e-3", "--seed", "0",
+            "--checkpoint", path]
+    log(f"phase 10: python -m repro_torch.launch.train {' '.join(argv)} "
+        f"(logging every step)")
+    train = launch_train.train
+    launch_train.train = lambda *a, **kw: train(*a, **dict(kw, log_every=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(torch, counters)
+    try:
+        with _ShapeTally() as tally:
+            t0 = time.perf_counter()
+            params, result = launch_train.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        launch_train.train = train
+    launches = read_counters(torch, counters)
+    peak = torch.cuda.max_memory_allocated()
+    losses = result.losses
+    if len(losses) != AUDIO_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"whisper-base training: losses {losses} (want "
+                             f"{AUDIO_TRAIN_STEPS}, all finite)")
+    per_step = cfg.encoder_layers + 2 * cfg.num_layers
+    want = (per_step * AUDIO_TRAIN_STEPS * 2, per_step * AUDIO_TRAIN_STEPS)
+    got = (launches["attention"], launches["attention_backward"])
+    if got != want or (sum(tally.fwd.values()),
+                       sum(tally.bwd.values())) != want:
+        raise AssertionError(f"whisper-base training: attention launched "
+                             f"{got} (forward, backward), want {want}; by "
+                             f"shape {dict(tally.fwd)} / {dict(tally.bwd)}")
+    for r in rows:
+        r["launches"] += (tally.bwd if r["name"].endswith("_bwd") else
+                          tally.fwd)[r["key"]]
+    sps = result.steps_per_sec
+    log(f"phase 10, whisper-base training: {AUDIO_TRAIN_STEPS} steps, "
+        f"B {AUDIO_TRAIN_B} x S {AUDIO_TRAIN_S} (frames [{AUDIO_TRAIN_B}, "
+        f"{cfg.audio_frames}, {cfg.d_model}]), remat {cfg.remat}: "
+        f"{1e3 / sps:.1f} ms/step, {sps * AUDIO_TRAIN_B * AUDIO_TRAIN_S:.0f} "
+        f"tokens/s (train(); main() {secs:.1f} s with the build and the "
+        f"checkpoint); losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"attention launches {got[0]} forward / {got[1]} backward = "
+        f"{per_step} x {AUDIO_TRAIN_STEPS} x (2, 1); by shape "
+        f"{dict(tally.fwd)} / {dict(tally.bwd)}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    model = build_model(cfg, device="cuda")
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (AUDIO_TRAIN_B, AUDIO_TRAIN_S + 1),
+                         device=dev, generator=g, dtype=torch.int32)
+    ready = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": torch.ones((AUDIO_TRAIN_B, AUDIO_TRAIN_S),
+                                     device=dev),
+             "frames": torch.randn((AUDIO_TRAIN_B, cfg.audio_frames,
+                                    cfg.d_model), device=dev, generator=g)}
+    state = init_opt_state(params)
+    step = make_train_step(model, AdamWConfig(
+        lr=1e-3, warmup_steps=10, total_steps=AUDIO_TRAIN_STEPS))
+    _step_breakdown(torch, f"whisper-base train step breakdown on a ready "
+                    f"batch (B {AUDIO_TRAIN_B}, S {AUDIO_TRAIN_S}, frames "
+                    f"{cfg.audio_frames}, remat)",
+                    lambda: step(params, state, ready), steps=2,
+                    share_of=("bwd_dkdv", "bwd_dq", "bwd_dot", "flash_fwd"))
+    del state, step, ready, toks
+    back, step_n, _ = load_checkpoint(path, params)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_with_path(params), flatten_with_path(back)))
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24), device=dev,
+                                     generator=g, dtype=torch.int32),
+             "frames": torch.randn((2, cfg.audio_frames, cfg.d_model),
+                                   device=dev, generator=g)}
+    with torch.no_grad():
+        a, _ = model.train_logits(params, batch)
+        b, _ = model.train_logits(back, batch)
+    if step_n != AUDIO_TRAIN_STEPS or not same or not torch.equal(a, b) \
+            or not torch.isfinite(a).all():
+        raise AssertionError(f"whisper-base checkpoint: step {step_n}, "
+                             f"leaves equal {same}, logits equal "
+                             f"{torch.equal(a, b)}")
+    log(f"phase 10: checkpoint ({os.path.getsize(path) / 2 ** 20:.1f} MiB) "
+        f"loaded back at step {step_n}, equal leaf for leaf, the same "
+        f"logits [2, 24, {cfg.vocab_size}] bit for bit")
+    os.remove(path)
+    del model, params, back, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio_fit_one_batch(torch, cfg)
+
+
+def audio_fit_one_batch(torch, cfg):
+    """The same model, optimizer and shapes as `audio_train`, stepped on
+    one random batch (the pipeline's first) AUDIO_TRAIN_STEPS times: the
+    loss must fall (last below first). The random pipeline's labels are
+    drawn apart from its inputs, so its fresh batches leave nothing to
+    learn but the uniform marginal, and over 10 steps their losses stay
+    within batch-to-batch noise (as `audio_train` prints them); a fixed
+    batch can be fitted, so a broken gradient anywhere on the path (the
+    encoder's and cross attention's backward kernels included) shows."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import RandomTokenPipeline
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import train
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    first = next(RandomTokenPipeline(cfg, AUDIO_TRAIN_S, AUDIO_TRAIN_B,
+                                     seed=0))
+    data = ({k: v.copy() for k, v in first.items()}
+            for _ in range(AUDIO_TRAIN_STEPS))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=max(10, AUDIO_TRAIN_STEPS // 20),
+                      total_steps=AUDIO_TRAIN_STEPS)
+    _, result = train(model, params, data, AUDIO_TRAIN_STEPS, opt_cfg=opt,
+                      log_every=1, verbose=False, device="cuda")
+    losses = result.losses
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"whisper-base on one batch: losses {losses} "
+                             f"(want all finite, the last below the first)")
+    log(f"phase 10, whisper-base fitted to one batch ({AUDIO_TRAIN_STEPS} "
+        f"steps, the same optimizer): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_audio(torch, np, counters):
+    """Phase 10: the audio family (whisper-base) on the card. -> rows."""
+    audio_model_check(torch, np)
+    audio_edge_exactness(torch, np)
+    rows = []
+    for label, B, Sq, Sk, H, K, Dh, dt, causal, bwd in AUDIO_CASES:
+        rows += attention_case_rows(
+            torch, "whisper-base", label, B, Sq, Sk, H, K, Dh, dt,
+            causal=causal, backward=bwd,
+            path_shape=not label.startswith("edge"))
+    audio_decode(torch, counters, rows)
+    audio_train(torch, counters, rows)
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2019,7 +2497,11 @@ def main():
     phase_train(torch, counters, bwd_rows)
     rows += bwd_rows
     stamp("phase 9")
+    rows += phase_audio(torch, np, counters)
+    stamp("phase 10")
 
+    for r in rows:
+        r.pop("key", None)
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

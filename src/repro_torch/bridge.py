@@ -3,7 +3,8 @@
 The port keeps the JAX pytree layout: a dict/list/tuple tree whose
 layer groups are stacked on a leading layer axis (`wq [L, D, H*Dh]`,
 ...), so a JAX tree given as numpy leaves (`np.asarray` of each leaf)
-maps to the port leaf by leaf as a plain copy.
+maps to the port leaf by leaf as a plain copy, whatever its branches
+(the audio family's "encoder" group, nested `dec` caches).
 
 bfloat16 travels through its uint16 bit image, as
 `repro.training.checkpoint._pack_leaf` stores it: numpy has no native

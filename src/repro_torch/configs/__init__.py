@@ -10,6 +10,7 @@ _MODULES = {
     "mamba2-370m": "mamba2_370m",
     "smollm-360m": "smollm_360m",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-base": "whisper_base",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "syncode-demo": "syncode_demo",
 }

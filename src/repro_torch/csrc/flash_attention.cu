@@ -1,13 +1,17 @@
-// Blocked online-softmax attention forward: causal and sliding window,
-// GQA, queries right-aligned to keys, any Sq <= Sk.
+// Blocked online-softmax attention forward: causal, sliding window, or
+// neither (an encoder's self-attention, cross attention to its frames);
+// GQA. With a causal mask or a window, queries are right-aligned to keys
+// and Sq <= Sk; with neither, any Sq and Sk (the wrapper refuses the rest).
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention
 // (the Pallas TPU kernel). Layout as at the reference's public function:
 // q [B, Sq, H, Dh], k and v [B, Sk, K, Dh], all contiguous; query head h
 // reads KV head h / (H / K) (no repeated KV). Query row i sits at
 // position i + Sk - Sq; key j is visible iff (!causal or j <= pos) and
-// (!window or j > pos - window). Running max, denominator and accumulator
-// are fp32; the output is written in q's dtype.
+// (!window or j > pos - window). Without a mask the position is read by
+// nothing, so Sq > Sk (a negative offset) is harmless; keys past Sk are cut
+// by their own -inf test on every tile that reaches past Sk. Running max,
+// denominator and accumulator are fp32; the output is written in q's dtype.
 //
 // Rounding follows the port's plain version (models' chunked_attention):
 // q is scaled in its own dtype (`qscale` is the scale rounded to that
@@ -20,8 +24,10 @@
 // forward keeps it for the backward kernel (flash_attention_bwd.cu). The
 // output does not depend on it, bit for bit.
 //
-// Bound: operations at long prompts (2*2*Sq*Sk*H*Dh/2 FLOPs causal);
-// launch and latency at serving prompt lengths (tens of tokens).
+// Bound: operations at long prompts (2*2*Sq*Sk*H*Dh/2 FLOPs causal,
+// 4*Sq*Sk*H*Dh without a mask); launch and latency at serving prompt
+// lengths (tens of tokens); bytes for one query over many keys (a decode
+// step's cross attention: K and V read once).
 //
 // bf16: tensor cores, FlashAttention-2 form. One block of 4 warps per
 // (64-row q tile, head, batch); each warp owns 16 query rows. T(q*scale)
@@ -42,7 +48,8 @@
 // m16n8 accumulator layout is the A layout of the next product. Tiles
 // wholly above the diagonal or left of the window are skipped, and the
 // grid starts the heaviest causal q tiles of all heads first, so that the
-// last wave holds light tiles.
+// last wave holds light tiles (without a causal mask every tile weighs
+// the same and the order is immaterial).
 //
 // fp32: the FMA kernel of the first port, unchanged (fp32 tiles in shared
 // memory, 4x4 register tiles). TF32 tensor cores would round q and k to

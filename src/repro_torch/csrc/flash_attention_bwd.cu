@@ -1,6 +1,10 @@
 // Blocked attention backward: dq, dk, dv of the forward in
-// flash_attention.cu (causal and sliding window, GQA, queries
-// right-aligned to keys, any Sq <= Sk), in the FlashAttention-2 form.
+// flash_attention.cu (causal, sliding window or neither, GQA; with a mask
+// queries right-aligned to keys and Sq <= Sk, without one any Sq and Sk),
+// in the FlashAttention-2 form. Without a mask every query tile sees every
+// key tile: dkdv walks all query tiles (i_lo 0, i_hi Sq), dq all key
+// tiles, and the ragged edges (keys past Sk, rows past Sq, both zero-
+// filled) are masked by their own tests, never by positions.
 //
 // Replaces what XLA's autodiff of the reference model's attention gives
 // for training (src/repro/models/common.py::chunked_attention: no Pallas

@@ -176,21 +176,25 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_inputs(q, k, v):
-    """Device, dtype and shape checks of a kernel launch -> (B, Sq, Sk,
-    H, K, Dh)."""
+def _check_inputs(q, k, v, causal, window):
+    """Shape, device and dtype checks of a kernel launch -> (B, Sq, Sk,
+    H, K, Dh). Sq > Sk is taken only where the mask reads no positions
+    (not causal, no window) and there are keys: right-aligned, some
+    causal query rows would see no key at all."""
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Sk, K, Dh) or tuple(v.shape) != tuple(k.shape) \
+            or H % K or Dh not in BF16_TILES or \
+            (Sq > Sk and (causal or window > 0 or Sk == 0)):
+        raise ValueError(f"flash_attention: unsupported shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} (causal {causal}, window "
+                         f"{window})")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype} (need one of f32/bf16)")
-    if tuple(k.shape) != (B, Sk, K, Dh) or tuple(v.shape) != tuple(k.shape) \
-            or H % K or Sq > Sk or Dh not in BF16_TILES:
-        raise ValueError(f"flash_attention: unsupported shapes q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}")
     return B, Sq, Sk, H, K, Dh
 
 
@@ -203,7 +207,7 @@ def _forward(q, k, v, causal, window, chunk, want_lse):
                                 window=window, chunk=chunk,
                                 return_lse=want_lse)
         return res if want_lse else (res, None)
-    B, Sq, Sk, H, K, Dh = _check_inputs(q, k, v)
+    B, Sq, Sk, H, K, Dh = _check_inputs(q, k, v, causal, window)
     q, k, v = aligned(q), aligned(k), aligned(v)
     lib, fn = _launcher()
     code = _DTYPES[q.dtype]
@@ -249,11 +253,14 @@ class _Attention(torch.autograd.Function):
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               chunk: int = 1024):
-    """q [B,Sq,H,Dh]; k,v [B,Sk,K,Dh] (H a multiple of K, Sq <= Sk) ->
-    [B,Sq,H,Dh] in q's dtype. q positions are right-aligned to k
-    positions (q_offset = Sk - Sq). `chunk` is the plain version's KV
-    chunk (the model config's attn_chunk); the kernel tiles on its own.
-    Differentiable in q, k and v."""
+    """q [B,Sq,H,Dh]; k,v [B,Sk,K,Dh] (H a multiple of K) -> [B,Sq,H,Dh]
+    in q's dtype. With `causal` or a `window`, q positions are
+    right-aligned to k positions (q_offset = Sk - Sq) and Sq <= Sk. Not
+    causal and without a window (the encoder's self-attention, cross
+    attention to encoder frames) every query sees every key, at any Sq
+    and Sk. `chunk` is the plain version's KV chunk (the model config's
+    attn_chunk); the kernel tiles on its own. Differentiable in q, k and
+    v."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -283,7 +290,7 @@ def attention_backward(q, k, v, out, lse, do, *, causal: bool = True,
     if q.device.type == "cpu":
         return attention_bwd(q, k, v, out, lse, do, causal=causal,
                              window=window)
-    B, Sq, Sk, H, K, Dh = _check_inputs(q, k, v)
+    B, Sq, Sk, H, K, Dh = _check_inputs(q, k, v, causal, window)
     if out.shape != q.shape or do.shape != q.shape or \
             out.dtype != q.dtype or lse.shape != (B, H, Sq) or \
             lse.dtype != torch.float32:

@@ -6,10 +6,13 @@ Usage:
       --grammar json --steps 20 --batch 8 --seq 1024 \
       [--checkpoint build/smollm.msgpack] [--num-layers N] [--device cpu]
 
-`--arch` takes the port's configs (dense, moe, ssm, hybrid); `--reduced`
-trains the config's small variant, `--num-layers` keeps the first layers
-at full width. Weights start random from `--seed` (a torch.Generator on
-the device). The checkpoint is the reference's msgpack format: both
+`--arch` takes the port's configs (dense, moe, ssm, hybrid, audio);
+`--reduced` trains the config's small variant, `--num-layers` keeps the
+first layers at full width. whisper-base trains on `--grammar random`,
+whose batches carry the encoder's `frames`; a grammar pipeline has none,
+and its first step raises KeyError('frames'), as the reference's does.
+Weights start random from `--seed` (a torch.Generator on the device).
+The checkpoint is the reference's msgpack format: both
 packages' `--checkpoint` flags load it.
 """
 from __future__ import annotations

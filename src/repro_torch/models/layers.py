@@ -1,7 +1,10 @@
 """Layer kinds with their explicit caches (port of `repro.models.layers`):
 `attn` (self-attention + dense FFN), `moe` (self-attention + routed
-experts), `rec` (RG-LRU + dense FFN, RecurrentGemma) and `ssm` (Mamba2).
-The `cross`, `enc` and `dec` kinds (vlm, audio) are not ported yet.
+experts), `rec` (RG-LRU + dense FFN, RecurrentGemma), `ssm` (Mamba2),
+and Whisper's `enc` (non-causal encoder layer, train form only: the
+model runs it on the frames) and `dec` (causal self-attention, cross
+attention to the encoder's output, FFN). The vlm `cross` kind is not
+ported yet.
 
 Each kind has init_<kind>(gen, cfg, dtype, lead) -> params stacked on
 `lead`, <kind>_train(params, x, cfg, ctx) -> (x, aux {"lb", "z"}),
@@ -9,8 +12,9 @@ Each kind has init_<kind>(gen, cfg, dtype, lead) -> params stacked on
 <kind>_decode(params, x, cache, cfg, ctx) -> (x, cache). Training runs
 attention through the differentiable flash_attention op (the Hopper
 forward and backward kernels on the card). ctx holds
-"cache_len", "true_len", "pos", "feed_mask", "page_table" and "window"
-(a per-model window override: the hybrid arch's local attention).
+"cache_len", "true_len", "pos", "feed_mask", "page_table", "window"
+(a per-model window override: the hybrid arch's local attention) and
+"enc_out" (the audio arch's encoded frames, which `dec` attends to).
 
 KV caches store rotated K plus a per-slot absolute-position array
 (`kv_pos`, -1 = empty) so ring-buffer (sliding-window) and linear caches
@@ -317,11 +321,108 @@ def ssm_layer_decode(p, x, cache, cfg, ctx):
     return x + o, cache
 
 
+# ---- cross attention (shared by `dec`, and by vlm's `cross` to come) ----
+
+def _cross_kv(p, mem, cfg):
+    """K and V of the memory mem [B, Sm, D] -> two [B, Sm, K, Dh]."""
+    B, Sm, D = mem.shape
+    K, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = mem @ p["wk"]
+    v = mem @ p["wv"]
+    if "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k.reshape(B, Sm, K, Dh), v.reshape(B, Sm, K, Dh)
+
+
+def _cross_attention(p, x, k, v, cfg):
+    """Every query of x [B, S, D] over every memory key (no positions, no
+    RoPE): the non-causal attention op at any S and Sm."""
+    B, S, D = x.shape
+    H, Dh = cfg.num_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    o = attention(q.reshape(B, S, H, Dh), k, v, causal=False,
+                  chunk=cfg.attn_chunk)
+    return attn_out(p, o)
+
+
+# ---- "enc": non-causal encoder layer (Whisper encoder) ----
+
+def init_enc_layer(gen, cfg, dtype, lead=()):
+    return init_attn_layer(gen, cfg, dtype, lead)
+
+
+def enc_train(p, x, cfg, ctx):
+    """Pre-norm self-attention over all frames (RoPE at arange(S) on q
+    and k, as the reference) + FFN."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = qkv_proj(p["attn"], h, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    x = x + attn_out(p["attn"], o)
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, _zero_aux(x)
+
+
+# ---- "dec": decoder layer with self + cross attention (Whisper) ----
+
+def init_dec_layer(gen, cfg, dtype, lead=()):
+    return {"ln1": _norm(gen, cfg, dtype, lead),
+            "attn": init_attention(gen, cfg, dtype, lead),
+            "lnx": _norm(gen, cfg, dtype, lead),
+            "xattn": init_attention(gen, cfg, dtype, lead),
+            "ln2": _norm(gen, cfg, dtype, lead),
+            "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, lead)}
+
+
+def dec_train(p, x, cfg, ctx):
+    x = x + _self_attention_train(p["attn"],
+                                  rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                                  ctx)
+    k, v = _cross_kv(p["xattn"], ctx["enc_out"], cfg)
+    x = x + _cross_attention(p["xattn"], rms_norm(x, p["lnx"], cfg.norm_eps),
+                             k, v, cfg)
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, _zero_aux(x)
+
+
+def dec_prefill(p, x, cfg, ctx):
+    """-> (x, {"self": the self-attention cache, "cross": {"k", "v"}}):
+    the cross K/V of the encoder's output, kept for every decode step."""
+    o, self_cache = _self_attention_prefill(
+        p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, ctx)
+    x = x + o
+    k, v = _cross_kv(p["xattn"], ctx["enc_out"], cfg)
+    x = x + _cross_attention(p["xattn"], rms_norm(x, p["lnx"], cfg.norm_eps),
+                             k, v, cfg)
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, {"self": self_cache, "cross": {"k": k, "v": v}}
+
+
+def dec_decode(p, x, cache, cfg, ctx):
+    """The self cache is written in place; the cross K/V are read."""
+    o, _ = _self_attention_decode(p["attn"],
+                                  rms_norm(x, p["ln1"], cfg.norm_eps),
+                                  cache["self"], cfg, ctx)
+    x = x + o
+    x = x + _cross_attention(p["xattn"], rms_norm(x, p["lnx"], cfg.norm_eps),
+                             cache["cross"]["k"], cache["cross"]["v"], cfg)
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, cache
+
+
 KIND_INIT = {"attn": init_attn_layer, "moe": init_moe_layer,
-             "rec": init_rec_layer, "ssm": init_ssm_layer}
+             "rec": init_rec_layer, "ssm": init_ssm_layer,
+             "enc": init_enc_layer, "dec": init_dec_layer}
 KIND_TRAIN = {"attn": attn_train, "moe": moe_train, "rec": rec_train,
-              "ssm": ssm_layer_train}
+              "ssm": ssm_layer_train, "enc": enc_train, "dec": dec_train}
 KIND_PREFILL = {"attn": attn_prefill, "moe": moe_prefill,
-                "rec": rec_prefill, "ssm": ssm_layer_prefill}
+                "rec": rec_prefill, "ssm": ssm_layer_prefill,
+                "dec": dec_prefill}
 KIND_DECODE = {"attn": attn_decode, "moe": moe_decode,
-               "rec": rec_decode, "ssm": ssm_layer_decode}
+               "rec": rec_decode, "ssm": ssm_layer_decode,
+               "dec": dec_decode}

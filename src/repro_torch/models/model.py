@@ -1,15 +1,26 @@
-"""Model assembly (port of `repro.models.model`) for the dense, moe, ssm
-and hybrid archs; vlm and audio are not ported yet.
+"""Model assembly (port of `repro.models.model`) for the dense, moe, ssm,
+hybrid and audio (Whisper) archs; vlm is not ported yet.
 
 Layers of one structure are stacked into groups, each a fixed pattern of
 kinds (hybrid: ("rec", "rec", "attn") x n plus a remainder group; moe: a
 leading dense group when `first_dense_layers`). The parameter tree keeps
 the JAX layout: {"embed_block": {...}, "groups": [(kind_params_stacked_on_
-[count, ...], ...)]}. The reference scans each group with `lax.scan`;
-here a Python loop walks the layer axis (each slice is a view). Caches
-keep the reference's layout too, one dict per pattern position stacked
-on [count, ...]: attention {"k","v": [L, B, T, K, Dh], "kv_pos": [L, B,
-T]}, rec {"h": [L, B, R], "conv"}, ssm {"h": [L, B, Hs, N, P], "conv"}.
+[count, ...], ...)]}, plus "encoder": ({enc params stacked on
+[encoder_layers, ...]},) for audio. The reference scans each group with
+`lax.scan`; here a Python loop walks the layer axis (each slice is a
+view). Caches keep the reference's layout too, one tree per pattern
+position stacked on [count, ...]: attention {"k","v": [L, B, T, K, Dh],
+"kv_pos": [L, B, T]}, rec {"h": [L, B, R], "conv"}, ssm {"h": [L, B, Hs,
+N, P], "conv"}, dec {"self": an attention cache, "cross": {"k","v": [L,
+B, frames, K, Dh]}}.
+
+Audio: the batch carries `frames` [B, audio_frames, d_model] (the conv
+front end's output; the reference stubs that front end too). The encoder
+runs them through its `enc` layers once per call (`_encode_frames`), and
+every `dec` layer attends to the result. Frames are cast to the model's
+dtype first: the reference would instead promote its whole encoder to
+fp32 when bf16 weights meet fp32 frames (and then return fp32 cross
+caches where its own `init_decode_caches` makes bf16 ones).
 
 Public API (functions over a params tree):
   model.init(generator)                          -> params
@@ -63,16 +74,25 @@ def layer_groups(cfg: ModelConfig):
         pat = tuple(cfg.block_pattern)
         n, rem = divmod(L, len(pat))
         return ([(pat, n)] if n else []) + ([(pat[:rem], 1)] if rem else [])
-    if at in ("vlm", "audio"):
+    if at == "audio":
+        return [(("dec",), L)]
+    if at == "vlm":
         raise NotImplementedError(
-            f"arch_type {at!r} is not ported yet: its cross/enc/dec layer "
-            f"kinds come with port slice 9 (vlm and audio)")
+            "arch_type 'vlm' is not ported yet: its cross layer kind comes "
+            "with port slice 11")
     raise ValueError(at)
 
 
 def _slice(tree, i):
     return {k: _slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _stack(trees):
+    """Per-layer cache trees (nested dicts of tensors) -> one tree with
+    each leaf stacked on a leading layer axis."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
 @dataclass
@@ -99,7 +119,31 @@ class Model:
         for pat, count in layer_groups(cfg):
             params["groups"].append(tuple(
                 KIND_INIT[kind](gen, cfg, dtype, (count,)) for kind in pat))
+        if cfg.arch_type == "audio":
+            params["encoder"] = (KIND_INIT["enc"](
+                gen, cfg, dtype, (cfg.encoder_layers,)),)
         return params
+
+    def _layer(self, fn, x):
+        """fn(x) -> (x, ...) under a per-layer checkpoint when `cfg.remat`
+        and grad is on (the backward recomputes the layer instead of
+        keeping its activations)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, x, use_reentrant=False)
+        return fn(x)
+
+    # --------------------------- encoder (audio) --------------------------
+    def _encode_frames(self, params, frames):
+        """frames [B, audio_frames, D] -> the encoder's output, through
+        every `enc` layer (non-causal attention over all frames)."""
+        cfg = self.cfg
+        x = frames.to(dtype_of(cfg))
+        gp = params["encoder"][0]
+        for i in range(cfg.encoder_layers):
+            p = _slice(gp, i)
+            x = self._layer(
+                lambda x, p=p: KIND_TRAIN["enc"](p, x, cfg, {})[0], x)
+        return x
 
     def _base_ctx(self):
         """Per-model ctx: the hybrid arch's attention layers are local
@@ -108,12 +152,21 @@ class Model:
             return {"window": self.cfg.local_window}
         return {}
 
+    def _ctx_from_batch(self, params, batch):
+        """The base ctx plus the batch's side input: audio encodes its
+        `frames` (a batch without them raises KeyError, as the
+        reference's does)."""
+        ctx = self._base_ctx()
+        if self.cfg.arch_type == "audio":
+            ctx["enc_out"] = self._encode_frames(params, batch["frames"])
+        return ctx
+
     # ------------------------------ train --------------------------------
     def _trunk(self, params, batch):
         """Embed + layer stacks -> (hidden [B,S,D], aux losses {"lb",
         "z"} summed over the layers)."""
         cfg = self.cfg
-        ctx = self._base_ctx()
+        ctx = self._ctx_from_batch(params, batch)
         x = embed_tokens(params["embed_block"], batch["tokens"])
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = {"lb": zero, "z": zero}
@@ -128,10 +181,7 @@ class Model:
                         lb, z = lb + a["lb"], z + a["z"]
                     return x, lb, z
 
-                if cfg.remat:
-                    x, lb, z = checkpoint(body, x, use_reentrant=False)
-                else:
-                    x, lb, z = body(x)
+                x, lb, z = self._layer(body, x)
                 aux = {"lb": aux["lb"] + lb, "z": aux["z"] + z}
         return x, aux
 
@@ -181,7 +231,7 @@ class Model:
         `tokens` is padded to a bucket length — padded positions get
         kv_pos = -1 so they can never be attended."""
         cfg = self.cfg
-        ctx = self._base_ctx()
+        ctx = self._ctx_from_batch(params, batch)
         if cache_len is not None:
             ctx["cache_len"] = cache_len
         if true_len is not None:
@@ -196,10 +246,8 @@ class Model:
                     x, c = KIND_PREFILL[kind](_slice(gp[j], i), x, cfg, ctx)
                     cs.append(c)
                 per_layer.append(cs)
-            caches.append(tuple(
-                {name: torch.stack([pl[j][name] for pl in per_layer])
-                 for name in per_layer[0][j]}
-                for j in range(len(pat))))
+            caches.append(tuple(_stack([pl[j] for pl in per_layer])
+                                for j in range(len(pat))))
         return lm_logits(params["embed_block"], x, cfg), caches
 
     # ------------------------------ decode -------------------------------
@@ -267,6 +315,15 @@ class Model:
                 return init_kv_cache(cfg, batch_size, L, dtype, dev, lead)
             if kind == "rec":
                 return init_rglru_cache(cfg, batch_size, dtype, dev, lead)
+            if kind == "dec":
+                cross = (*lead, batch_size, cfg.audio_frames,
+                         cfg.num_kv_heads, cfg.resolved_head_dim)
+                return {"self": init_kv_cache(cfg, batch_size, cache_len,
+                                              dtype, dev, lead),
+                        "cross": {"k": torch.zeros(cross, dtype=dtype,
+                                                   device=dev),
+                                  "v": torch.zeros(cross, dtype=dtype,
+                                                   device=dev)}}
             return init_ssm_cache(cfg, batch_size, dtype, dev, lead)
 
         return [tuple(one(kind, (count,)) for kind in pat)

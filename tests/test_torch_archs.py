@@ -10,7 +10,10 @@ whose local window is shorter than the prompt (the attention ring
 wraps); the bridge round trip of each param tree (fp32 router, A_log /
 D / dt_bias, lam, the remainder group); `init_decode_caches` shapes and
 dtypes; `prefill_padding_safe`, `supports_span_decode` and the paged
-pool refusal equal to the reference's; vlm and audio refused.
+pool refusal equal to the reference's; vlm refused. The audio family's
+bridge (its "encoder" group), decode caches (the nested `dec` tree) and
+serving properties are held here too; its prefill and decode in
+tests/test_torch_audio.py.
 
 Tolerances as in tests/test_torch_model.py: fp32 within atol 1e-4 plus
 rtol 2e-6; bf16 by that file's rule, four bf16 ulps at the compared
@@ -57,7 +60,7 @@ def _tol(dtype, want):
     return dict(atol=max(2.0 ** -3, 4 * ulp), rtol=0)
 
 FAMILIES = {"moe": "qwen3-moe-30b-a3b", "ssm": "mamba2-370m",
-            "hybrid": "recurrentgemma-9b"}
+            "hybrid": "recurrentgemma-9b", "audio": "whisper-base"}
 
 
 def _pair(arch, dtype, **over):
@@ -223,10 +226,9 @@ def test_bridge_round_trip_and_decode_caches(arch):
     tc = tm.init_decode_caches(3, 40)
     assert shapes(bridge.to_numpy(tc)) == shapes(jax.tree.map(np.asarray,
                                                               jc))
-    for tg, jg in zip(tc, jc):
-        for t, j in zip(tg, jg):
-            for name in t:
-                assert str(t[name].dtype)[6:] == str(j[name].dtype), name
+    dtypes = lambda t: [str(x.dtype).removeprefix("torch.") for x in
+                        jax.tree_util.tree_leaves(t)]
+    assert dtypes(tc) == dtypes(jax.tree.map(np.asarray, jc))
 
 
 @pytest.mark.parametrize("arch", list(FAMILIES.values()))
@@ -244,11 +246,13 @@ def test_serving_properties_match_reference(arch):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b"])
 def test_vlm_and_audio_are_refused(arch):
+    """vlm stays refused until port slice 11 brings its `cross` kind; the
+    audio family is ported (tests/test_torch_audio.py)."""
     from repro_torch.models.config import ModelConfig
     cfg = get_config(arch).reduced()
     fields = {f: getattr(cfg, f) for f in ModelConfig.__dataclass_fields__}
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 11"):
         torch_build_model(ModelConfig(**fields), device="cpu").init(
             torch.Generator())

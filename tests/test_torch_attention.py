@@ -3,8 +3,9 @@ version on the CPU) against the reference's `models/common.py::
 chunked_attention` (the function its model runs), the kernel's oracle
 `flash_attention/ref.py::attention_ref` and the Pallas kernel
 `flash_attention(interpret=True)`, on the same numpy inputs: causal,
-sliding window, GQA, non-causal, and ragged query lengths right-aligned
-to the keys.
+sliding window, GQA, non-causal (at Sq < Sk and Sq > Sk: cross
+attention to encoder frames), and ragged query lengths right-aligned to
+the keys.
 
 Tolerances: fp32 outputs within atol 1e-5 (the frameworks sum the scores
 and P.V in different orders; a mask error would move an output by O(1)).
@@ -56,6 +57,7 @@ CASES = [
     (1, 24, 24, 8, 8, 32, 6, True),      # sliding window, no GQA
     (2, 16, 48, 4, 1, 32, 10, True),     # window + ragged + G=4
     (1, 9, 33, 6, 3, 16, 0, False),      # non-causal
+    (2, 40, 32, 4, 2, 64, 0, False),     # non-causal Sq > Sk (cross)
 ]
 
 
@@ -163,3 +165,19 @@ def test_wrapper_refuses_other_devices():
     q, k, v = (_t(a).to("meta") for a in _qkv(1, 1, 4, 4, 2, 1, 16))
     with pytest.raises(ValueError, match="unsupported device"):
         ops.attention(q, k, v)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,ok", [
+    (40, 32, False, 0, True), (1, 1500, False, 0, True),
+    (2048, 1500, False, 0, True), (40, 32, True, 0, False),
+    (40, 32, False, 8, False), (3, 0, False, 0, False)])
+def test_kernel_shape_check(Sq, Sk, causal, window, ok):
+    """The launch's shape check takes Sq > Sk only where the mask reads no
+    positions (not causal, no window) and there are keys; a shape it takes
+    then fails only on the device (these tensors lie on the CPU)."""
+    q = torch.zeros((1, Sq, 4, 64))
+    k = torch.zeros((1, Sk, 2, 64))
+    with pytest.raises(ValueError,
+                       match="unsupported device" if ok else
+                       "unsupported shapes"):
+        ops._check_inputs(q, k, k, causal, window)

@@ -213,3 +213,24 @@ def test_backward_right_aligned_queries():
                                return_lse=True)
     _close(attention_bwd(q, k, v, o, lse, do, causal=True),
            [t.grad.numpy() for t in ins], 1e-5)
+
+
+@pytest.mark.parametrize("Sq,Sk,chunk", [(48, 32, 1024), (48, 32, 16),
+                                         (1, 40, 1024), (20, 50, 16)])
+def test_plain_backward_non_causal_matches_jax_vjp(Sq, Sk, chunk):
+    """Non-causal at Sq > Sk and Sq < Sk (an encoder's and a decoder's
+    cross attention; chunk 16 runs the reference's KV-chunked scan): the
+    plain backward from the plain forward's output and LSE against
+    `jax.vjp` of the reference's `chunked_attention(causal=False)`."""
+    rng = np.random.default_rng(Sq * 100 + Sk)
+    q, do = (rng.normal(size=(2, Sq, 4, 32)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(2, Sk, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    _, vjp = jax.vjp(lambda q, k, v: jax_attention(
+        q, k, v, causal=False, chunk=chunk), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = attention_with_lse(tq, tk, tv, causal=False, chunk=chunk)
+    _close(attention_backward(tq, tk, tv, o, lse, tdo, causal=False),
+           want, 1e-5)

@@ -41,10 +41,11 @@ def _mixed_tree():
 
 
 def _trees():
-    """(name, reference tree): a mixed tree and syncode-demo's bf16 and
-    reduced moe params."""
+    """(name, reference tree): a mixed tree and syncode-demo's bf16, and
+    reduced moe and whisper (with its "encoder" group) params."""
     out = [("mixed", _mixed_tree())]
-    for arch, red in (("syncode-demo", False), ("qwen3-moe-30b-a3b", True)):
+    for arch, red in (("syncode-demo", False), ("qwen3-moe-30b-a3b", True),
+                      ("whisper-base", True)):
         cfg = get_config(arch)
         cfg = cfg.reduced() if red else cfg
         out.append((arch, build_model(cfg).init(jax.random.PRNGKey(1))))

@@ -288,6 +288,70 @@ def test_flash_attention_new_arch_shapes(dev, Sq, Sk, H, K, Dh, window,
     _flash_check(dev, 1, Sq, Sk, H, K, Dh, window, True, dtype)
 
 
+# non-causal attention (an encoder's self-attention, cross attention to
+# its frames) at Sq < Sk, Sq = Sk and Sq > Sk; Sk 32 and 1500 are not
+# multiples of the key tiles (128 forward bf16, 32 fp32, 64 backward)
+NONCAUSAL = [(16, 32), (32, 32), (48, 32), (1, 1500), (1500, 1500),
+             (2048, 1500)]
+
+
+@pytest.mark.parametrize("Sq,Sk", NONCAUSAL)
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_non_causal_any_lengths(dev, Sq, Sk, Dh, H, K,
+                                                dtype):
+    _flash_check(dev, 2, Sq, Sk, H, K, Dh, 0, False, dtype)
+
+
+@pytest.mark.parametrize("Sq,Sk", NONCAUSAL)
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_non_causal_any_lengths(dev, Sq, Sk, Dh, H, K,
+                                                   dtype):
+    """The backward kernel without a mask against `ref.attention_bwd`,
+    within the tolerances of `test_attention_backward_kernel_matches_
+    plain`: every query tile sees every key tile, and the edges are keys
+    past Sk and rows past Sq."""
+    _bwd_check(dev, 2, Sq, Sk, H, K, Dh, 0, False, dtype,
+               Sq * 3 + Sk + Dh + K)
+
+
+@pytest.mark.parametrize("Sq,Sk,H,K,Dh", [(48, 32, 8, 2, 64),
+                                          (2048, 1500, 8, 8, 64),
+                                          (1, 1500, 8, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_non_causal_launches_are_repeatable(dev, Sq, Sk, H, K, Dh, dtype):
+    """Two launches of the forward (with its LSE) and of the backward on
+    the same non-causal inputs give the same bits."""
+    from repro_torch.kernels.flash_attention.ops import (
+        attention_backward, attention_with_lse)
+    q, k, v, do = _bwd_inputs(dev, 2, Sq, Sk, H, K, Dh, dtype, Sq + Dh)
+    first = attention_with_lse(q, k, v, causal=False)
+    second = attention_with_lse(q, k, v, causal=False)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    g1 = attention_backward(q, k, v, *first, do, causal=False)
+    g2 = attention_backward(q, k, v, *first, do, causal=False)
+    for name, a, b in zip(("dq", "dk", "dv"), g1, g2):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 16),
+                                           (True, 16)])
+def test_positional_mask_at_sq_above_sk_raises(dev, causal, window):
+    """Right-aligned, a causal or windowed query past the keys would see
+    none: the kernels refuse Sq > Sk there, forward and backward."""
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_backward)
+    q, k, v, do = _bwd_inputs(dev, 1, 48, 32, 8, 2, 64, torch.bfloat16, 1)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        attention(q, k, v, causal=causal, window=window)
+    lse = torch.zeros((1, 8, 48), device=dev)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        attention_backward(q, k, v, q, lse, do, causal=causal, window=window)
+
+
 def test_model_on_card_matches_cpu(dev):
     """syncode-demo in fp32: prefill (bucket-padded) and decode logits and
     the caches on the card against the same weights on the CPU."""
@@ -679,17 +743,22 @@ def test_attention_backward_kernel_matches_plain(dev, B, Sq, Sk, H, K, Dh,
     version's largest magnitude: fp32 sum orders differ, and the bf16
     route also rounds dS to bf16 before the dK and dQ products (a
     rounding of P or dq may also fall the other way)."""
+    _bwd_check(dev, B, Sq, Sk, H, K, Dh, window, True, dtype,
+               Sq * 7 + Dh + window)
+
+
+def _bwd_check(dev, B, Sq, Sk, H, K, Dh, window, causal, dtype, seed):
     from repro_torch.kernels.flash_attention.ops import (
         attention_backward, attention_with_lse)
     from repro_torch.kernels.flash_attention.ref import attention_bwd
-    q, k, v, do = _bwd_inputs(dev, B, Sq, Sk, H, K, Dh, dtype,
-                              Sq * 7 + Dh + window)
-    out, lse = attention_with_lse(q, k, v, causal=True, window=window)
+    q, k, v, do = _bwd_inputs(dev, B, Sq, Sk, H, K, Dh, dtype, seed)
+    out, lse = attention_with_lse(q, k, v, causal=causal, window=window)
     before = attention_backward.launches
-    got = attention_backward(q, k, v, out, lse, do, causal=True,
+    got = attention_backward(q, k, v, out, lse, do, causal=causal,
                              window=window)
     assert attention_backward.launches == before + 1
-    want = attention_bwd(q, k, v, out, lse, do, causal=True, window=window)
+    want = attention_bwd(q, k, v, out, lse, do, causal=causal,
+                         window=window)
     rel = 1e-4 if dtype == torch.float32 else 2.0 ** -5
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape, name

@@ -27,7 +27,7 @@ COPIED = [
     "obs/devtime.py", "obs/telemetry.py", "models/config.py",
     "configs/syncode_demo.py", "configs/smollm_360m.py",
     "configs/qwen3_moe_30b_a3b.py", "configs/mamba2_370m.py",
-    "configs/recurrentgemma_9b.py",
+    "configs/recurrentgemma_9b.py", "configs/whisper_base.py",
     "spec/__init__.py", "spec/jump.py", "spec/proposer.py",
     "spec/scheduler.py", "serving/kvpool/__init__.py",
     "serving/kvpool/allocator.py",
@@ -87,6 +87,20 @@ def test_no_jax_or_reference_import_in_source(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_top_level_names_are_defined_once(path):
+    """A second `def` or `class` of a module-level name silently replaces
+    the first, and every caller of the first then reaches the second."""
+    seen = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            assert node.name not in seen, (path, node.name, node.lineno)
+            seen.add(node.name)
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_host_module_matches_reference(rel):
     orig = (SRC / "repro" / rel).read_text()
@@ -101,7 +115,7 @@ def test_config_registry_is_the_reference_subset():
     served configs registered."""
     orig = (SRC / "repro" / "configs" / "__init__.py").read_text()
     keep = {"syncode-demo", "smollm-360m", "qwen3-moe-30b-a3b",
-            "mamba2-370m", "recurrentgemma-9b"}
+            "mamba2-370m", "recurrentgemma-9b", "whisper-base"}
     lines = [ln for ln in orig.splitlines(keepends=True)
              if not (re.match(r'\s+"[^"]+": "[^"]+",\n', ln)
                      and ln.split('"')[1] not in keep)]

@@ -1,10 +1,13 @@
 """The port's training path against the reference on the same inputs:
 `Model.loss` and its gradients against `jax.value_and_grad(model.loss)`,
-and one whole train step (loss, grads, AdamW) against the reference's
-`make_train_step`, for syncode-demo and the `reduced()` moe, ssm and
-hybrid configs, in fp32 copies (bf16 would add the known MoE routing
-near-tie flips, ROADMAP queue 3). Params are the reference's
-`Model.init(PRNGKey(0))`, bridged; batches are drawn with numpy.
+one whole train step (loss, grads, AdamW) against the reference's
+`make_train_step`, and five steps in a row on the same batches, for
+syncode-demo and the `reduced()` moe, ssm, hybrid and audio configs, in
+fp32 copies (bf16 would add the known MoE routing near-tie flips,
+ROADMAP queue 3). Params are the reference's `Model.init(PRNGKey(0))`,
+bridged; batches are drawn with numpy (whisper's with `frames`, the
+encoder's input; its S of 48 text positions over 32 frames runs cross
+attention at Sq > Sk).
 
 Tolerances (fp32; XLA and torch sum in other orders):
 - loss and its parts: 1e-5 relative;
@@ -14,7 +17,9 @@ Tolerances (fp32; XLA and torch sum in other orders):
   of each leaf's largest magnitude; each param's update within 2 lr
   everywhere (Adam's first update is g / (|g| + eps): where |g| is near
   eps = 1e-8 a sum-order difference can turn its sign), and within
-  1e-6 + 1e-5 lr where |mu| is at least 1e-3 of the leaf's largest.
+  1e-6 + 1e-5 lr where |mu| is at least 1e-3 of the leaf's largest;
+- five steps in a row: each step's loss within 1e-4 relative (the small
+  differences of one step feed the next; 1e-6 to 1e-5 seen).
 """
 from dataclasses import replace
 
@@ -42,7 +47,8 @@ torch.set_num_threads(1)
 # puts half of each late row's keys out of the window; the ssm's reduced
 # chunk is 32, so S = 64 runs two chunks and the inter-chunk recurrence
 ARCHS = [("syncode-demo", False, 64), ("qwen3-moe-30b-a3b", True, 64),
-         ("mamba2-370m", True, 64), ("recurrentgemma-9b", True, 128)]
+         ("mamba2-370m", True, 64), ("recurrentgemma-9b", True, 128),
+         ("whisper-base", True, 48)]
 _SIDES = {}
 
 
@@ -59,13 +65,16 @@ def sides(arch, reduced, **over):
     return _SIDES[key]
 
 
-def batch(vocab, S, B=2, seed=0):
-    toks = np.random.default_rng(seed).integers(
-        0, vocab, (B, S + 1)).astype(np.int32)
+def batch(cfg, S, B=2, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
     mask = np.ones((B, S), np.float32)
     mask[0, :3] = 0.0                       # a masked prefix counts too
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-            "loss_mask": mask}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "loss_mask": mask}
+    if cfg.arch_type == "audio":
+        out["frames"] = rng.normal(
+            size=(B, cfg.audio_frames, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def both(b):
@@ -95,7 +104,7 @@ def assert_grads(jg, tp, tg, rel=1e-4):
                          ids=[a for a, _, _ in ARCHS])
 def test_loss_and_grads_match_reference(arch, reduced, S):
     jm, jp, tm, tp = sides(arch, reduced)
-    jb, tb = both(batch(jm.cfg.vocab_size, S))
+    jb, tb = both(batch(jm.cfg, S))
     (jl, jmet), jg = jax.value_and_grad(jm.loss, has_aux=True)(jp, jb)
     tl, tmet, tg = port_loss_and_grads(tm, tp, tb)
     assert float(tl) == pytest.approx(float(jl), rel=1e-5)
@@ -113,7 +122,7 @@ def test_loss_branches_match_reference(seq_chunk):
     seq_chunk 40 (96 % 40 != 0) the unchunked one; both agree with the
     reference's same branch and with each other."""
     jm, jp, tm, tp = sides("syncode-demo", False)
-    jb, tb = both(batch(jm.cfg.vocab_size, 96, seed=3))
+    jb, tb = both(batch(jm.cfg, 96, seed=3))
     (jl, _), jg = jax.value_and_grad(
         lambda p, b: jm.loss(p, b, seq_chunk=seq_chunk), has_aux=True)(jp, jb)
     tl, _, tg = port_loss_and_grads(tm, tp, tb, seq_chunk=seq_chunk)
@@ -129,7 +138,7 @@ def test_remat_matches_no_remat(arch, reduced, S):
     """Checkpointed layers (recomputed in the backward) give the same
     loss and gradients as stored activations, bit for bit on the CPU."""
     _, _, tm, tp = sides(arch, reduced)
-    tb = both(batch(tm.cfg.vocab_size, S, seed=1))[1]
+    tb = both(batch(tm.cfg, S, seed=1))[1]
     on = torch_build_model(replace(tm.cfg, remat=True), device="cpu")
     off = torch_build_model(replace(tm.cfg, remat=False), device="cpu")
     l1, _, g1 = port_loss_and_grads(on, tp, tb)
@@ -145,7 +154,7 @@ def test_train_step_matches_reference(arch, reduced, S):
     AdamW with weight decay) against the reference's jitted step."""
     jm, jp, tm, tp = sides(arch, reduced)
     kw = dict(lr=1e-2, warmup_steps=2, total_steps=10, clip_norm=0.5)
-    jb, tb = both(batch(jm.cfg.vocab_size, S, seed=2))
+    jb, tb = both(batch(jm.cfg, S, seed=2))
     jp2, js, jmet = jax.jit(jax_make_step(jm, JaxAdamWConfig(**kw)))(
         jp, jax_init_opt_state(jp), jb)
     tp2, ts, tmet = make_train_step(tm, AdamWConfig(**kw))(
@@ -185,7 +194,7 @@ def test_bf16_loss_is_logged(arch, reduced, S):
     jp = jm.init(jax.random.PRNGKey(0))
     tm = torch_build_model(tcfg, device="cpu")
     tp = bridge.to_torch(jax.tree.map(np.asarray, jp))
-    jb, tb = both(batch(cfg.vocab_size, S))
+    jb, tb = both(batch(cfg, S))
     jl = float(jm.loss(jp, jb)[0])
     with torch.no_grad():
         tl = float(tm.loss(tp, tb)[0])
@@ -193,3 +202,28 @@ def test_bf16_loss_is_logged(arch, reduced, S):
           f"{jl == tl}")
     assert np.isfinite(jl) and np.isfinite(tl)
     assert tl == pytest.approx(jl, rel=0.05)
+
+
+@pytest.mark.parametrize("arch,reduced,S", [ARCHS[1], ARCHS[4]],
+                         ids=[ARCHS[1][0], ARCHS[4][0]])
+def test_five_steps_match_reference(arch, reduced, S):
+    """Five train steps in a row, each side stepping its own params and
+    optimizer state on the same batches with the same AdamWConfig (lr
+    1e-3, warmup 2, as the card's short runs): every step's loss within
+    1e-4 relative of the reference's. The trajectories are printed: a
+    rising loss here is the reference's as much as the port's."""
+    jm, jp, tm, tp = sides(arch, reduced)
+    kw = dict(lr=1e-3, warmup_steps=2, total_steps=5)
+    jstep = jax.jit(jax_make_step(jm, JaxAdamWConfig(**kw)))
+    tstep = make_train_step(tm, AdamWConfig(**kw))
+    js, ts = jax_init_opt_state(jp), init_opt_state(tp)
+    jl, tl = [], []
+    for i in range(5):
+        jb, tb = both(batch(jm.cfg, S, seed=10 + i))
+        jp, js, jmet = jstep(jp, js, jb)
+        tp, ts, tmet = tstep(tp, ts, tb)
+        jl.append(float(jmet["loss"]))
+        tl.append(float(tmet["loss"]))
+    print(f"{arch} losses: reference {jl}, port {tl}")
+    for i, (a, b) in enumerate(zip(jl, tl)):
+        assert b == pytest.approx(a, rel=1e-4), (i, jl, tl)

@@ -139,8 +139,8 @@ def test_grammar_pipeline_batches_equal_reference(grammar, seed, S, B):
 
 @pytest.mark.parametrize("arch_type", ["dense", "vlm", "audio"])
 def test_random_pipeline_batches_equal_reference(arch_type):
-    """The vlm and audio side inputs too (no port trainer reads them
-    yet)."""
+    """The vlm and audio side inputs too (the audio trainer reads
+    `frames`)."""
     cfg = replace(torch_get_config("syncode-demo"), arch_type=arch_type,
                   num_image_tokens=5, audio_frames=7)
     jcfg = replace(get_config("syncode-demo"), arch_type=arch_type,
@@ -197,6 +197,28 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
     assert step == 3
     assert all(torch.equal(a, b) for a, b in zip(leaves(params),
                                                   leaves(loaded)))
+
+
+def test_train_cli_trains_whisper_on_cpu(capsys):
+    """The reference's whisper entry point, `--arch whisper-base --grammar
+    random`: the random pipeline draws the frames the encoder reads."""
+    from repro_torch.launch.train import main
+    params, result = main(["--device", "cpu", "--arch", "whisper-base",
+                           "--reduced", "--grammar", "random", "--steps",
+                           "2", "--batch", "2", "--seq", "40"])
+    assert "arch=whisper-base-smoke params=" in capsys.readouterr().out
+    assert "encoder" in params and all(np.isfinite(result.losses))
+
+
+def test_train_cli_whisper_needs_frames():
+    """A grammar pipeline gives no frames: whisper's first step raises
+    KeyError('frames'), as the reference's does, instead of training on
+    made-up frames."""
+    from repro_torch.launch.train import main
+    with pytest.raises(KeyError, match="frames"):
+        main(["--device", "cpu", "--arch", "whisper-base", "--reduced",
+              "--grammar", "json", "--steps", "1", "--batch", "2",
+              "--seq", "32"])
 
 
 def test_train_refuses_a_missing_card():
