@@ -105,20 +105,47 @@ no result line):
    (keys past Sk contribute nothing); then the non-causal attention
    kernels, forward and backward, against their plain versions at the
    path's shapes (encoder [8,1500,8,64] over 1500; cross [8,16,8,64] and
-   [8,1,8,64] over 1500; training [16,1500,8,64], [16,448,8,64] over 1500
-   and the decoder's causal [16,448,8,64]) and at edges (Sq > Sk
+   [8,1,8,64] over 1500, bf16; training [16,1500,8,64] and
+   [16,448,8,64] over 1500 in fp32, the decoder's causal [16,448,8,64]
+   in bf16) and at edges (Sq > Sk
    [2,2048,8,64] over 1500, GQA 8 over 2, fp32), each timed beside the
    plain version, its bound and sdpa (forward; forward + backward); then
-   the model at full width: prefill B 8 with [8,1500,512] frames and a
-   16-token prompt, 32 greedy decode steps (counters zeroed just before,
-   read just after: flash launches must be 6 encoder + 12 at prefill + 6
-   cross a step), the logits of steps 0, 15 and 31 against a fresh
-   prefill of the extended prompt; then 10 training steps through
+   the model at full width: prefill B 8 with [8,1500,512] bf16 frames
+   and a 16-token prompt, 32 greedy decode steps (counters zeroed just
+   before, read just after: flash launches must be 6 encoder + 12 at
+   prefill + 6 cross a step), the logits of steps 0, 15 and 31 against a
+   fresh prefill of the extended prompt; then 10 training steps through
    `repro_torch.launch.train.main --arch whisper-base --grammar random`
    (B 16 x S 448, Whisper's text context; every loss finite; attention
    launches 18 a step, forward twice with remat, backward once), its
    checkpoint loaded back with the same logits, and the same model fitted
-   to one batch for 10 steps (the loss must fall).
+   to one batch for 10 steps (the loss must fall). fp32 frames run the
+   encoder in fp32 (the reference's promotion), so the training encoder
+   and cross attention take the fp32 kernel route;
+11. the vlm family, llama-3.2-vision-90b (d_model 8192, 64/8 heads of
+   128, d_ff 28672, V 128256, 1601 image tokens, a `cross` layer every
+   fifth; bf16, seeded random weights, every tanh gate opened to 0.5,
+   since at its init zero a cross layer adds nothing): the reduced config
+   in fp32 on the card against the CPU; the attention kernels against
+   their plain versions at the path's shapes (self and cross at prefill
+   [8,16,64,128] over 16 and 1601 keys, cross at a decode step over
+   1601, training [2,1024,64,128] causal and cross over 1601 on the fp32
+   route) and at edges (Sq > Sk over 1601, an odd Sk of 17 in both
+   dtypes); 10 of its 100 layers (2 periods) prefilled with [8, 1601,
+   8192] bf16 image embeddings and decoded 32 greedy steps (counters
+   zeroed just before, read just after: flash launches by shape, 8 self
+   + 2 cross at prefill + 2 cross a step), the logits of steps 0, 15, 31
+   against a fresh prefill, other image embeddings moving the logits,
+   one step's breakdown; one period (5 layers) with one chip's share of
+   an 8-way vocabulary split (16032 rows) trained 5 AdamW steps on the
+   random pipeline's first batch (B 2 x S 1024, fp32 image embeddings),
+   the loss falling, launches exact, peak memory beside the steady
+   state; then qwen1.5-0.5b, internlm2-1.8b (all 24 layers each),
+   deepseek-coder-33b (8 of 62) and kimi-k2-1t-a32b (its dense layer and
+   one MoE layer of 384 experts) at full width: each prefill's attention
+   kernel row, prefill B 8 x 16, 8 greedy steps, the logits of steps 0
+   and 7 against a fresh prefill (kimi: rows whose token each run routed
+   to the same experts).
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -1702,7 +1729,7 @@ def attention_case_rows(torch, model, label, B, Sq, Sk, H, K, Dh, dt, *,
     largest magnitude and timed by CUDA events and torch.profiler beside
     the plain version, its bound and sdpa (forward; forward + backward).
     -> rows, launches 0 (the caller fills them from the path's runs) and
-    "key" (q shape, k shape, causal) for `_ShapeTally`'s counts."""
+    "key" (q shape, k shape, causal, dtype) for `_ShapeTally`'s counts."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         attention, attention_backward, attention_with_lse)
@@ -1733,7 +1760,7 @@ def attention_case_rows(torch, model, label, B, Sq, Sk, H, K, Dh, dt, *,
              f"{'causal' if causal else 'non-causal'}, window "
              f"{window or 'none'}")
     base = {"route": "cuda", "model": model, "case": label, "shape": shape,
-            "key": ((B, Sq, H, Dh), (B, Sk, K, Dh), causal),
+            "key": ((B, Sq, H, Dh), (B, Sk, K, Dh), causal, dt),
             "path_shape": path_shape, "launches": 0}
     rows = []
 
@@ -1872,11 +1899,11 @@ def _train_run(torch, counters, arch, depth, B, S, steps, opt):
     if depth:
         cfg = replace(cfg, num_layers=depth)
     model = build_model(cfg, device="cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    init = [model.init(torch.Generator(device="cuda").manual_seed(0))]
     g, _ = load_grammar("json")
     data = _TimedIter(iter(GrammarDataPipeline(
         g, ByteTokenizer(cfg.vocab_size), S, B, seed=0)))
-    n_params = sum(p.numel() for p in leaves(params))
+    n_params = sum(p.numel() for p in leaves(init[0]))
     log(f"phase 9, {arch}: {cfg.num_layers} of "
         f"{get_config(arch).num_layers} layers, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab_size}, remat {cfg.remat}; {n_params / 1e9:.3f} "
@@ -1886,7 +1913,7 @@ def _train_run(torch, counters, arch, depth, B, S, steps, opt):
     torch.cuda.reset_peak_memory_stats()
     zero_counters(torch, counters)
     t0 = time.perf_counter()
-    params, result = train(model, params, data, steps, opt_cfg=opt,
+    params, result = train(model, init.pop(), data, steps, opt_cfg=opt,
                            log_every=1, verbose=True, device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -2028,18 +2055,20 @@ AUDIO_CHECK_STEPS = (0, 15, 31)
 # Whisper's text context (arXiv:2212.04356); steps
 AUDIO_TRAIN_B, AUDIO_TRAIN_S, AUDIO_TRAIN_STEPS = 16, 448, 10
 # non-causal attention rows: (label, B, Sq, Sk, H, K, Dh, dtype, causal,
-# backward). The path's own shapes (prefill: the encoder, cross over the
-# prompt, cross at each decode step; training: the encoder, the decoder's
-# causal self-attention, cross) and edges: Sq > Sk, GQA, fp32
+# backward). The path's own shapes and routes (prefill with frames in the
+# model's dtype: the encoder, cross over the prompt, cross at each decode
+# step, bf16; training on the random pipeline's fp32 frames: the encoder
+# in fp32, the decoder's causal self-attention in bf16, cross over the
+# fp32 encoder output on the fp32 route) and edges: Sq > Sk, GQA, fp32
 AUDIO_CASES = (
     ("encoder", 8, 1500, 1500, 8, 8, 64, "bfloat16", False, False),
     ("cross, prefill", 8, AUDIO_PROMPT, 1500, 8, 8, 64, "bfloat16", False,
      False),
     ("cross, decode step", 8, 1, 1500, 8, 8, 64, "bfloat16", False, False),
-    ("encoder, training", AUDIO_TRAIN_B, 1500, 1500, 8, 8, 64, "bfloat16",
-     False, True),
-    ("cross, training", AUDIO_TRAIN_B, AUDIO_TRAIN_S, 1500, 8, 8, 64,
-     "bfloat16", False, True),
+    ("encoder, training (fp32 frames)", AUDIO_TRAIN_B, 1500, 1500, 8, 8, 64,
+     "float32", False, True),
+    ("cross, training (fp32 K/V)", AUDIO_TRAIN_B, AUDIO_TRAIN_S, 1500, 8, 8,
+     64, "float32", False, True),
     ("decoder self, training", AUDIO_TRAIN_B, AUDIO_TRAIN_S, AUDIO_TRAIN_S,
      8, 8, 64, "bfloat16", True, True),
     ("edge Sq > Sk", 2, 2048, 1500, 8, 8, 64, "bfloat16", False, True),
@@ -2050,9 +2079,15 @@ AUDIO_CASES = (
 )
 
 
+def _tally_key(q, k, causal):
+    """(q shape, k shape, causal, dtype name): the route a call takes."""
+    return (tuple(q.shape), tuple(k.shape), causal,
+            str(q.dtype).removeprefix("torch."))
+
+
 class _ShapeTally:
     """While active, counts the attention calls that the model's layers
-    make, by (q shape, k shape, causal), forward and backward: it wraps
+    make, by (q shape, k shape, causal, dtype), forward and backward: it wraps
     `models.layers.attention` (the forward op by the name the layers call)
     and the autograd Function's forward (which tags its ctx) and backward
     (which counts the tag). Each call still launches once through the
@@ -2071,11 +2106,11 @@ class _ShapeTally:
         attn, fwd, bwd = self.orig
 
         def counted(q, k, v, *, causal=True, **kw):
-            self.fwd[(tuple(q.shape), tuple(k.shape), causal)] += 1
+            self.fwd[_tally_key(q, k, causal)] += 1
             return attn(q, k, v, causal=causal, **kw)
 
         def tagged_forward(ctx, q, k, v, causal, *rest):
-            ctx.tally_key = (tuple(q.shape), tuple(k.shape), causal)
+            ctx.tally_key = _tally_key(q, k, causal)
             return fwd(ctx, q, k, v, causal, *rest)
 
         def counted_backward(ctx, do):
@@ -2155,6 +2190,77 @@ def audio_edge_exactness(torch, np):
         "1500, 2048)")
 
 
+def greedy_run(torch, model, params, side, prompt, steps, keep,
+               routes=None):
+    """Prefill `prompt` [B, P] with the side inputs `side` (a dict), then
+    `steps` greedy decode steps, each synced and timed on the host. ->
+    (prefill ms, [step ms], the tokens fed, {step: fp32 logits} for the
+    steps in `keep`, {step: MoE routes} when `routes` records them, the
+    caches, the last token)."""
+    dev = prompt.device
+    B, P = prompt.shape
+    fed, kept, kept_routes, step_ms = [], {}, {}, []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": prompt, **side},
+                                       cache_len=P + steps)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if routes:
+            routes.take()
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        for s in range(steps):
+            t0 = time.perf_counter()
+            pos = torch.full((B,), P + s, device=dev, dtype=torch.int32)
+            logits, _ = model.decode_step(params, caches, tok, pos)
+            fed.append(tok)
+            nxt = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if s in keep:
+                kept[s] = logits.float()
+            if routes:
+                kept_routes[s] = routes.take()
+            tok = nxt
+    return prefill_ms, step_ms, fed, kept, kept_routes, caches, tok
+
+
+def against_fresh_prefill(torch, model, params, side, prompt, fed, kept,
+                          label, kept_routes=None, routes=None, ulps=4):
+    """The logits of each kept decode step against a fresh prefill of the
+    prompt extended by the tokens fed so far: within `ulps` bf16 ulps at
+    the largest logit, at least 2**-3 (four: the rule of phase 10 and the
+    CPU tests). With `routes` (a bf16 MoE) a row is held only where each MoE
+    layer routed the step's token to the same experts in both runs (a
+    routing near-tie may fall the other way, as the CPU tests allow), and
+    at least half the rows must be. -> (max abs errs, rows held)."""
+    errs, held = [], []
+    with torch.no_grad():
+        for s, got in kept.items():
+            toks = torch.cat([prompt] + [t[:, None] for t in fed[:s + 1]],
+                             dim=1)
+            want, _ = model.prefill(params, {"tokens": toks, **side})
+            want = want[:, -1].float()
+            rows = torch.ones(got.shape[0], dtype=torch.bool,
+                              device=got.device)
+            if routes:
+                for a, b in zip(kept_routes[s], routes.take()):
+                    rows &= (a == b).all(-1)
+            n = int(rows.sum())
+            top = want[rows].abs().max().item() if n else 0.0
+            tol = max(2.0 ** -3, ulps * 2.0 ** (math.floor(math.log2(top))
+                                                - 7)) if top else 2.0 ** -3
+            err = (got[rows] - want[rows]).abs().max().item() if n else 0.0
+            errs.append(err)
+            held.append(n)
+            if not (torch.isfinite(got).all() and err <= tol and
+                    2 * n >= got.shape[0]):
+                raise AssertionError(f"{label} decode step {s}: logits "
+                                     f"differ from a fresh prefill by {err}"
+                                     f" > {tol} ({n} rows held)")
+    return errs, held
+
+
 def audio_decode(torch, counters, rows):
     """whisper-base at full width (6 + 6 layers, d_model 512, V 51865,
     bf16, seeded random weights): prefill AUDIO_B x AUDIO_PROMPT tokens
@@ -2162,6 +2268,7 @@ def audio_decode(torch, counters, rows):
     counters zeroed just before and read just after; the logits of
     AUDIO_CHECK_STEPS against a fresh prefill of the extended prompt."""
     from repro_torch.configs import get_config
+    from repro_torch.models.common import dtype_of
     from repro_torch.models.model import build_model
     from repro_torch.training.tree import leaves
     dev = torch.device("cuda")
@@ -2171,7 +2278,7 @@ def audio_decode(torch, counters, rows):
     n_params = sum(p.numel() for p in leaves(params))
     g = torch.Generator(device=dev).manual_seed(1)
     frames = torch.randn((AUDIO_B, cfg.audio_frames, cfg.d_model),
-                         device=dev, generator=g)
+                         device=dev, generator=g).to(dtype_of(cfg))
     prompt = torch.randint(3, cfg.vocab_size, (AUDIO_B, AUDIO_PROMPT),
                            device=dev, generator=g, dtype=torch.int32)
     log(f"phase 10, whisper-base: {cfg.encoder_layers} encoder + "
@@ -2181,31 +2288,14 @@ def audio_decode(torch, counters, rows):
         f"{n_params / 1e6:.1f} M params; B {AUDIO_B}, frames "
         f"{cfg.audio_frames}, prompt {AUDIO_PROMPT}, {AUDIO_STEPS} greedy "
         f"steps")
-    total = AUDIO_PROMPT + AUDIO_STEPS
-    fed, step_logits, step_ms = [], {}, []
+    side = {"frames": frames}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counters(torch, counters)
-    with torch.no_grad(), _ShapeTally() as tally:
-        t0 = time.perf_counter()
-        logits, caches = model.prefill(params, {"tokens": prompt,
-                                                "frames": frames},
-                                       cache_len=total)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        tok = logits[:, -1].argmax(-1).to(torch.int32)
-        for s in range(AUDIO_STEPS):
-            t0 = time.perf_counter()
-            pos = torch.full((AUDIO_B,), AUDIO_PROMPT + s, device=dev,
-                             dtype=torch.int32)
-            logits, _ = model.decode_step(params, caches, tok, pos)
-            fed.append(tok)
-            nxt = logits.argmax(-1).to(torch.int32)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            if s in AUDIO_CHECK_STEPS:
-                step_logits[s] = logits.float()
-            tok = nxt
+    with _ShapeTally() as tally:
+        prefill_ms, step_ms, fed, kept, _, caches, tok = greedy_run(
+            torch, model, params, side, prompt, AUDIO_STEPS,
+            AUDIO_CHECK_STEPS)
     launches = read_counters(torch, counters)
     peak = torch.cuda.max_memory_allocated()
     want_fwd = cfg.encoder_layers + 2 * cfg.num_layers + \
@@ -2218,22 +2308,8 @@ def audio_decode(torch, counters, rows):
     for r in rows:
         if r["name"] == "flash_attention":
             r["launches"] += tally.fwd[r["key"]]
-    errs = []
-    with torch.no_grad():
-        for s, got in step_logits.items():
-            toks = torch.cat([prompt] + [t[:, None] for t in fed[:s + 1]],
-                             dim=1)
-            want, _ = model.prefill(params, {"tokens": toks,
-                                             "frames": frames})
-            want = want[:, -1].float()
-            top = want.abs().max().item()
-            tol = max(2.0 ** -3, 4 * 2.0 ** (math.floor(math.log2(top)) - 7))
-            err = (got - want).abs().max().item()
-            errs.append(err)
-            if not (torch.isfinite(got).all() and err <= tol):
-                raise AssertionError(f"whisper-base decode step {s}: logits "
-                                     f"differ from a fresh prefill by {err} "
-                                     f"> {tol}")
+    errs, _ = against_fresh_prefill(torch, model, params, side, prompt, fed,
+                                    kept, "whisper-base")
     log(f"phase 10, whisper-base: prefill (encoder included) {prefill_ms:.2f}"
         f" ms; decode {statistics.median(step_ms):.3f} ms/step median, "
         f"{sum(step_ms) / len(step_ms):.3f} mean (wall, synced each step); "
@@ -2244,7 +2320,8 @@ def audio_decode(torch, counters, rows):
         f"{peak / 2 ** 30:.2f} GiB; logits at steps {AUDIO_CHECK_STEPS} vs "
         f"a fresh prefill: max abs err {', '.join(f'{e:.3e}' for e in errs)}"
         f" (tolerance: 4 bf16 ulps at the largest logit, at least 2**-3)")
-    pos = torch.full((AUDIO_B,), total - 1, device=dev, dtype=torch.int32)
+    pos = torch.full((AUDIO_B,), AUDIO_PROMPT + AUDIO_STEPS - 1, device=dev,
+                     dtype=torch.int32)
 
     def step():
         with torch.no_grad():
@@ -2419,6 +2496,432 @@ def phase_audio(torch, np, counters):
     return rows
 
 
+# ------------------------------- phase 11: vlm family and the text configs
+
+VLM = "llama-3.2-vision-90b"
+# the model level: 2 periods of (4 attn + cross) of its 100 layers (the
+# rest would lie on further chips as pipeline stages; PERF.md §4), B x
+# prompt with [B, 1601, 8192] bf16 image embeddings, greedy steps, and the
+# steps held against a fresh prefill
+VLM_DEPTH, VLM_B, VLM_PROMPT, VLM_STEPS = 10, 8, 16, 32
+VLM_CHECK_STEPS = (0, 15, 31)
+# every gate starts at zero (tanh(0) = 0: a cross layer adds nothing and
+# its attention gets no gradient); every vlm run here opens them
+VLM_GATE = 0.5
+# training: one period, with one chip's share of an 8-way split of the
+# 128256-row vocabulary (the embedding and the head): 4.542 B params,
+# 54.5 GB at 12 bytes a param (bf16 weights and grads, fp32 moments); the
+# whole vocabulary (6.380 B, 76.6 GB) does not fit. B x S text tokens over
+# the random pipeline's fp32 image embeddings, one batch fitted
+VLM_TRAIN_DEPTH, VLM_TRAIN_VOCAB = 5, 128256 // 8
+VLM_TRAIN_B, VLM_TRAIN_S, VLM_TRAIN_STEPS = 2, 1024, 5
+# attention rows: (label, B, Sq, Sk, H, K, Dh, dtype, causal, backward):
+# the path's shapes (prefill: self over the prompt, cross over the 1601
+# image tokens; decode: cross; training: causal self, cross on the fp32
+# route that fp32 image embeddings take) and edges (Sq > Sk; a small odd
+# Sk in both dtypes)
+VLM_CASES = (
+    ("self, prefill", VLM_B, VLM_PROMPT, VLM_PROMPT, 64, 8, 128, "bfloat16",
+     True, False),
+    ("cross, prefill", VLM_B, VLM_PROMPT, 1601, 64, 8, 128, "bfloat16",
+     False, False),
+    ("cross, decode step", VLM_B, 1, 1601, 64, 8, 128, "bfloat16", False,
+     False),
+    ("self, training", VLM_TRAIN_B, VLM_TRAIN_S, VLM_TRAIN_S, 64, 8, 128,
+     "bfloat16", True, True),
+    ("cross, training (fp32 K/V)", VLM_TRAIN_B, VLM_TRAIN_S, 1601, 64, 8,
+     128, "float32", False, True),
+    ("edge Sq > Sk", 2, 2048, 1601, 64, 8, 128, "bfloat16", False, True),
+    ("edge odd Sk", 2, 24, 17, 64, 8, 128, "bfloat16", False, True),
+    ("edge fp32 odd Sk", 2, 24, 17, 64, 8, 128, "float32", False, True),
+)
+# the four remaining text configs at full width: (arch, layers kept or
+# None for all); each cut in PERF.md §4. Prefill B x prompt, greedy steps,
+# the steps held against a fresh prefill
+TEXT_ARCHS = (("qwen1.5-0.5b", None), ("internlm2-1.8b", None),
+              ("deepseek-coder-33b", 8), ("kimi-k2-1t-a32b", 2))
+TEXT_B, TEXT_PROMPT, TEXT_STEPS = 8, 16, 8
+TEXT_CHECK_STEPS = (0, 7)
+
+
+def open_gates(params, value):
+    """Every `gate` leaf of a vlm param tree set to `value`, in place."""
+    for group in params["groups"]:
+        for layer in group:
+            if "gate" in layer:
+                layer["gate"].fill_(value)
+
+
+class _Routes:
+    """While active, records the experts each MoE layer routes its last
+    position to ([B, k] ids, sorted; -1 for a pair dropped past the
+    expert's capacity), by wrapping `models.layers.moe_ffn` (the router's
+    own arithmetic: fp32 softmax, a stable descending sort cut at k; a
+    pair's place in its expert counts the row's earlier pairs)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        from repro_torch.models.moe import capacity
+        self.layers, self.orig, self.calls = layers, layers.moe_ffn, []
+
+        def spy(p, x, cfg):
+            B, S, _ = x.shape
+            probs = (x.float() @ p["router"]).softmax(-1)
+            top = probs.sort(dim=-1, descending=True, stable=True).indices[
+                ..., :cfg.experts_per_token]                  # [B, S, k]
+            last, earlier = top[:, -1], top[:, :-1].reshape(B, 1, -1)
+            ahead = (earlier == last[..., None]).sum(-1)      # [B, k]
+            self.calls.append(last.masked_fill(
+                ahead >= capacity(cfg, S), -1).sort(-1).values)
+            return self.orig(p, x, cfg)
+
+        layers.moe_ffn = spy
+        return self
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+    def __exit__(self, *exc):
+        self.layers.moe_ffn = self.orig
+
+
+def vlm_model_check(torch, np):
+    """Reduced llama-3.2-vision in fp32 (one (attn, cross) period, 16
+    image tokens, gates open, a 24-token prompt: cross attention at Sq >
+    Sk): prefill and decode logits on the card (kernels) against the same
+    weights on the CPU (plain versions), within 1e-3 as phase 3."""
+    from dataclasses import replace
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = replace(get_config(VLM).reduced(), dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator(device="cpu").manual_seed(0))
+    open_gates(params, VLM_GATE)
+    gpu = build_model(cfg, device="cuda")
+    gparams = bridge.to_device(params, "cuda")
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, 25)))
+    emb = torch.from_numpy(rng.normal(
+        size=(2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        lc, cc = cpu.prefill(params, {"tokens": toks[:, :24],
+                                      "image_embeds": emb}, cache_len=32)
+        lg, cg = gpu.prefill(gparams, {"tokens": toks[:, :24].cuda(),
+                                       "image_embeds": emb.cuda()},
+                             cache_len=32)
+        pos = torch.full((2,), 24, dtype=torch.int32)
+        dc, _ = cpu.decode_step(params, cc, toks[:, 24], pos)
+        dg, _ = gpu.decode_step(gparams, cg, toks[:, 24].cuda(), pos.cuda())
+    err_p = (lc - lg.cpu()).abs().max().item()
+    err_d = (dc - dg.cpu()).abs().max().item()
+    log(f"phase 11 model check (reduced llama-3.2-vision fp32, gates "
+        f"{VLM_GATE}, 24 tokens over 16 image tokens, card vs CPU plain): "
+        f"prefill max abs err {err_p:.3e}, decode {err_d:.3e} (tolerance "
+        f"1e-3)")
+    if not (err_p <= 1e-3 and err_d <= 1e-3):
+        raise AssertionError("reduced llama-3.2-vision on the card "
+                             "disagrees with the CPU")
+
+
+def _attn_counts(model):
+    """-> (self-attention layers, cross layers) of the model's stack."""
+    from repro_torch.models.model import layer_groups
+    kinds = [k for pat, count in layer_groups(model.cfg)
+             for k in pat * count]
+    return (sum(k in ("attn", "moe") for k in kinds),
+            sum(k == "cross" for k in kinds))
+
+
+def vlm_decode(torch, counters, rows, depth=None, ulps=4):
+    """llama-3.2-vision at full width, the first `depth` layers (bf16,
+    seeded random weights, gates open): prefill VLM_B x VLM_PROMPT tokens
+    with [B, 1601, 8192] image embeddings, then VLM_STEPS greedy decode
+    steps, the counters zeroed just before and read just after (flash
+    launches by shape: a self call per attention layer and a cross call
+    per cross layer at prefill, a cross call per cross layer a step); the
+    logits of VLM_CHECK_STEPS against a fresh prefill; other image
+    embeddings must move the logits; one step's breakdown."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.tree import leaves
+    dev = torch.device("cuda")
+    depth = depth or VLM_DEPTH
+    cfg = replace(get_config(VLM), num_layers=depth)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    open_gates(params, VLM_GATE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    n_self, n_cross = _attn_counts(model)
+    g = torch.Generator(device=dev).manual_seed(1)
+    emb = torch.randn((VLM_B, cfg.num_image_tokens, cfg.d_model),
+                      device=dev, generator=g).to(torch.bfloat16)
+    prompt = torch.randint(3, cfg.vocab_size, (VLM_B, VLM_PROMPT),
+                           device=dev, generator=g, dtype=torch.int32)
+    log(f"phase 11, {VLM}: {depth} of {get_config(VLM).num_layers} layers "
+        f"({n_self} attn + {n_cross} cross), d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, V {cfg.vocab_size}, "
+        f"{cfg.dtype}, gates {VLM_GATE}; {n_params / 1e9:.3f} B params "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s); B {VLM_B}, "
+        f"{cfg.num_image_tokens} image tokens, prompt {VLM_PROMPT}, "
+        f"{VLM_STEPS} greedy steps")
+    side = {"image_embeds": emb}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(torch, counters)
+    with _ShapeTally() as tally:
+        prefill_ms, step_ms, fed, kept, _, caches, tok = greedy_run(
+            torch, model, params, side, prompt, VLM_STEPS, VLM_CHECK_STEPS)
+    launches = read_counters(torch, counters)
+    peak = torch.cuda.max_memory_allocated()
+    want_fwd = n_self + n_cross + VLM_STEPS * n_cross
+    if launches["attention"] != want_fwd or \
+            sum(tally.fwd.values()) != want_fwd:
+        raise AssertionError(f"{VLM} prefill + {VLM_STEPS} steps: attention "
+                             f"launched {launches['attention']} times "
+                             f"({dict(tally.fwd)}), want {want_fwd}")
+    for r in rows:
+        if r["name"] == "flash_attention":
+            r["launches"] += tally.fwd[r["key"]]
+    errs, _ = against_fresh_prefill(torch, model, params, side, prompt, fed,
+                                    kept, VLM, ulps=ulps)
+    with torch.no_grad():
+        a, _ = model.prefill(params, {"tokens": prompt, **side})
+        other = torch.randn(emb.shape, device=dev, generator=g).to(emb.dtype)
+        b, _ = model.prefill(params, {"tokens": prompt,
+                                      "image_embeds": other})
+    moved = (a.float() - b.float()).abs().max().item()
+    if not moved > 1e-2:
+        raise AssertionError(f"{VLM}: other image embeddings moved the "
+                             f"logits by {moved} only")
+    log(f"phase 11, {VLM}: prefill {prefill_ms:.2f} ms; decode "
+        f"{statistics.median(step_ms):.3f} ms/step median, "
+        f"{sum(step_ms) / len(step_ms):.3f} mean (wall, synced each step); "
+        f"flash_attention launches {launches['attention']} = {n_self} self"
+        f" + {n_cross} cross at prefill + {VLM_STEPS} x {n_cross} cross; by "
+        f"shape {dict(tally.fwd)}; peak memory {peak / 2 ** 30:.2f} GiB; "
+        f"logits at steps {VLM_CHECK_STEPS} vs a fresh prefill: max abs err "
+        f"{', '.join(f'{e:.3e}' for e in errs)} (tolerance: {ulps} bf16 ulps "
+        f"at the largest logit, at least 2**-3); other image embeddings move "
+        f"the prompt's logits by up to {moved:.3e}")
+    pos = torch.full((VLM_B,), VLM_PROMPT + VLM_STEPS - 1, device=dev,
+                     dtype=torch.int32)
+
+    def step():
+        with torch.no_grad():
+            model.decode_step(params, caches, tok, pos)
+
+    _step_breakdown(torch, f"{VLM} decode step breakdown (B {VLM_B}, {depth} "
+                    f"layers, cross over {cfg.num_image_tokens} image "
+                    f"tokens; the weights alone are "
+                    f"{n_params * 2 / 1e9:.1f} GB a step, "
+                    f"{n_params * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+                    f"3.35 TB/s)", step, share_of=("flash_fwd",))
+    del model, params, caches, emb, other, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vlm_train(torch, counters, rows):
+    """llama-3.2-vision trained on one chip's share: VLM_TRAIN_DEPTH layers
+    (one period) and VLM_TRAIN_VOCAB vocabulary rows (a config
+    `dataclasses.replace`d here), gates open, remat on, AdamW; the
+    `RandomTokenPipeline`'s first batch (fp32 image embeddings: every
+    cross layer takes the fp32 route, forward and backward) fitted
+    VLM_TRAIN_STEPS times: every loss finite, the last below the first;
+    attention launches exact (each layer's forward twice a step with
+    remat, its backward once), by shape; peak memory beside the 12 bytes
+    a param of the steady state, split into the forward + backward's and
+    the AdamW update's, with what the update starts from."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import RandomTokenPipeline
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import train
+    from repro_torch.training.tree import leaves
+    cfg = replace(get_config(VLM), num_layers=VLM_TRAIN_DEPTH,
+                  vocab_size=VLM_TRAIN_VOCAB)
+    model = build_model(cfg, device="cuda")
+    init = [model.init(torch.Generator(device="cuda").manual_seed(0))]
+    open_gates(init[0], VLM_GATE)
+    n_params = sum(p.numel() for p in leaves(init[0]))
+    n_self, n_cross = _attn_counts(model)
+    first = next(RandomTokenPipeline(cfg, VLM_TRAIN_S, VLM_TRAIN_B, seed=0))
+    data = ({k: v.copy() for k, v in first.items()}
+            for _ in range(VLM_TRAIN_STEPS))
+    opt = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=VLM_TRAIN_STEPS)
+    log(f"phase 11, {VLM} training: {VLM_TRAIN_DEPTH} of "
+        f"{get_config(VLM).num_layers} layers ({n_self} attn + {n_cross} "
+        f"cross), vocab {VLM_TRAIN_VOCAB} of 128256 (one chip's share of an"
+        f" 8-way split), remat {cfg.remat}; {n_params / 1e9:.3f} B params, "
+        f"steady state {n_params * 12 / 1e9:.1f} GB at 12 bytes a param; "
+        f"B {VLM_TRAIN_B} x S {VLM_TRAIN_S}, image embeds "
+        f"{first['image_embeds'].dtype} {list(first['image_embeds'].shape)};"
+        f" {VLM_TRAIN_STEPS} AdamW steps on one batch (lr {opt.lr})")
+    import repro_torch.training.train_loop as train_loop
+    apply_updates = train_loop.apply_updates
+    split = {"forward + backward": 0, "update": 0, "at the update": 0}
+
+    def measured(*args):
+        """The step's AdamW update, with the peak before it and its own
+        peak read apart (each step's forward + backward peak is read at
+        the update's entry, the peak counted from the last update's end)."""
+        torch.cuda.synchronize()
+        split["forward + backward"] = max(split["forward + backward"],
+                                          torch.cuda.max_memory_allocated())
+        split["at the update"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = apply_updates(*args)
+        torch.cuda.synchronize()
+        split["update"] = max(split["update"],
+                              torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(torch, counters)
+    train_loop.apply_updates = measured
+    try:
+        with _ShapeTally() as tally:
+            t0 = time.perf_counter()
+            params, result = train(model, init.pop(), data, VLM_TRAIN_STEPS,
+                                   opt_cfg=opt, log_every=1, verbose=True,
+                                   device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        train_loop.apply_updates = apply_updates
+    launches = read_counters(torch, counters)
+    peak = max(split["forward + backward"], split["update"])
+    losses = result.losses
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{VLM} training: losses {losses} (want all "
+                             f"finite, the last below the first)")
+    per_step = n_self + n_cross
+    want = (per_step * VLM_TRAIN_STEPS * 2, per_step * VLM_TRAIN_STEPS)
+    got = (launches["attention"], launches["attention_backward"])
+    if got != want or (sum(tally.fwd.values()),
+                       sum(tally.bwd.values())) != want:
+        raise AssertionError(f"{VLM} training: attention launched {got} "
+                             f"(forward, backward), want {want}; by shape "
+                             f"{dict(tally.fwd)} / {dict(tally.bwd)}")
+    for r in rows:
+        r["launches"] += (tally.bwd if r["name"].endswith("_bwd") else
+                          tally.fwd)[r["key"]]
+    sps = result.steps_per_sec
+    log(f"phase 11, {VLM} training: {1e3 / sps:.1f} ms/step, "
+        f"{sps * VLM_TRAIN_B * VLM_TRAIN_S:.0f} tokens/s (train(); "
+        f"{secs:.1f} s in all); losses {', '.join(f'{x:.4f}' for x in losses)}"
+        f"; attention launches {got[0]} forward / {got[1]} backward = "
+        f"{per_step} x {VLM_TRAIN_STEPS} x (2, 1); by shape "
+        f"{dict(tally.fwd)} / {dict(tally.bwd)}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB = {peak / 1e9:.1f} GB against the "
+        f"{n_params * 12 / 1e9:.1f} GB steady state (GB: " + ", ".join(
+            f"{k} {v / 1e9:.1f}" for k, v in split.items()) + ")")
+    del model, params, result, data, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def text_config_check(torch, counters, arch, depth, ulps=4):
+    """One text config at full width (its first `depth` layers, or all),
+    bf16, seeded random weights: prefill TEXT_B x TEXT_PROMPT tokens, then
+    TEXT_STEPS greedy decode steps (counters zeroed just before, read just
+    after: one flash launch per attention layer at prefill), the logits
+    of TEXT_CHECK_STEPS against a fresh prefill (rows routed alike, for
+    the MoE). -> the prefill's flash launches by shape."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.tree import leaves
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    cfg = replace(full, num_layers=depth) if depth else full
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(params))
+    n_self, _ = _attn_counts(model)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(3, cfg.vocab_size, (TEXT_B, TEXT_PROMPT),
+                           device=dev, generator=g, dtype=torch.int32)
+    moe = cfg.arch_type == "moe"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(torch, counters)
+    with _Routes() as routes:
+        with _ShapeTally() as tally:
+            prefill_ms, step_ms, fed, kept, kept_routes, _, _ = greedy_run(
+                torch, model, params, {}, prompt, TEXT_STEPS,
+                TEXT_CHECK_STEPS, routes=routes if moe else None)
+        launches = read_counters(torch, counters)
+        peak = torch.cuda.max_memory_allocated()
+        errs, held = against_fresh_prefill(
+            torch, model, params, {}, prompt, fed, kept, arch,
+            kept_routes=kept_routes, routes=routes if moe else None,
+            ulps=ulps)
+    if launches["attention"] != n_self or \
+            sum(tally.fwd.values()) != n_self:
+        raise AssertionError(f"{arch}: attention launched "
+                             f"{launches['attention']} times, want {n_self}"
+                             f" ({dict(tally.fwd)})")
+    log(f"phase 11, {arch} ({cfg.arch_type}): {cfg.num_layers} of "
+        f"{full.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, V {cfg.vocab_size}"
+        + (f", {cfg.num_experts} experts top-{cfg.experts_per_token}, "
+           f"{cfg.first_dense_layers} dense first" if moe else "")
+        + (", QKV bias" if cfg.qkv_bias else "")
+        + f"; {n_params / 1e9:.3f} B params, built in {build_s:.1f} s; "
+        f"prefill B {TEXT_B} x {TEXT_PROMPT} {prefill_ms:.2f} ms; decode "
+        f"{statistics.median(step_ms):.3f} ms/step median ({TEXT_STEPS} "
+        f"steps, synced); flash launches {launches['attention']} = "
+        f"{n_self} layers; peak memory {peak / 2 ** 30:.2f} GiB; logits at "
+        f"steps {TEXT_CHECK_STEPS} vs a fresh prefill: max abs err "
+        f"{', '.join(f'{e:.3e}' for e in errs)} over {held} of {TEXT_B} "
+        f"rows (tolerance: {ulps} bf16 ulps at the largest logit, at least "
+        f"2**-3" + ("; rows routed alike in both runs" if moe else "") + ")")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tally.fwd
+
+
+def phase_vlm(torch, np, counters):
+    """Phase 11: llama-3.2-vision on the card, then the four text
+    configs. -> rows."""
+    vlm_model_check(torch, np)
+    rows = []
+    for label, B, Sq, Sk, H, K, Dh, dt, causal, bwd in VLM_CASES:
+        rows += attention_case_rows(
+            torch, VLM, label, B, Sq, Sk, H, K, Dh, dt, causal=causal,
+            backward=bwd, path_shape=not label.startswith("edge"))
+    vlm_decode(torch, counters, rows)
+    vlm_train(torch, counters, rows)
+    for arch, depth in TEXT_ARCHS:
+        from repro_torch.configs import get_config
+        cfg = get_config(arch)
+        row = attention_case_rows(
+            torch, arch, "self, prefill", TEXT_B, TEXT_PROMPT, TEXT_PROMPT,
+            cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+            cfg.dtype, causal=True, backward=False)
+        row[0]["launches"] = text_config_check(torch, counters, arch,
+                                               depth)[row[0]["key"]]
+        rows += row
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2499,6 +3002,8 @@ def main():
     stamp("phase 9")
     rows += phase_audio(torch, np, counters)
     stamp("phase 10")
+    rows += phase_vlm(torch, np, counters)
+    stamp("phase 11")
 
     for r in rows:
         r.pop("key", None)

@@ -6,11 +6,13 @@ Usage:
       --grammar json --steps 20 --batch 8 --seq 1024 \
       [--checkpoint build/smollm.msgpack] [--num-layers N] [--device cpu]
 
-`--arch` takes the port's configs (dense, moe, ssm, hybrid, audio);
-`--reduced` trains the config's small variant, `--num-layers` keeps the
-first layers at full width. whisper-base trains on `--grammar random`,
-whose batches carry the encoder's `frames`; a grammar pipeline has none,
-and its first step raises KeyError('frames'), as the reference's does.
+`--arch` takes the port's configs (dense, moe, ssm, hybrid, vlm,
+audio); `--reduced` trains the config's small variant, `--num-layers`
+keeps the first layers at full width. whisper-base and
+llama-3.2-vision-90b train on `--grammar random`, whose batches carry
+the encoder's `frames` or the `image_embeds`; a grammar pipeline has
+none, and the first step raises KeyError('frames') or
+KeyError('image_embeds'), as the reference's does.
 Weights start random from `--seed` (a torch.Generator on the device).
 The checkpoint is the reference's msgpack format: both
 packages' `--checkpoint` flags load it.
@@ -62,8 +64,8 @@ def main(argv=None):
     model = build_model(cfg, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    params = model.init(gen)
-    n_params = sum(p.numel() for p in leaves(params))
+    init = [model.init(gen)]        # handed to train() without a reference
+    n_params = sum(p.numel() for p in leaves(init[0]))
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
           f"vocab={cfg.vocab_size}")
 
@@ -78,7 +80,7 @@ def main(argv=None):
 
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20),
                       total_steps=args.steps)
-    params, result = train(model, params, data, args.steps, opt_cfg=opt,
+    params, result = train(model, init.pop(), data, args.steps, opt_cfg=opt,
                            checkpoint_path=args.checkpoint, device=dev)
     print(f"final loss {result.losses[-1]:.4f} "
           f"({result.steps_per_sec:.2f} steps/s)")

@@ -31,14 +31,16 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
     drawn in fp32 on the generator's device and cast to `dtype`. A leaf
     stacked over layers (3 dims or more) is drawn one layer at a time, so
     the fp32 draw never holds more than one layer: qwen3-moe's expert
-    leaf [48, 128, 2048, 768] would take 38.6 GB in fp32 at once."""
+    leaf [48, 128, 2048, 768] would take 38.6 GB in fp32 at once. The
+    draw is scaled in place: kimi-k2's one-layer expert leaf [384, 7168,
+    2048] is 22.5 GB in fp32, and a scaled copy would double it."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
     for part in (out if len(shape) >= 3 else (out,)):
         part.copy_(torch.randn(part.shape, generator=gen,
                                dtype=torch.float32, device=gen.device)
-                   * scale)
+                   .mul_(scale))
     return out
 
 
@@ -75,6 +77,14 @@ def apply_rope(x, positions, theta):
     return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
 
 
+def matmul(x, w):
+    """x @ w in the wider of their dtypes, as JAX promotes a mixed product
+    (an fp32 activation against a bf16 weight: the weight upcast, which
+    is exact); operands of one dtype multiply as they are."""
+    t = torch.promote_types(x.dtype, w.dtype)
+    return x.to(t) @ w.to(t)
+
+
 # ----------------------------- attention layer -----------------------------
 
 def init_attention(gen, cfg, dtype, lead=()):
@@ -96,9 +106,9 @@ def init_attention(gen, cfg, dtype, lead=()):
 def qkv_proj(p, x, cfg):
     B, S, D = x.shape
     H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = matmul(x, p["wq"])
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -109,7 +119,7 @@ def qkv_proj(p, x, cfg):
 
 def attn_out(p, o):
     B, S, H, Dh = o.shape
-    return o.reshape(B, S, H * Dh) @ p["wo"]
+    return matmul(o.reshape(B, S, H * Dh), p["wo"])
 
 
 # ----------------------------- FFN -----------------------------------------
@@ -123,8 +133,9 @@ def init_ffn(gen, d_model, d_ff, dtype, lead=()):
 
 
 def ffn(p, x):
-    h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    h = torch.nn.functional.silu(matmul(x, p["w_gate"])) * \
+        matmul(x, p["w_up"])
+    return matmul(h, p["w_down"])
 
 
 # ----------------------------- embedding -----------------------------------

@@ -1,10 +1,10 @@
 """Layer kinds with their explicit caches (port of `repro.models.layers`):
 `attn` (self-attention + dense FFN), `moe` (self-attention + routed
 experts), `rec` (RG-LRU + dense FFN, RecurrentGemma), `ssm` (Mamba2),
-and Whisper's `enc` (non-causal encoder layer, train form only: the
-model runs it on the frames) and `dec` (causal self-attention, cross
-attention to the encoder's output, FFN). The vlm `cross` kind is not
-ported yet.
+Whisper's `enc` (non-causal encoder layer, train form only: the model
+runs it on the frames) and `dec` (causal self-attention, cross attention
+to the encoder's output, FFN), and the vlm's `cross` (tanh-gated cross
+attention to the image embeddings, FFN).
 
 Each kind has init_<kind>(gen, cfg, dtype, lead) -> params stacked on
 `lead`, <kind>_train(params, x, cfg, ctx) -> (x, aux {"lb", "z"}),
@@ -13,8 +13,9 @@ Each kind has init_<kind>(gen, cfg, dtype, lead) -> params stacked on
 attention through the differentiable flash_attention op (the Hopper
 forward and backward kernels on the card). ctx holds
 "cache_len", "true_len", "pos", "feed_mask", "page_table", "window"
-(a per-model window override: the hybrid arch's local attention) and
-"enc_out" (the audio arch's encoded frames, which `dec` attends to).
+(a per-model window override: the hybrid arch's local attention),
+"enc_out" (the audio arch's encoded frames, which `dec` attends to) and
+"image_embeds" (the vlm's image tokens, which `cross` attends to).
 
 KV caches store rotated K plus a per-slot absolute-position array
 (`kv_pos`, -1 = empty) so ring-buffer (sliding-window) and linear caches
@@ -32,11 +33,12 @@ from __future__ import annotations
 import torch
 
 from .common import (apply_rope, attn_out, ffn, init_attention, init_ffn,
-                     qkv_proj, rms_norm)
+                     matmul, qkv_proj, rms_norm)
 from .moe import init_moe, moe_ffn
 from .rglru import init_rglru, rglru_decode, rglru_prefill, rglru_train
 from .ssm import init_ssm, ssm_decode, ssm_prefill, ssm_train
-from ..kernels.flash_attention.ops import attention
+from ..kernels.flash_attention.ops import attention, qscale
+from ..kernels.flash_attention.ref import qscale_tensor
 from ..kernels.paged_attention.ops import paged_attention
 from ..kernels.paged_attention.ref import attend
 
@@ -321,14 +323,16 @@ def ssm_layer_decode(p, x, cache, cfg, ctx):
     return x + o, cache
 
 
-# ---- cross attention (shared by `dec`, and by vlm's `cross` to come) ----
+# ---- cross attention (shared by `dec` and vlm's `cross`) ----
 
 def _cross_kv(p, mem, cfg):
-    """K and V of the memory mem [B, Sm, D] -> two [B, Sm, K, Dh]."""
+    """K and V of the memory mem [B, Sm, D] -> two [B, Sm, K, Dh], in the
+    wider of mem's and the weights' dtypes (fp32 memory under bf16
+    weights gives fp32 K/V, as the reference's promotion does)."""
     B, Sm, D = mem.shape
     K, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
-    k = mem @ p["wk"]
-    v = mem @ p["wv"]
+    k = matmul(mem, p["wk"])
+    v = matmul(mem, p["wv"])
     if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
@@ -337,15 +341,67 @@ def _cross_kv(p, mem, cfg):
 
 def _cross_attention(p, x, k, v, cfg):
     """Every query of x [B, S, D] over every memory key (no positions, no
-    RoPE): the non-causal attention op at any S and Sm."""
+    RoPE): the non-causal attention op at any S and Sm. K/V wider than
+    the queries (the only mixed case: fp32 memory under bf16 weights)
+    run as the reference runs them: q scaled and rounded in its own
+    dtype, then scores, P and P.V in fp32 (the fp32 kernel route), the
+    output cast back to q's dtype. The fp32 route scales q inside the
+    kernel, so the rounded q^ is handed to it divided by that scale
+    (pre-rounded)."""
     B, S, D = x.shape
     H, Dh = cfg.num_heads, cfg.resolved_head_dim
-    q = x @ p["wq"]
+    q = matmul(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    o = attention(q.reshape(B, S, H, Dh), k, v, causal=False,
-                  chunk=cfg.attn_chunk)
+    q = q.reshape(B, S, H, Dh)
+    if k.dtype == q.dtype:
+        o = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    else:
+        qh = (q * qscale_tensor(q.dtype, Dh)).to(k.dtype) / qscale(k.dtype,
+                                                                  Dh)
+        o = attention(qh, k, v, causal=False,
+                      chunk=cfg.attn_chunk).to(q.dtype)
     return attn_out(p, o)
+
+
+# ---- "cross": tanh-gated cross attention to image tokens + FFN (VLM) ----
+
+def init_cross_layer(gen, cfg, dtype, lead=()):
+    """The attention and FFN of an `attn` layer plus the residual gate
+    [*lead, 1], zeros as in the reference (tanh(0) = 0: at init a cross
+    layer adds no attention)."""
+    return {**init_attn_layer(gen, cfg, dtype, lead),
+            "gate": torch.zeros((*lead, 1), dtype=dtype, device=gen.device)}
+
+
+def _memory(ctx):
+    return ctx["image_embeds"] if "image_embeds" in ctx else ctx["enc_out"]
+
+
+def _gated_cross(p, x, k, v, cfg):
+    """x + tanh(gate) * cross attention (tanh in fp32, cast to x's
+    dtype), then the FFN."""
+    g = torch.tanh(p["gate"].float()).to(x.dtype)
+    x = x + g * _cross_attention(p["attn"],
+                                 rms_norm(x, p["ln1"], cfg.norm_eps),
+                                 k, v, cfg)
+    return x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def cross_train(p, x, cfg, ctx):
+    k, v = _cross_kv(p["attn"], _memory(ctx), cfg)
+    return _gated_cross(p, x, k, v, cfg), _zero_aux(x)
+
+
+def cross_prefill(p, x, cfg, ctx):
+    """-> (x, {"k", "v"}): the memory's K/V, kept for every decode step."""
+    k, v = _cross_kv(p["attn"], _memory(ctx), cfg)
+    return _gated_cross(p, x, k, v, cfg), {"k": k, "v": v}
+
+
+def cross_decode(p, x, cache, cfg, ctx):
+    """Reads the prefill's K/V; writes nothing."""
+    return _gated_cross(p, x, cache["k"], cache["v"], cfg), cache
 
 
 # ---- "enc": non-causal encoder layer (Whisper encoder) ----
@@ -416,13 +472,15 @@ def dec_decode(p, x, cache, cfg, ctx):
 
 
 KIND_INIT = {"attn": init_attn_layer, "moe": init_moe_layer,
-             "rec": init_rec_layer, "ssm": init_ssm_layer,
-             "enc": init_enc_layer, "dec": init_dec_layer}
-KIND_TRAIN = {"attn": attn_train, "moe": moe_train, "rec": rec_train,
-              "ssm": ssm_layer_train, "enc": enc_train, "dec": dec_train}
+             "cross": init_cross_layer, "rec": init_rec_layer,
+             "ssm": init_ssm_layer, "enc": init_enc_layer,
+             "dec": init_dec_layer}
+KIND_TRAIN = {"attn": attn_train, "moe": moe_train, "cross": cross_train,
+              "rec": rec_train, "ssm": ssm_layer_train, "enc": enc_train,
+              "dec": dec_train}
 KIND_PREFILL = {"attn": attn_prefill, "moe": moe_prefill,
-                "rec": rec_prefill, "ssm": ssm_layer_prefill,
-                "dec": dec_prefill}
+                "cross": cross_prefill, "rec": rec_prefill,
+                "ssm": ssm_layer_prefill, "dec": dec_prefill}
 KIND_DECODE = {"attn": attn_decode, "moe": moe_decode,
-               "rec": rec_decode, "ssm": ssm_layer_decode,
-               "dec": dec_decode}
+               "cross": cross_decode, "rec": rec_decode,
+               "ssm": ssm_layer_decode, "dec": dec_decode}

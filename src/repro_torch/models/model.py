@@ -1,26 +1,33 @@
 """Model assembly (port of `repro.models.model`) for the dense, moe, ssm,
-hybrid and audio (Whisper) archs; vlm is not ported yet.
+hybrid, vlm and audio (Whisper) archs.
 
 Layers of one structure are stacked into groups, each a fixed pattern of
-kinds (hybrid: ("rec", "rec", "attn") x n plus a remainder group; moe: a
-leading dense group when `first_dense_layers`). The parameter tree keeps
-the JAX layout: {"embed_block": {...}, "groups": [(kind_params_stacked_on_
-[count, ...], ...)]}, plus "encoder": ({enc params stacked on
-[encoder_layers, ...]},) for audio. The reference scans each group with
-`lax.scan`; here a Python loop walks the layer axis (each slice is a
-view). Caches keep the reference's layout too, one tree per pattern
-position stacked on [count, ...]: attention {"k","v": [L, B, T, K, Dh],
-"kv_pos": [L, B, T]}, rec {"h": [L, B, R], "conv"}, ssm {"h": [L, B, Hs,
-N, P], "conv"}, dec {"self": an attention cache, "cross": {"k","v": [L,
-B, frames, K, Dh]}}.
+kinds (hybrid: ("rec", "rec", "attn") x n plus a remainder group; vlm:
+("attn" x (cross_attn_every - 1), "cross") x n plus an attention-only
+remainder group; moe: a leading dense group when `first_dense_layers`).
+The parameter tree keeps the JAX layout: {"embed_block": {...},
+"groups": [(kind_params_stacked_on_[count, ...], ...)]}, plus "encoder":
+({enc params stacked on [encoder_layers, ...]},) for audio. The
+reference scans each group with `lax.scan`; here a Python loop walks the
+layer axis (each slice is a view). Caches keep the reference's layout
+too, one tree per pattern position stacked on [count, ...]: attention
+{"k","v": [L, B, T, K, Dh], "kv_pos": [L, B, T]}, rec {"h": [L, B, R],
+"conv"}, ssm {"h": [L, B, Hs, N, P], "conv"}, cross {"k","v": [L, B,
+num_image_tokens, K, Dh]}, dec {"self": an attention cache, "cross":
+{"k","v": [L, B, frames, K, Dh]}}.
 
-Audio: the batch carries `frames` [B, audio_frames, d_model] (the conv
-front end's output; the reference stubs that front end too). The encoder
-runs them through its `enc` layers once per call (`_encode_frames`), and
-every `dec` layer attends to the result. Frames are cast to the model's
-dtype first: the reference would instead promote its whole encoder to
-fp32 when bf16 weights meet fp32 frames (and then return fp32 cross
-caches where its own `init_decode_caches` makes bf16 ones).
+Side inputs. Audio: the batch carries `frames` [B, audio_frames,
+d_model] (the conv front end's output; the reference stubs that front
+end too). The encoder runs them through its `enc` layers once per call
+(`_encode_frames`), and every `dec` layer attends to the result. vlm:
+the batch carries `image_embeds` [B, num_image_tokens, d_model] (the
+vision tower's output, stubbed in the reference too), which every
+`cross` layer attends to. A side input keeps its dtype, as in the
+reference: fp32 frames under bf16 weights run the whole encoder in fp32,
+and fp32 frames or image embeddings give fp32 cross K/V (`prefill`
+returns them so, while `init_decode_caches` makes caches in the model's
+dtype, as the reference's does); bf16 queries attend to them on the
+fp32 kernel route (`layers._cross_attention`).
 
 Public API (functions over a params tree):
   model.init(generator)                          -> params
@@ -74,12 +81,13 @@ def layer_groups(cfg: ModelConfig):
         pat = tuple(cfg.block_pattern)
         n, rem = divmod(L, len(pat))
         return ([(pat, n)] if n else []) + ([(pat[:rem], 1)] if rem else [])
+    if at == "vlm":
+        e = cfg.cross_attn_every
+        n, rem = divmod(L, e)
+        return ([(("attn",) * (e - 1) + ("cross",), n)] if n else []) + \
+            ([(("attn",) * rem, 1)] if rem else [])
     if at == "audio":
         return [(("dec",), L)]
-    if at == "vlm":
-        raise NotImplementedError(
-            "arch_type 'vlm' is not ported yet: its cross layer kind comes "
-            "with port slice 11")
     raise ValueError(at)
 
 
@@ -135,9 +143,10 @@ class Model:
     # --------------------------- encoder (audio) --------------------------
     def _encode_frames(self, params, frames):
         """frames [B, audio_frames, D] -> the encoder's output, through
-        every `enc` layer (non-causal attention over all frames)."""
+        every `enc` layer (non-causal attention over all frames), in the
+        frames' dtype or the weights', whichever is wider."""
         cfg = self.cfg
-        x = frames.to(dtype_of(cfg))
+        x = frames
         gp = params["encoder"][0]
         for i in range(cfg.encoder_layers):
             p = _slice(gp, i)
@@ -154,11 +163,13 @@ class Model:
 
     def _ctx_from_batch(self, params, batch):
         """The base ctx plus the batch's side input: audio encodes its
-        `frames` (a batch without them raises KeyError, as the
-        reference's does)."""
+        `frames`, vlm passes its `image_embeds` on (a batch without them
+        raises KeyError, as the reference's does)."""
         ctx = self._base_ctx()
         if self.cfg.arch_type == "audio":
             ctx["enc_out"] = self._encode_frames(params, batch["frames"])
+        if self.cfg.arch_type == "vlm":
+            ctx["image_embeds"] = batch["image_embeds"]
         return ctx
 
     # ------------------------------ train --------------------------------
@@ -315,6 +326,11 @@ class Model:
                 return init_kv_cache(cfg, batch_size, L, dtype, dev, lead)
             if kind == "rec":
                 return init_rglru_cache(cfg, batch_size, dtype, dev, lead)
+            if kind == "cross":
+                shape = (*lead, batch_size, cfg.num_image_tokens,
+                         cfg.num_kv_heads, cfg.resolved_head_dim)
+                return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                        "v": torch.zeros(shape, dtype=dtype, device=dev)}
             if kind == "dec":
                 cross = (*lead, batch_size, cfg.audio_frames,
                          cfg.num_kv_heads, cfg.resolved_head_dim)

@@ -58,8 +58,8 @@ class GrammarDataPipeline:
 
 class RandomTokenPipeline:
     """The `vlm` and `audio` side inputs are drawn as the reference draws
-    them; the audio trainer reads `frames` (`Model._ctx_from_batch`), the
-    vlm's `image_embeds` wait for its port."""
+    them, in fp32: the audio trainer reads `frames` and the vlm trainer
+    `image_embeds` (`Model._ctx_from_batch`)."""
 
     def __init__(self, cfg, seq_len: int, batch_size: int, seed: int = 0):
         self.cfg = cfg

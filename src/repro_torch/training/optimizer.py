@@ -63,8 +63,13 @@ def _global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params, grads, state):
-    """One AdamW step -> (params, state, {"gnorm", "lr"}); new tensors,
-    the inputs are left as they were."""
+    """One AdamW step -> (params, state, {"gnorm", "lr"}). The params
+    come back as new tensors, the input params left as they were; the
+    moments `mu` and `nu` are updated IN PLACE (the returned state holds
+    the same tensors), so the update never holds two copies of them: its
+    peak is one leaf's fp32 temporaries above params, grads and moments
+    (and the new params). The operations and their order are the
+    out-of-place update's, so the numbers are the same bit for bit."""
     step = state["step"] + 1
     gnorm = _global_norm(grads)
     # a tensor numerator: `float / tensor` would multiply by a reciprocal
@@ -76,18 +81,15 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
 
     def upd(p, g, mu, nu):
         g = g.float() * scale
-        mu = cfg.beta1 * mu + (1 - cfg.beta1) * g
-        nu = cfg.beta2 * nu + (1 - cfg.beta2) * torch.square(g)
+        mu.mul_(cfg.beta1).add_((1 - cfg.beta1) * g)
+        nu.mul_(cfg.beta2).add_((1 - cfg.beta2) * torch.square(g))
         delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
         p32 = p.float()
         if p.dim() >= 2:    # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p32
-        return (p32 - lr * delta).to(p.dtype), mu, nu
+        return (p32 - lr * delta).to(p.dtype)
 
-    out = [upd(*xs) for xs in zip(leaves(params), leaves(grads),
+    new = [upd(*xs) for xs in zip(leaves(params), leaves(grads),
                                   leaves(state["mu"]), leaves(state["nu"]))]
-    new_state = {"mu": unflatten(params, [o[1] for o in out]),
-                 "nu": unflatten(params, [o[2] for o in out]),
-                 "step": step}
-    return (unflatten(params, [o[0] for o in out]), new_state,
-            {"gnorm": gnorm, "lr": lr})
+    new_state = {"mu": state["mu"], "nu": state["nu"], "step": step}
+    return unflatten(params, new), new_state, {"gnorm": gnorm, "lr": lr}

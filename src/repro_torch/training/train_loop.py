@@ -55,7 +55,10 @@ def train(model, params, data_iter, steps: int,
           checkpoint_path: str | None = None, checkpoint_every: int = 0,
           verbose: bool = True, device="cuda") -> tuple:
     """-> (params, TrainResult). `device` is resolved as every entry
-    point's: "cuda" unless the caller asks for the CPU."""
+    point's: "cuda" unless the caller asks for the CPU. The first step
+    replaces `params` with new tensors: a caller that keeps its own
+    reference to them holds a second copy of the weights for the whole
+    run (2 bytes a bf16 param), so hand them over without one."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig(total_steps=steps)
     opt_state = init_opt_state(params)

@@ -1,5 +1,7 @@
-"""The port's `Model` for the moe, ssm and hybrid archs against the
-reference's, on reduced configs (`cfg.reduced()`, as
+"""The port's `Model` for the moe, ssm and hybrid archs and the four
+remaining text configs (qwen1.5-0.5b's QKV bias, internlm2-1.8b,
+deepseek-coder-33b, kimi-k2-1t-a32b's leading dense layer before its MoE
+layers) against the reference's, on reduced configs (`cfg.reduced()`, as
 tests/test_models_smoke.py) with the reference's `Model.init(PRNGKey(0))`
 params bridged leaf by leaf.
 
@@ -10,10 +12,11 @@ whose local window is shorter than the prompt (the attention ring
 wraps); the bridge round trip of each param tree (fp32 router, A_log /
 D / dt_bias, lam, the remainder group); `init_decode_caches` shapes and
 dtypes; `prefill_padding_safe`, `supports_span_decode` and the paged
-pool refusal equal to the reference's; vlm refused. The audio family's
-bridge (its "encoder" group), decode caches (the nested `dec` tree) and
-serving properties are held here too; its prefill and decode in
-tests/test_torch_audio.py.
+pool refusal equal to the reference's; vlm built from the reference's
+config. The audio and vlm families' bridges (the "encoder" group, the
+`gate` leaves), decode caches (the nested `dec` tree, the `cross` K/V)
+and serving properties are held here too; their prefill and decode in
+tests/test_torch_audio.py and tests/test_torch_vlm.py.
 
 Tolerances as in tests/test_torch_model.py: fp32 within atol 1e-4 plus
 rtol 2e-6; bf16 by that file's rule, four bf16 ulps at the compared
@@ -26,7 +29,7 @@ fp32 recurrent state included (its inputs are bf16 activations that the
 two frameworks round at different points; XLA may keep a fused
 elementwise chain in fp32). `kv_pos` must be equal.
 
-Routing near a tie (bf16 moe only): where the k-th and (k+1)-th router
+Routing near a tie (bf16 moe only: qwen3-moe and kimi-k2): where the k-th and (k+1)-th router
 probabilities of a token lie within 2**-8 of each other in some layer,
 a bf16 rounding difference upstream (a few ulps of the layer's input,
 about 6e-4 in probability at these widths) may choose another expert on
@@ -60,7 +63,8 @@ def _tol(dtype, want):
     return dict(atol=max(2.0 ** -3, 4 * ulp), rtol=0)
 
 FAMILIES = {"moe": "qwen3-moe-30b-a3b", "ssm": "mamba2-370m",
-            "hybrid": "recurrentgemma-9b", "audio": "whisper-base"}
+            "hybrid": "recurrentgemma-9b", "audio": "whisper-base",
+            "vlm": "llama-3.2-vision-90b"}
 
 
 def _pair(arch, dtype, **over):
@@ -105,6 +109,14 @@ CASES = [
     ("recurrentgemma-9b", "bfloat16", {}, 13, 13),
     ("recurrentgemma-9b", "float32", {"num_layers": 3}, 9, 9),
     ("recurrentgemma-9b", "float32", {"local_window": 8}, 12, 12),
+    ("qwen1.5-0.5b", "float32", {}, 11, 16),
+    ("qwen1.5-0.5b", "bfloat16", {}, 11, 16),
+    ("internlm2-1.8b", "float32", {}, 11, 16),
+    ("internlm2-1.8b", "bfloat16", {}, 11, 16),
+    ("deepseek-coder-33b", "float32", {}, 11, 16),
+    ("deepseek-coder-33b", "bfloat16", {}, 11, 16),
+    ("kimi-k2-1t-a32b", "float32", {}, 11, 16),
+    ("kimi-k2-1t-a32b", "bfloat16", {}, 11, 16),
 ]
 
 
@@ -158,8 +170,8 @@ def test_prefill_then_decode_match_reference(arch, dtype, over, n, S,
     jm, jp, tm, tp, _ = _pair(arch, dtype, **over)
     assert [g for g in layer_groups(tm.cfg)] == \
         [g for g in jax_layer_groups(jm.cfg)]
-    ties = _Margins(monkeypatch) if (arch, dtype) == (
-        "qwen3-moe-30b-a3b", "bfloat16") else None
+    ties = _Margins(monkeypatch) if jm.cfg.arch_type == "moe" and \
+        dtype == "bfloat16" else None
     V = jm.cfg.vocab_size
     B = 4
     rng = np.random.default_rng(0)
@@ -247,12 +259,19 @@ def test_serving_properties_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b"])
-def test_vlm_and_audio_are_refused(arch):
-    """vlm stays refused until port slice 11 brings its `cross` kind; the
-    audio family is ported (tests/test_torch_audio.py)."""
+def test_vlm_builds(arch):
+    """The vlm arch, refused until its `cross` kind was ported, builds
+    from the reference's config: its groups are the reference's (one
+    (attn, cross) period at the reduced size), and its params have the
+    reference's tree and shapes."""
     from repro_torch.models.config import ModelConfig
     cfg = get_config(arch).reduced()
     fields = {f: getattr(cfg, f) for f in ModelConfig.__dataclass_fields__}
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        torch_build_model(ModelConfig(**fields), device="cpu").init(
-            torch.Generator())
+    tm = torch_build_model(ModelConfig(**fields), device="cpu")
+    assert layer_groups(tm.cfg) == jax_layer_groups(cfg) == \
+        [(("attn", "cross"), 1)]
+    own = bridge.to_numpy(tm.init(torch.Generator()))
+    want = jax_build_model(cfg).abstract_params()
+    shapes = lambda t: [(p, tuple(np.shape(x))) for p, x in
+                        jax.tree_util.tree_leaves_with_path(t)]
+    assert shapes(own) == shapes(want)

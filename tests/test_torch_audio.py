@@ -9,12 +9,11 @@ nested {"self", "cross"} cache) and `dec_decode` against it; the whole
 `Model.prefill` then several `decode_step`s, logits and every cache
 leaf; in fp32 and bf16. The text is longer than the 32 frames (S = 40,
 plus S = 12 below them), so cross attention runs Sq > Sk and Sq < Sk.
-Frames are given in the model's dtype on both sides: the port casts
-frames to it, where the reference would promote its encoder to fp32 for
-fp32 frames under bf16 weights (`repro_torch.models.model`'s docstring;
-ROADMAP queue 3); one test feeds both sides the random pipeline's fp32
-frames and holds the gap that this leaves. A batch without frames fails
-on both sides alike.
+Frames are given in the model's dtype on both sides, except where a test
+feeds the random pipeline's fp32 frames under bf16 weights: then both
+sides run the encoder in fp32 (JAX's promotion; the port's `matmul`
+upcasts the weights) and the decoder's cross K/V in fp32. A batch
+without frames fails on both sides alike.
 
 Tolerances as in tests/test_torch_archs.py: fp32 within atol 1e-4 plus
 rtol 2e-6 (the frameworks sum matrix products in other orders); bf16
@@ -39,6 +38,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.model import _slice
 from repro_torch.models.model import build_model as torch_build_model
 from repro_torch.models.model import layer_groups
+from repro_torch.training.tree import flatten_with_path, leaves, unflatten
 
 torch.set_num_threads(1)
 
@@ -129,55 +129,57 @@ def test_encode_frames_matches_reference(dtype):
 
 
 def test_frames_are_cast_to_the_model_dtype():
-    """bf16 model: fp32 frames give what their bf16 rounding gives, bit
-    for bit (the port casts at the encoder's entry)."""
-    _, _, tm, tp = _sides("bfloat16")
-    fr = torch.from_numpy(_frames(tm.cfg, 3))
+    """bf16 model: frames in the model's dtype run the encoder in it;
+    fp32 frames are no longer cast (the encoder promotes to fp32, as the
+    reference's does): the output is fp32 and equals the reference's on
+    the same frames within the fp32 tolerance, and differs from what the
+    frames' bf16 rounding gives."""
+    jm, jp, tm, tp = _sides("bfloat16")
+    fr = _frames(tm.cfg, 3)
     with torch.no_grad():
-        a = tm._encode_frames(tp, fr)
-        b = tm._encode_frames(tp, fr.bfloat16())
-    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        a = tm._encode_frames(tp, torch.from_numpy(fr))
+        b = tm._encode_frames(tp, torch.from_numpy(fr).bfloat16())
+    assert a.dtype == torch.float32 and b.dtype == torch.bfloat16
+    _close(a, jm._encode_frames(jp, jnp.asarray(fr)), "float32",
+           "fp32 encoder output")
+    assert not torch.equal(a, b.float())
 
 
 def test_fp32_frames_under_bf16_weights_departure():
-    """The training path as the random pipeline feeds it: a bf16 model, the
-    `RandomTokenPipeline` batch as drawn (fp32 frames) on both sides, loss
-    and gradients. The reference promotes its encoder to fp32 for these
-    frames; the port casts them to bf16 and runs the encoder in bf16 on
-    the kernels. Measured gap (CPU, this batch): loss 1.84e-4 relative,
-    of which the reference alone shows 1.80e-4 between these frames and
-    their bf16 rounding; the port's loss is the reference's on the
-    rounded frames within 4e-6. Gradients: each leaf within 1.1e-2 to
-    2.3e-2 of the reference's largest magnitude, the size of the bf16
-    rounding gap that remains with rounded frames on both sides (1.3e-2
-    to 2.6e-2) and of the reference's own change from rounding its frames
-    (1.0e-2 to 2.3e-2). Held to: loss 1e-3 relative (1e-5 against the
-    rounded frames), each gradient leaf 2**-5 of its largest magnitude
-    (the bf16 tolerance of the attention kernels' card checks)."""
+    """The training path as the random pipeline feeds it: a bf16 model and
+    the `RandomTokenPipeline` batch as drawn (fp32 frames) on both sides,
+    loss and gradients. Once a departure (the port cast the frames to
+    bf16; loss 1.84e-4 relative, gradients up to 2.3e-2 of a leaf's
+    largest magnitude), now a parity test: both sides run the encoder in
+    fp32 and the decoder's cross attention over fp32 K/V. Held to: the
+    loss within 1e-4 relative, each gradient leaf within four bf16 ulps
+    of its largest magnitude (tests/test_torch_vlm.py's bf16 rule). What
+    is left of the gap (8.1e-5 on the loss, at most 1.8e-2 of a leaf's
+    largest magnitude, CPU): with 32 frames, within one KV chunk of the
+    reduced config, the reference rounds P to q's dtype (bf16) before
+    P.V, where the fp32 route keeps it in fp32 (as the reference does
+    past one chunk: 1500 frames at full size)."""
     from repro.training.data import RandomTokenPipeline
-    from repro_torch.training.tree import flatten_with_path, leaves, unflatten
     jm, jp, tm, tp = _sides("bfloat16")
     b = next(RandomTokenPipeline(jm.cfg, 40, B, seed=4))
     assert b["frames"].dtype == np.float32
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
     (jl, _), jg = jax.value_and_grad(jm.loss, has_aux=True)(jp, jb)
-    rounded = dict(jb, frames=jb["frames"].astype(jnp.bfloat16))
-    jl16 = float(jm.loss(jp, rounded)[0])
     flat = [v.detach().requires_grad_() for v in leaves(tp)]
     tl, _ = tm.loss(unflatten(tp, flat), tb)
     tg = torch.autograd.grad(tl, flat)
-    assert float(tl) == pytest.approx(float(jl), rel=1e-3)
-    assert float(tl) == pytest.approx(jl16, rel=1e-5)
+    assert float(tl.detach()) == pytest.approx(float(jl), rel=1e-4)
     jflat = jax.tree_util.tree_flatten_with_path(jg)[0]
     names = [k for k, _ in flatten_with_path(tp)]
     assert len(jflat) == len(names) == len(tg)
     for (jk, jv), name, t in zip(jflat, names, tg):
         assert jax.tree_util.keystr(jk) == name
         want = np.asarray(jv, np.float32)
-        scale = max(np.abs(want).max(), 1e-30)
+        top = max(np.abs(want).max(), 1e-30)
         err = np.abs(t.float().numpy() - want).max()
-        assert err <= 2.0 ** -5 * scale, (name, err, scale)
+        assert err <= 4 * 2.0 ** (np.floor(np.log2(top)) - 7), \
+            (name, err, top)
 
 
 def _caches_close(tc, jc, dtype, what):

@@ -42,10 +42,12 @@ def _mixed_tree():
 
 def _trees():
     """(name, reference tree): a mixed tree and syncode-demo's bf16, and
-    reduced moe and whisper (with its "encoder" group) params."""
+    reduced moe, whisper (with its "encoder" group) and vlm (with its
+    `gate` leaves) params."""
     out = [("mixed", _mixed_tree())]
     for arch, red in (("syncode-demo", False), ("qwen3-moe-30b-a3b", True),
-                      ("whisper-base", True)):
+                      ("whisper-base", True),
+                      ("llama-3.2-vision-90b", True)):
         cfg = get_config(arch)
         cfg = cfg.reduced() if red else cfg
         out.append((arch, build_model(cfg).init(jax.random.PRNGKey(1))))

@@ -289,15 +289,22 @@ def test_flash_attention_new_arch_shapes(dev, Sq, Sk, H, K, Dh, window,
 
 
 # non-causal attention (an encoder's self-attention, cross attention to
-# its frames) at Sq < Sk, Sq = Sk and Sq > Sk; Sk 32 and 1500 are not
-# multiples of the key tiles (128 forward bf16, 32 fp32, 64 backward)
+# its frames or image tokens) at Sq < Sk, Sq = Sk and Sq > Sk; Sk 32 and
+# 1500 are not multiples of the key tiles (128 forward bf16, 32 fp32, 64
+# backward), and the odd Sk 1601 (llama-3.2-vision's image tokens) and
+# 17 end inside a pair of keys, which the bf16 backward packs into one
+# `mma.sync` fragment register
 NONCAUSAL = [(16, 32), (32, 32), (48, 32), (1, 1500), (1500, 1500),
-             (2048, 1500)]
+             (2048, 1500), (1, 1601), (16, 1601), (1024, 1601),
+             (2048, 1601), (24, 17)]
+# query heads over KV heads: MHA, GQA 4 and llama-3.2-vision's 64 over 8
+NONCAUSAL_HEADS = dict(argnames="H,K", argvalues=[(8, 8), (8, 2), (64, 8)],
+                       ids=["mha", "gqa", "gqa8"])
 
 
 @pytest.mark.parametrize("Sq,Sk", NONCAUSAL)
 @pytest.mark.parametrize("Dh", [64, 128])
-@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize(**NONCAUSAL_HEADS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_non_causal_any_lengths(dev, Sq, Sk, Dh, H, K,
                                                 dtype):
@@ -306,7 +313,7 @@ def test_flash_attention_non_causal_any_lengths(dev, Sq, Sk, Dh, H, K,
 
 @pytest.mark.parametrize("Sq,Sk", NONCAUSAL)
 @pytest.mark.parametrize("Dh", [64, 128])
-@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize(**NONCAUSAL_HEADS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_backward_non_causal_any_lengths(dev, Sq, Sk, Dh, H, K,
                                                    dtype):
@@ -335,6 +342,38 @@ def test_non_causal_launches_are_repeatable(dev, Sq, Sk, H, K, Dh, dtype):
     g2 = attention_backward(q, k, v, *first, do, causal=False)
     for name, a, b in zip(("dq", "dk", "dv"), g1, g2):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("S", [1, 16, 1024])
+def test_cross_attention_bf16_queries_over_fp32_kv(dev, S):
+    """The reference's promotion through the model code: bf16 queries of a
+    bf16 layer over fp32 K/V of 1601 image tokens (fp32 image embeddings
+    under bf16 weights) take the fp32 kernel route (one forward launch)
+    and come back in bf16; on the card against the same call on the CPU
+    (the plain version), within four bf16 ulps at the output's largest
+    magnitude (the fp32 sums differ in order; the casts to bf16 and the
+    bf16 output projection may then round apart)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.models.common import init_attention
+    from repro_torch.models.layers import _cross_attention, _cross_kv
+    cfg = replace(get_config("llama-3.2-vision-90b"), d_model=1024)
+    g = torch.Generator().manual_seed(S)
+    p = init_attention(g, cfg, torch.bfloat16)
+    x = torch.randn((2, S, cfg.d_model), generator=g).bfloat16()
+    mem = torch.randn((2, cfg.num_image_tokens, cfg.d_model), generator=g)
+    k, v = _cross_kv(p, mem, cfg)
+    assert k.dtype == torch.float32 and k.shape[1] == 1601
+    want = _cross_attention(p, x, k, v, cfg)
+    gp = {n: t.to(dev) for n, t in p.items()}
+    before = attention.launches
+    got = _cross_attention(gp, x.to(dev), k.to(dev), v.to(dev), cfg)
+    assert attention.launches == before + 1
+    assert got.dtype == want.dtype == torch.bfloat16
+    top = want.float().abs().max().item()
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 4 * 2.0 ** (np.floor(np.log2(top)) - 7), (err, top)
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 16),

@@ -28,6 +28,9 @@ COPIED = [
     "configs/syncode_demo.py", "configs/smollm_360m.py",
     "configs/qwen3_moe_30b_a3b.py", "configs/mamba2_370m.py",
     "configs/recurrentgemma_9b.py", "configs/whisper_base.py",
+    "configs/llama3_2_vision_90b.py", "configs/qwen1_5_0_5b.py",
+    "configs/internlm2_1_8b.py", "configs/deepseek_coder_33b.py",
+    "configs/kimi_k2_1t_a32b.py",
     "spec/__init__.py", "spec/jump.py", "spec/proposer.py",
     "spec/scheduler.py", "serving/kvpool/__init__.py",
     "serving/kvpool/allocator.py",
@@ -112,10 +115,13 @@ def test_copied_host_module_matches_reference(rel):
 
 def test_config_registry_is_the_reference_subset():
     """configs/__init__.py keeps the reference's code with only the
-    served configs registered."""
+    ported configs registered (all of them since the vlm family and the
+    four remaining text configs were ported)."""
     orig = (SRC / "repro" / "configs" / "__init__.py").read_text()
     keep = {"syncode-demo", "smollm-360m", "qwen3-moe-30b-a3b",
-            "mamba2-370m", "recurrentgemma-9b", "whisper-base"}
+            "mamba2-370m", "recurrentgemma-9b", "whisper-base",
+            "llama-3.2-vision-90b", "qwen1.5-0.5b", "internlm2-1.8b",
+            "deepseek-coder-33b", "kimi-k2-1t-a32b"}
     lines = [ln for ln in orig.splitlines(keepends=True)
              if not (re.match(r'\s+"[^"]+": "[^"]+",\n', ln)
                      and ln.split('"')[1] not in keep)]

@@ -2,12 +2,15 @@
 `Model.loss` and its gradients against `jax.value_and_grad(model.loss)`,
 one whole train step (loss, grads, AdamW) against the reference's
 `make_train_step`, and five steps in a row on the same batches, for
-syncode-demo and the `reduced()` moe, ssm, hybrid and audio configs, in
-fp32 copies (bf16 would add the known MoE routing near-tie flips,
+syncode-demo and the `reduced()` moe, ssm, hybrid, audio and vlm configs,
+in fp32 copies (bf16 would add the known MoE routing near-tie flips,
 ROADMAP queue 3). Params are the reference's `Model.init(PRNGKey(0))`,
-bridged; batches are drawn with numpy (whisper's with `frames`, the
-encoder's input; its S of 48 text positions over 32 frames runs cross
-attention at Sq > Sk).
+bridged, with the vlm's `gate` leaves set to 0.5 on both sides (at their
+init zero the cross layers add nothing and get no gradient through
+their attention); batches are drawn with numpy (whisper's with `frames`,
+the encoder's input; its S of 48 text positions over 32 frames runs
+cross attention at Sq > Sk; the vlm's with `image_embeds`, 40 text
+positions over 16 image tokens).
 
 Tolerances (fp32; XLA and torch sum in other orders):
 - loss and its parts: 1e-5 relative;
@@ -48,7 +51,7 @@ torch.set_num_threads(1)
 # chunk is 32, so S = 64 runs two chunks and the inter-chunk recurrence
 ARCHS = [("syncode-demo", False, 64), ("qwen3-moe-30b-a3b", True, 64),
          ("mamba2-370m", True, 64), ("recurrentgemma-9b", True, 128),
-         ("whisper-base", True, 48)]
+         ("whisper-base", True, 48), ("llama-3.2-vision-90b", True, 40)]
 _SIDES = {}
 
 
@@ -59,7 +62,10 @@ def sides(arch, reduced, **over):
         cfg = replace(pick(get_config(arch)), dtype="float32", **over)
         tcfg = replace(pick(torch_get_config(arch)), dtype="float32", **over)
         jm = build_model(cfg)
-        jp = jm.init(jax.random.PRNGKey(0))
+        jp = jax.tree_util.tree_map_with_path(
+            lambda path, a: jnp.full_like(a, 0.5)
+            if getattr(path[-1], "key", None) == "gate" else a,
+            jm.init(jax.random.PRNGKey(0)))
         _SIDES[key] = (jm, jp, torch_build_model(tcfg, device="cpu"),
                        bridge.to_torch(jax.tree.map(np.asarray, jp)))
     return _SIDES[key]
@@ -74,6 +80,9 @@ def batch(cfg, S, B=2, seed=0):
     if cfg.arch_type == "audio":
         out["frames"] = rng.normal(
             size=(B, cfg.audio_frames, cfg.d_model)).astype(np.float32)
+    if cfg.arch_type == "vlm":
+        out["image_embeds"] = rng.normal(
+            size=(B, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
     return out
 
 

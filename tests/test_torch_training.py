@@ -221,6 +221,30 @@ def test_train_cli_whisper_needs_frames():
               "--seq", "32"])
 
 
+def test_train_cli_trains_vlm_on_cpu(capsys):
+    """`--arch llama-3.2-vision-90b --grammar random`: the random
+    pipeline draws the fp32 image embeddings the cross layers read."""
+    from repro_torch.launch.train import main
+    params, result = main(["--device", "cpu", "--arch",
+                           "llama-3.2-vision-90b", "--reduced", "--grammar",
+                           "random", "--steps", "2", "--batch", "2",
+                           "--seq", "24"])
+    assert "arch=llama-3.2-vision-90b-smoke params=" in \
+        capsys.readouterr().out
+    assert "gate" in params["groups"][0][1]
+    assert all(np.isfinite(result.losses))
+
+
+def test_train_cli_vlm_needs_image_embeds():
+    """A grammar pipeline gives no image embeddings: the vlm's first step
+    raises KeyError('image_embeds'), as the reference's does."""
+    from repro_torch.launch.train import main
+    with pytest.raises(KeyError, match="image_embeds"):
+        main(["--device", "cpu", "--arch", "llama-3.2-vision-90b",
+              "--reduced", "--grammar", "json", "--steps", "1", "--batch",
+              "2", "--seq", "32"])
+
+
 def test_train_refuses_a_missing_card():
     """Entry points run on the card unless asked for the CPU."""
     from repro_torch.training.train_loop import train
