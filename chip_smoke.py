@@ -145,7 +145,26 @@ no result line):
    one MoE layer of 384 experts) at full width: each prefill's attention
    kernel row, prefill B 8 x 16, 8 greedy steps, the logits of steps 0
    and 7 against a fresh prefill (kimi: rows whose token each run routed
-   to the same experts).
+   to the same experts);
+12. tensor-parallel serving (`Engine(mesh=...)`, vocab parallelism over
+   `torch.distributed`), smollm-360m at full width: a 1-rank world over
+   NCCL in this process (`launch.mesh.spawn`) serves phase 5's first 8
+   requests at 32 new tokens through the unsharded and the sharded
+   engine on the same weights, three runs each in alternating order
+   (identical tokens, each request a prefix of its phase 5 stream; the
+   median and range of each side's ms a step), phase 5's speculative run
+   and its paged run with the shared prefix (identical tokens), each run's
+   launch counters zeroed just before it and read just after (sharded:
+   masked_logits once a step); the all-gather and the embedding
+   all-reduce timed alone; then a 2-rank world on the one card over gloo
+   (NCCL refuses two ranks on one device), two spawned processes each
+   holding half the vocabulary (24576 ids, 768 store words): the 8
+   requests, tokens equal to the unsharded engine's, masked_logits
+   launched once per constrained step on each rank, every eos output
+   parsed; then the shard-local masked_logits row and span forms at V
+   50280 split 25152 + 25128 (real json rows): both shards joined bitwise
+   equal to the unsharded kernel with EOS in each shard in turn, rank 0's
+   block timed beside its plain version and bound.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -749,6 +768,11 @@ def phase_paged_attention(torch, np, H=15, K=5, Dh=64, sizes=(1, 8, 32)):
     return rows
 
 
+def tokens_of(states):
+    """{rid: (token ids, finish reason)} of a run."""
+    return {s.req.rid: (list(s.token_ids), s.finish_reason) for s in states}
+
+
 def e2e_requests():
     from repro_torch.core.decoding import DecodeConfig
     from repro_torch.serving.engine import Request
@@ -879,6 +903,7 @@ def phase_new_paths(torch, engine, bundles, counters, dense_states):
     states, stats, launches = run_counted(
         torch, counters, lambda: engine.generate_speculative(
             e2e_requests()))
+    spec_states = states
     report("speculative, dense caches (16 requests x 64 new tokens)",
            states, stats, bundles, launches,
            f"; jump tokens {stats.jump_tokens}; drafts accepted "
@@ -900,6 +925,7 @@ def phase_new_paths(torch, engine, bundles, counters, dense_states):
     shared, n_prefix = shared_prefix_requests(engine)
     states, stats, launches = run_counted(
         torch, counters, lambda: paged.generate(e2e_requests() + shared))
+    paged_states = states
     report(f"paged (page_size 16, 16 requests + 8 sharing a {n_prefix}-"
            f"token prefix)", states, stats, bundles, launches,
            f"; prefix hit rate {stats.prefix_hit_rate:.4f}; peak pages "
@@ -947,7 +973,7 @@ def phase_new_paths(torch, engine, bundles, counters, dense_states):
             f"masked_logits launched {launches['apply_grammar_mask']} "
             f"times for {stats.mask_computations} constrained steps")
     found["masked_logits"] = launches["apply_grammar_mask"]
-    return found
+    return found, {"spec": spec_states, "paged": paged_states}
 
 
 def _step_breakdown(torch, label, step, steps=10, share_of=()):
@@ -2922,6 +2948,318 @@ def phase_vlm(torch, np, counters):
     return rows
 
 
+# ------------------------------------------------------------ phase 12
+
+SHARD_V = 50280         # the kernel check's vocab: W 1572, 2 shards
+SHARD_NEW = 32          # new tokens of the 8 requests of the dense runs
+SHARD_PAIRS = 3         # world 1 dense runs a side, in alternating order
+
+
+def sharded_requests():
+    """Phase 5's first 8 requests at 32 new tokens."""
+    reqs = e2e_requests()[:8]
+    for r in reqs:
+        r.max_new_tokens = SHARD_NEW
+    return reqs
+
+
+def same_prefix(got, want):
+    """A run cut at fewer new tokens agrees with a longer one: equal
+    where both finished by eos, else a prefix of it."""
+    bad = []
+    for rid, (ids, reason) in got.items():
+        full, full_reason = want[rid]
+        if reason == "eos" or full_reason == "eos" and len(full) <= len(ids):
+            ok = (ids, reason) == (full, full_reason)
+        else:
+            ok = ids == full[:len(ids)]
+        if not ok:
+            bad.append(rid)
+    return bad
+
+
+def sharded_world2_rank(rank, n):
+    """One rank of the 2-rank gloo world on the one card: smollm-360m at
+    full width, vocab split 24576 + 24576, phase 12's 8 requests. ->
+    tokens, stats and this rank's kernel launches."""
+    import torch
+    from repro_torch.kernels.fused_select.ops import fused_mask_select
+    from repro_torch.kernels.masked_logits.ops import apply_grammar_mask
+    from repro_torch.launch.serve import build_engine
+    engine, bundles, _ = build_engine(
+        "smollm-360m", grammars=("json", "jsonmsg"), max_len=512, slots=8,
+        device="cuda", mesh=n)
+    engine.generate(sharded_requests()[:1])          # warm-up
+    counters = (apply_grammar_mask, fused_mask_select)
+    states, stats, launches = run_counted(
+        torch, counters, lambda: engine.generate(sharded_requests()))
+    complete, valid = check_outputs(states, bundles)
+    return {"tokens": tokens_of(states), "steps": stats.decode_steps,
+            "wall": stats.wall, "launches": launches,
+            "store": tuple(engine._store_cat.shape),
+            "device": str(engine.device), "backend": engine.mesh.backend,
+            "complete": complete, "valid": valid,
+            "mesh_devices": stats.mesh_devices}
+
+
+def sharded_world1(rank, torch, counters, unsharded, out):
+    """The 1-rank NCCL world, in this process: smollm-360m at full width,
+    the unsharded engine and the sharded one on the same weights."""
+    from repro_torch.distributed.api import all_gather_last, vocab_all_reduce
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.engine import Engine
+    eng, bundles, tok = build_engine(
+        "smollm-360m", grammars=("json", "jsonmsg"), max_len=512, slots=8,
+        device="cuda", mesh=1)
+    if eng.mesh.backend != "nccl" or eng.mesh.size != 1:
+        raise AssertionError(f"world 1: {eng.mesh.backend} x "
+                             f"{eng.mesh.size}, want nccl x 1")
+    # at M = 1 the rank's block is the whole tree: the same tensors
+    plain = Engine(eng.model, eng.params, tok, bundles, max_len=512,
+                   slots=8, device="cuda")
+    plain.generate(sharded_requests()[:1])           # warm-up
+    eng.generate(sharded_requests()[:1])
+    # alternating order (u s, s u, u s, ...) so that drift on the host
+    # falls on both sides alike
+    order = []
+    for i in range(SHARD_PAIRS):
+        order += [("unsharded", plain), ("sharded", eng)][::1 - 2 * (i % 2)]
+    ms = {"unsharded": [], "sharded": []}
+    launches, u_tok = {}, None
+    for name, e in order:
+        states, stats, lc = run_counted(
+            torch, counters, lambda: e.generate(sharded_requests()))
+        check_outputs(states, bundles)
+        got = tokens_of(states)
+        if u_tok is None:
+            u_tok = got
+            bad = same_prefix(got, unsharded["dense"])
+            if bad:
+                raise AssertionError(f"world 1: requests {bad} differ from "
+                                     f"phase 5's dense run")
+        if got != u_tok:
+            raise AssertionError(f"world 1: {name} dense tokens differ from "
+                                 f"the first run's")
+        want = stats.decode_steps if name == "sharded" else 0
+        if lc["apply_grammar_mask"] != want or \
+                lc["fused_mask_select"] < stats.decode_steps:
+            raise AssertionError(f"world 1 {name} dense launches {lc} in "
+                                 f"{stats.decode_steps} steps")
+        launches[name] = (lc, stats.decode_steps)
+        ms[name].append(1e3 * stats.wall / stats.decode_steps)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    s_l, steps = launches["sharded"]
+    log(f"phase 12 world 1 (NCCL, in process) dense, 8 requests x "
+        f"{SHARD_NEW}: tokens identical to the unsharded engine's and to "
+        f"phase 5's; ms a step over {SHARD_PAIRS} runs a side in "
+        f"alternating order: sharded median {med['sharded']:.2f} (range "
+        f"{min(ms['sharded']):.2f}-{max(ms['sharded']):.2f}; "
+        f"{[round(x, 2) for x in ms['sharded']]}), unsharded median "
+        f"{med['unsharded']:.2f} (range {min(ms['unsharded']):.2f}-"
+        f"{max(ms['unsharded']):.2f}; "
+        f"{[round(x, 2) for x in ms['unsharded']]}); {steps} steps; "
+        f"launches sharded {s_l}, unsharded {launches['unsharded'][0]}")
+    out["dense"] = (ms, s_l, steps)
+    out["u_tokens"] = u_tok
+
+    states, stats, sl = run_counted(
+        torch, counters, lambda: eng.generate_speculative(e2e_requests()))
+    check_outputs(states, bundles)
+    if tokens_of(states) != unsharded["spec"]:
+        raise AssertionError("world 1: sharded speculative tokens differ "
+                             "from phase 5's")
+    if sl["apply_grammar_mask_span"] != stats.decode_steps:
+        raise AssertionError(f"world 1 speculative launches {sl} in "
+                             f"{stats.decode_steps} span steps")
+    log(f"phase 12 world 1 speculative, dense caches (16 x 64): tokens "
+        f"identical to phase 5's; {stats.decode_steps} steps, "
+        f"{1e3 * stats.wall / stats.decode_steps:.2f} ms a step; launches "
+        f"{sl}")
+    out["spec"] = sl
+
+    paged = Engine(eng.model, eng.params, tok, bundles, max_len=512,
+                   slots=8, paged=True, page_size=16, device="cuda",
+                   mesh=eng.mesh)
+    shared, _ = shared_prefix_requests(paged)
+    states, stats, pl = run_counted(
+        torch, counters, lambda: paged.generate(e2e_requests() + shared))
+    check_outputs(states, bundles)
+    if tokens_of(states) != unsharded["paged"]:
+        raise AssertionError("world 1: sharded paged tokens differ from "
+                             "phase 5's")
+    if not stats.prefix_hit_rate > 0:
+        raise AssertionError("world 1 paged run shared no prefix page")
+    log(f"phase 12 world 1 paged (16 + 8 sharing a prefix): tokens "
+        f"identical to phase 5's; prefix hit rate "
+        f"{stats.prefix_hit_rate:.4f}; {stats.decode_steps} steps, "
+        f"{1e3 * stats.wall / stats.decode_steps:.2f} ms a step; launches "
+        f"{pl}")
+    out["paged"] = pl
+
+    # the collectives alone, at the dense step's shapes
+    V = eng.model.cfg.vocab_size
+    x = torch.randn(8, V, device="cuda").bfloat16()
+    h = torch.randn(8, 1, eng.model.cfg.d_model, device="cuda").bfloat16()
+    vs, mesh = eng._vs, eng.mesh
+    out["gather_ms"] = (
+        cuda_ms(torch, lambda: all_gather_last(x, vs.widths, mesh)),
+        device_ms(torch, lambda: all_gather_last(x, vs.widths, mesh)))
+    out["reduce_ms"] = (cuda_ms(torch, lambda: vocab_all_reduce(h, mesh)),
+                        device_ms(torch, lambda: vocab_all_reduce(h, mesh)))
+    log(f"phase 12 world 1 collectives (NCCL, 1 rank): all_gather_last "
+        f"[8, {V}] bf16 {out['gather_ms'][0]:.4f} ms, device "
+        f"{out['gather_ms'][1]:.4f} ms (a dense step calls it once); "
+        f"vocab_all_reduce [8, 1, {h.shape[-1]}] bf16 "
+        f"{out['reduce_ms'][0]:.4f} ms, device {out['reduce_ms'][1]:.4f} "
+        f"ms")
+
+
+def shard_mask_rows(torch, np, launches):
+    """The shard-local masked_logits forms at V 50280 split over two ranks
+    (words 0-785 and 786-1571: 25152 + 25128 ids), real json rows at the
+    engine's accept bucket: each rank's block, concatenated, bitwise
+    equal to the unsharded kernel's row, with EOS in each shard in turn;
+    rank 0's block timed beside its plain version and bound. -> rows for
+    the kernels line."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.constrain import MAX_ACCEPT
+    from repro_torch.core.grammars import load_grammar
+    from repro_torch.core.mask_store import build_mask_store
+    from repro_torch.core.tokenizer import ByteTokenizer
+    from repro_torch.distributed.sharding import vocab_shard
+    from repro_torch.kernels.masked_logits.ops import (
+        apply_grammar_mask, apply_grammar_mask_shard,
+        apply_grammar_mask_span, apply_grammar_mask_span_shard)
+    from repro_torch.kernels.masked_logits.ref import (
+        masked_logits_ref, masked_logits_span_ref)
+    dev = torch.device("cuda")
+    tok = ByteTokenizer(SHARD_V)
+    g, tab = load_grammar("json")
+    fake = SimpleNamespace(bundles={"json": (g, tab, build_mask_store(
+        g, tok))}, tok=tok)
+    store, rows, eos, cd, cons_on = json_rows(torch, np, fake)
+    shards = [vocab_shard(SHARD_V, 2, r) for r in range(2)]
+    if tuple(s.width for s in shards) != (25152, 25128):
+        raise AssertionError(f"V {SHARD_V} split {shards}")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rng = np.random.default_rng(12)
+    K = 8
+    forms = {
+        "row": (apply_grammar_mask, apply_grammar_mask_shard,
+                masked_logits_ref, (8, SHARD_V), rows, cons_on, eos, cd),
+        "span": (apply_grammar_mask_span, apply_grammar_mask_span_shard,
+                 masked_logits_span_ref, (8, K, SHARD_V),
+                 np.repeat(rows[:, None], K, axis=1),
+                 np.repeat(cons_on[:, None], K, axis=1),
+                 np.repeat(eos[:, None], K, axis=1),
+                 np.repeat(cd[:, None], K, axis=1))}
+    out = []
+    for form, (whole, part, ref, shape, rset, cset, eset, cdw) in \
+            forms.items():
+        logits = t(rng.normal(scale=3.0, size=shape).astype(
+            np.float32)).bfloat16()
+        err = 0.0
+        for eos_id in (1, shards[1].v0 + 77):       # in shard 0, then 1
+            e = t(np.ones_like(eset))               # EOS open on every row
+            want = whole(logits, store, t(rset), e, eos_id=eos_id,
+                         constrained=t(cset), cd=t(cdw.view(np.int32)))
+            blocks = []
+            for s in shards:
+                args = (logits[..., s.v0:s.v1].contiguous(),
+                        store[:, s.w0:s.w1].contiguous(), t(rset), e, s)
+                kw = {"eos_id": eos_id, "constrained": t(cset),
+                      "cd": t(cdw[..., s.w0:s.w1].view(np.int32))}
+                blocks.append(part(*args, **kw))
+            got = torch.cat(blocks, dim=-1)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"masked_logits {form} shards at V "
+                                     f"{SHARD_V}, eos {eos_id}: differ "
+                                     f"from the unsharded kernel")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        s = shards[0]
+        args = (logits[..., s.v0:s.v1].contiguous(),
+                store[:, s.w0:s.w1].contiguous(), t(rset), t(eset), s)
+        kw = {"constrained": t(cset),
+              "cd": t(cdw[..., s.w0:s.w1].view(np.int32))}
+        plain_args = args[:4]
+        plain_kw = dict(kw, eos_id=s.local_id(1))
+        mk, mr = part(*args, **kw), ref(*plain_args, **plain_kw)
+        torch.cuda.synchronize()
+        if not torch.equal(mk.view(torch.int16), mr.view(torch.int16)):
+            raise AssertionError(f"masked_logits {form} shard: differs from "
+                                 f"the plain version")
+        ms = cuda_ms(torch, lambda: part(*args, **kw))
+        dev_ms = device_ms(torch, lambda: part(*args, **kw))
+        plain = cuda_ms(torch, lambda: ref(*plain_args, **plain_kw))
+        n_rows = rset.reshape(-1, rset.shape[-1]).shape[0]
+        nbytes = _mask_bytes(np, args[0].numel() * 2,
+                             rset.reshape(n_rows, -1), cset.reshape(-1),
+                             s.w1 - s.w0)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        name = "masked_logits" if form == "row" else "masked_logits_span"
+        shp = (f"B=8{' K=8' if form == 'span' else ''} V={SHARD_V} rank 0 "
+               f"of 2 ({s.width} ids, {s.w1 - s.w0} words) bf16 "
+               f"A={MAX_ACCEPT}")
+        log(f"{name} shard {shp}: both shards joined bitwise equal to the "
+            f"unsharded kernel (EOS in shard 0, then 1); {ms:.4f} ms, "
+            f"device {dev_ms:.4f} ms; plain {plain:.4f} ms; bound "
+            f"{bound:.6f} ms ({nbytes} bytes)")
+        out.append({"name": f"{name} (vocab shard)", "route": "cuda",
+                    "source": "src/repro_torch/csrc/masked_logits.cu",
+                    "replaces": "src/repro/kernels/masked_logits/kernel.py:"
+                                + ("164" if form == "row" else "112"),
+                    "model": "smollm-360m sharded (phase 12)",
+                    "shape": shp, "launches": launches[form],
+                    "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain, "bound_ms": bound,
+                    "bound_by": "bytes", "library_ms": None,
+                    "library_device_ms": None})
+    return out
+
+
+def phase_sharded(torch, np, counters, unsharded):
+    """Phase 12: tensor-parallel serving (vocab parallelism). World 1
+    over NCCL in this process: dense, speculative and paged runs, tokens
+    identical to the unsharded engine's and phase 5's; world 2 on the one
+    card over gloo (NCCL refuses two ranks on one device); then the
+    shard-local masked_logits at V 50280. -> kernel rows."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    w1 = {}
+    spawn(1, sharded_world1, torch, counters, unsharded, w1, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn(2, sharded_world2_rank, 2, backend="gloo", device="cuda")
+    for r, res in enumerate(ranks):
+        if res["tokens"] != w1["u_tokens"]:
+            raise AssertionError(f"world 2 rank {r}: tokens differ from the "
+                                 f"unsharded engine's")
+        if res["launches"]["apply_grammar_mask"] != res["steps"] or \
+                res["steps"] == 0:
+            raise AssertionError(f"world 2 rank {r}: masked_logits launched "
+                                 f"{res['launches']} in {res['steps']} "
+                                 f"constrained steps")
+        if res["store"][1] != 768 or res["mesh_devices"] != 2:
+            raise AssertionError(f"world 2 rank {r}: store {res['store']}")
+        log(f"phase 12 world 2 rank {r} ({res['backend']}, {res['device']}"
+            f"): tokens identical to the unsharded engine's; "
+            f"{res['steps']} steps, {1e3 * res['wall'] / res['steps']:.2f} "
+            f"ms a step (host-relayed gloo, not representative); store "
+            f"{res['store']}; launches {res['launches']}; complete "
+            f"{res['complete']}, valid among complete "
+            f"{res['valid']}/{res['complete']}")
+    launches = {"row": w1["dense"][1]["apply_grammar_mask"]
+                + w1["paged"]["apply_grammar_mask"]
+                + ranks[0]["launches"]["apply_grammar_mask"],
+                "span": w1["spec"]["apply_grammar_mask_span"]}
+    rows = shard_mask_rows(torch, np, launches)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2981,7 +3319,11 @@ def main():
     launches, dense_states = phase_e2e(torch, engine, bundles, counters)
     rows[0]["launches"] = launches["fused_mask_select"]
     rows[1]["launches"] = launches["attention"]
-    found = phase_new_paths(torch, engine, bundles, counters, dense_states)
+    found, path_states = phase_new_paths(torch, engine, bundles, counters,
+                                         dense_states)
+    # phase 12 holds the sharded engine to these token streams
+    unsharded = {"dense": tokens_of(dense_states),
+                 **{k: tokens_of(v) for k, v in path_states.items()}}
     for r in rows[2:]:
         r["launches"] = found[r["name"]]
     stamp("phase 5")
@@ -3004,6 +3346,8 @@ def main():
     stamp("phase 10")
     rows += phase_vlm(torch, np, counters)
     stamp("phase 11")
+    rows += phase_sharded(torch, np, counters, unsharded)
+    stamp("phase 12")
 
     for r in rows:
         r.pop("key", None)

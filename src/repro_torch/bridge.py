@@ -14,6 +14,11 @@ extension. `to_torch` accepts any numpy array whose dtype is named
 leaves as their uint16 bit image, which a JAX caller views back with
 `.view(jnp.bfloat16)`.
 
+`shard_params` cuts one rank's block out of a (bridged) param tree for
+the sharded serving engine: the rows of `embed` and the columns of
+`lm_head` that hold its vocab ids (`distributed/sharding.py::
+vocab_slice`), every other leaf whole.
+
 The same calls carry an optimizer state ({"mu", "nu", "step"}: fp32
 moment trees and a 0-dim int32 step) between `repro.training.optimizer`
 and `repro_torch.training.optimizer`; 0-dim leaves keep their shape.
@@ -22,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .distributed.sharding import map_with_path, vocab_slice
 
 
 def _map(tree, fn):
@@ -64,3 +71,15 @@ def to_numpy(tree):
 def to_device(tree, device):
     """Same tree with every tensor moved to `device`."""
     return _map(tree, lambda t: t.to(device))
+
+
+def shard_params(tree, shard):
+    """One rank's serving params: each leaf cut to `vocab_slice` of the
+    rank's `VocabShard` (a contiguous copy where cut, the leaf itself
+    where whole)."""
+    def cut(path, t):
+        sl = vocab_slice(path, tuple(t.shape), shard)
+        if all(s.start == 0 and s.stop == n for s, n in zip(sl, t.shape)):
+            return t
+        return t[sl].contiguous()
+    return map_with_path(cut, tree)

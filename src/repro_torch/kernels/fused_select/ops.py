@@ -9,6 +9,13 @@ A CPU tensor takes the plain version (`ref.py`); a CUDA tensor launches
 the Hopper kernel (`csrc/fused_select.cu`) or raises. There is no other
 routing and no fallback. `fused_mask_select.launches` counts kernel
 launches (never plain-version calls).
+
+`fused_mask_select_sharded` is the sharded engine's route: each rank
+masks its own vocab block (`masked_logits`, shard-local), one all-gather
+joins the masked rows, and this kernel selects on the whole row,
+unconstrained (rows = -1, no residue, flags off), as the engine's
+resample already does. Every rank holds the same row and noise, so every
+rank selects the same ids.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ...distributed.api import all_gather_last
+from ..masked_logits.ops import apply_grammar_mask_shard
 from .ref import NEG_INF, fused_select_ref, gumbel_noise  # noqa: F401
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13
@@ -179,6 +188,28 @@ def fused_mask_select(logits, store, rows, cd, eos_allowed, constrained,
 
 
 fused_mask_select.launches = 0
+
+
+def fused_mask_select_sharded(logits, store, rows, cd, eos_allowed,
+                              constrained, greedy_flags, temperature, top_k,
+                              top_p, *, shard, mesh, blank_store, noise=None,
+                              eos_id: int = 1):
+    """The [B, V] selection of a rank whose vocabulary block is `shard`
+    (a `VocabShard`) on `mesh`: logits [B,V_s] its block, store [R,W_s]
+    and cd [B,W_s] its words; `blank_store` a zero [1, W] store (the
+    whole-row call reads none of it). -> (ids [B] int32, masked [B, V]
+    whole, ok [B] bool), the same on every rank."""
+    masked = all_gather_last(
+        apply_grammar_mask_shard(logits, store, rows, eos_allowed, shard,
+                                 eos_id=eos_id, constrained=constrained,
+                                 cd=cd), shard.widths, mesh)
+    B = masked.shape[0]
+    off = torch.zeros(B, dtype=torch.bool, device=masked.device)
+    return fused_mask_select(
+        masked, blank_store,
+        torch.full((B, 1), -1, dtype=torch.int32, device=masked.device),
+        None, off, off, greedy_flags, temperature, top_k, top_p,
+        noise=noise, eos_id=eos_id)
 
 
 def fused_mask_select_span(logits, store, rows, cd, eos_allowed,

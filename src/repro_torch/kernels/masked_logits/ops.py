@@ -4,7 +4,15 @@
 `apply_grammar_mask_span` ([B, K, V], speculative verify) union each
 row's precomputed store rows with its residue words, open EOS where the
 parser allows it, and fill everything outside the mask with -1e30.
-Rows whose `constrained` flag is False pass through unchanged.
+Rows whose `constrained` flag is False pass through unchanged. An
+`eos_id` outside [0, V) opens nothing (the kernel bounds it).
+
+`apply_grammar_mask_shard` and `apply_grammar_mask_span_shard` are the
+sharded engine's shard-local forms: a rank's logits [.., V_s] hold vocab
+ids [v0, v1), its store and residue words are words [w0, w1) with
+v0 = 32*w0, so bit j of its word i is its column 32*i + j and the same
+kernel runs on them unchanged; only the EOS id moves to the rank's
+column (out of range on every other rank).
 
 A CPU tensor takes the plain version (`ref.py`); a CUDA tensor launches
 the Hopper kernel (`csrc/masked_logits.cu`; one kernel serves both
@@ -129,8 +137,7 @@ def _launch(logits, store, rows, eos_allowed, constrained, cd, eos_id):
     N, V = logits.shape
     R, W = store.shape
     A = rows.shape[1]
-    if W * 32 < V or not 1 <= A <= MAX_IDS or N < 1 or R < 1 or \
-            not 0 <= eos_id < V:
+    if W * 32 < V or not 1 <= A <= MAX_IDS or N < 1 or R < 1:
         raise ValueError(f"masked_logits: unsupported V={V}, W={W}, A={A}, "
                          f"R={R}, rows={N}, eos_id={eos_id}")
     _check(store, "store", torch.int32, (R, W), dev)
@@ -195,6 +202,26 @@ def apply_grammar_mask_span(logits, store, rows, eos_allowed, *,
                   flat(constrained), flat(cd), eos_id)
     apply_grammar_mask_span.launches += 1
     return out.reshape(B, K, V)
+
+
+def apply_grammar_mask_shard(logits, store, rows, eos_allowed, shard, *,
+                             eos_id: int = 1, constrained=None, cd=None):
+    """Row form on one rank's block: logits [B,V_s], store [R,W_s], cd
+    [B,W_s] or None; `shard` the rank's `VocabShard`. Launches count as
+    `apply_grammar_mask`'s."""
+    return apply_grammar_mask(logits, store, rows, eos_allowed,
+                              eos_id=shard.local_id(eos_id),
+                              constrained=constrained, cd=cd)
+
+
+def apply_grammar_mask_span_shard(logits, store, rows, eos_allowed, shard,
+                                  *, eos_id: int = 1, constrained=None,
+                                  cd=None):
+    """Span form on one rank's block: logits [B,K,V_s], store [R,W_s], cd
+    [B,K,W_s] or None. Launches count as `apply_grammar_mask_span`'s."""
+    return apply_grammar_mask_span(logits, store, rows, eos_allowed,
+                                   eos_id=shard.local_id(eos_id),
+                                   constrained=constrained, cd=cd)
 
 
 apply_grammar_mask.launches = 0

@@ -4,7 +4,9 @@
 Semantics: for each batch row b, union the packed mask-store rows
 `rows[b, :]` (int32 row ids, -1 = padding) seeded with the residue words
 `cd[b]`, unpack the resulting bitmask, and replace logits outside the
-mask with NEG_INF. `eos_allowed[b]` additionally opens the EOS position;
+mask with NEG_INF. `eos_allowed[b]` additionally opens the EOS position
+(an `eos_id` outside [0, V) opens nothing: the sharded engine passes one
+on the ranks that do not own EOS);
 rows whose `constrained[b]` is False pass through unmasked.
 
 `kernels/masked_logits/ops.py` takes these for CPU tensors and launches
@@ -30,7 +32,8 @@ def masked_logits_ref(logits, store, rows, eos_allowed, eos_id: int = 1,
     if cd is not None:
         words = words | cd
     mask = unpack_mask_words(words, V)
-    mask[:, eos_id] |= eos_allowed
+    if 0 <= eos_id < V:         # an id outside [0, V) is never opened
+        mask[:, eos_id] |= eos_allowed
     if constrained is not None:
         mask |= ~constrained[:, None]
     return logits.masked_fill(~mask, NEG_INF)

@@ -7,7 +7,8 @@ Usage (on the card; `--device cpu` runs the same path on the CPU):
       [--greedy] [--grammar-mode grammar_mask|grammar_strict] \
       [--paged [--page-size 16] [--num-pages N]] [--opportunistic] \
       [--speculative [--draft-k 4] [--max-jump 16] [--proposer sam|ngram]
-       [--literal-jump]] [--sequential] [--no-overlap] [--devtime]
+       [--literal-jump]] [--sequential] [--no-overlap] [--devtime] \
+      [--mesh N]
 
   --serve [--host 127.0.0.1] [--port 8400] starts the streaming HTTP
   endpoint (serving/server.py) over one persistent AsyncEngine instead
@@ -20,6 +21,14 @@ smollm-360m and syncode-demo, the MoE qwen3-moe-30b-a3b (all 48 layers,
 61 GB in bf16), the SSM mamba2-370m and the hybrid recurrentgemma-9b.
 The recurrent archs (mamba2, recurrentgemma) prefill at exact length and
 refuse `--paged` and `--speculative`, as the reference does.
+
+`--mesh N` serves tensor-parallel over N ranks (vocab parallelism,
+token for token the single-device engine's where the split lm_head
+product is bitwise the whole one, as `serving/engine.py` states): N
+processes on N devices (`launch/mesh.py::spawn`), NCCL on the card and
+gloo with `--device cpu`; N = 1 runs in this process. Every rank serves
+the same requests; rank 0 prints the summary and, with `--serve`, runs
+the HTTP front end while the others follow its step loop.
 
 Weights are random, drawn from `--seed` by a torch.Generator on the
 device, or loaded with `--checkpoint` from a msgpack checkpoint that
@@ -44,6 +53,7 @@ from ..device import resolve_device
 from ..models.model import build_model
 from ..serving.engine import Engine, Request
 from ..spec import SpecConfig
+from .mesh import make_serving_mesh, spawn
 
 
 def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
@@ -51,15 +61,21 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
                  page_size=16, num_pages=None, prefill_chunk=32, overlap=True,
                  grammar_mode="grammar_mask", telemetry=True, devtime=False,
                  noise_fn=None, device="cuda", params=None, num_layers=None,
-                 checkpoint=None):
+                 checkpoint=None, mesh=None, trunk_shard=False):
     """-> (engine, bundles, tokenizer). `params` (a port param tree on
     `device`) replaces the seeded random init, e.g. bridged reference
     weights in the parity tests; `checkpoint` (a msgpack file of either
     package) then replaces every leaf, as the reference's flag does.
     `num_layers` keeps the config's first layers and every width
     (chip_smoke.py serves qwen3-moe at 8 of 48 to bound its run time).
-    The other keywords are the Engine's."""
-    dev = resolve_device(device)
+    `mesh`: None, an int (the model-parallel degree over this process
+    group's ranks, `make_serving_mesh`; 1 needs no group) or a
+    `ServingMesh`; the engine then runs on the mesh's device, and each
+    rank keeps its vocab block of the same seeded weights. The other
+    keywords are the Engine's."""
+    if isinstance(mesh, int):
+        mesh = make_serving_mesh(mesh, device=device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     cfg = get_config(arch)
     if num_layers:
         cfg = replace(cfg, num_layers=num_layers)
@@ -83,7 +99,8 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
                   prefill_chunk=prefill_chunk,
                   overlap=overlap, grammar_mode=grammar_mode,
                   telemetry=telemetry, devtime=devtime, noise_fn=noise_fn,
-                  device=dev), bundles, tok
+                  device=dev, mesh=mesh, trunk_shard=trunk_shard), \
+        bundles, tok
 
 
 def main(argv=None):
@@ -141,8 +158,25 @@ def main(argv=None):
     ap.add_argument("--devtime", action="store_true",
                     help="bench/profile mode: device spans synchronize so "
                          "stats carry device intervals (adds syncs)")
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="tensor-parallel serving over N ranks on N "
+                         "devices: embed/lm_head, logits, the packed mask "
+                         "store and the mask path split by vocab, token "
+                         "for token the single-device engine's")
+    ap.add_argument("--trunk-shard", action="store_true",
+                    help="with --mesh: the reference's megatron-style "
+                         "trunk sharding (not ported: raises)")
     args = ap.parse_args(argv)
+    if args.mesh is None:
+        _serve(None, args)
+    else:
+        spawn(args.mesh, _serve, args, device=args.device)
 
+
+def _serve(rank, args):
+    """One rank's run (rank None: no mesh). Rank 0, or the single
+    process, prints; with --serve the other ranks follow its loop."""
+    lead = not rank
     engine, bundles, tok = build_engine(
         args.arch, grammars=(args.grammar,),
         opportunistic=args.opportunistic, slots=args.slots,
@@ -150,7 +184,9 @@ def main(argv=None):
         num_pages=args.num_pages, overlap=not args.no_overlap,
         grammar_mode=args.grammar_mode, telemetry=not args.no_telemetry,
         devtime=args.devtime, device=args.device,
-        checkpoint=args.checkpoint)
+        checkpoint=args.checkpoint,
+        mesh=None if rank is None else args.mesh,
+        trunk_shard=args.trunk_shard)
 
     spec = None
     if args.speculative:
@@ -160,9 +196,13 @@ def main(argv=None):
     if args.serve:
         import asyncio
 
-        from ..serving.async_engine import AsyncEngine
+        from ..serving.async_engine import AsyncEngine, run_follower
         from ..serving.server import run_server
-        aeng = AsyncEngine(engine, spec=spec, verbose=True)
+        if not lead:
+            run_follower(engine, spec=spec, speculative=args.speculative)
+            return
+        aeng = AsyncEngine(engine, spec=spec, speculative=args.speculative,
+                           verbose=True)
         try:
             asyncio.run(run_server(aeng, host=args.host, port=args.port))
         except KeyboardInterrupt:
@@ -176,11 +216,13 @@ def main(argv=None):
                     decode=dc, seed=i) for i in range(args.num_requests)]
     if args.speculative:
         states, stats = engine.generate_speculative(reqs, spec=spec,
-                                                    verbose=True)
+                                                    verbose=lead)
     else:
         run = (engine.generate_sequential if args.sequential
                else engine.generate)
-        states, stats = run(reqs, verbose=True)
+        states, stats = run(reqs, verbose=lead)
+    if not lead:
+        return
 
     g, tab, _ = bundles[args.grammar]
     p = IncrementalParser(g, tab)
@@ -190,6 +232,9 @@ def main(argv=None):
           f"({stats.decode_steps} decode steps x {stats.batch_slots} slots)"
           f" | mask {stats.mask_time:.2f}s/{stats.mask_computations} | "
           f"opportunistic hits {stats.opportunistic_hits}")
+    if stats.mesh_devices > 1:
+        print(f"tensor-parallel: {stats.mesh_devices}-device mesh "
+              f"(vocab-sharded mask path)")
     if args.speculative:
         print(f"speculation: jump {stats.jump_tokens} tokens "
               f"({stats.jump_fraction:.0%} of output), drafts "

@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..distributed.api import current_mesh, current_vocab, vocab_all_reduce
+
 NEG_INF = -1e30
 
 
@@ -152,10 +154,26 @@ def init_embed(gen, cfg, dtype):
 
 
 def embed_tokens(p, tokens):
-    return p["embed"][tokens.long()]
+    """tokens [...] -> [..., D]. Under a sharded engine whose vocabulary
+    is split (`distributed.api.current_vocab()`), `p["embed"]` holds only
+    this rank's rows [v0, v1): each rank looks up the ids it owns, zeros
+    elsewhere, and one all-reduce SUM adds the single true row to zeros,
+    which is exact."""
+    vs = current_vocab()
+    if vs is None or not vs.split:
+        return p["embed"][tokens.long()]
+    local = tokens.long() - vs.v0
+    own = (local >= 0) & (local < vs.width)
+    rows = p["embed"][local.clamp(0, vs.width - 1)]
+    rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+    return vocab_all_reduce(rows, current_mesh())
 
 
 def lm_logits(p, x, cfg):
+    """-> logits [..., V], or [..., V_s] of this rank's vocab ids when the
+    params are a rank's shard (`bridge.shard_params`): each column is the
+    whole contraction over D, as in the unsharded product (tied configs
+    use the embed's rows transposed)."""
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return x @ p["embed"].T

@@ -38,7 +38,10 @@ Public API (functions over a params tree):
   model.decode_step(params, caches, token, pos)  -> (logits [B,V], caches)
   model.decode_span(params, caches, tokens, pos, feed_mask, batch_ctx)
                                                  -> (logits [B,S,V], caches)
-Decode updates `caches` in place and returns the same object. Training
+Decode updates `caches` in place and returns the same object. Given one
+rank's serving params (`bridge.shard_params`) inside the sharded engine's
+`use_sharding` context, V is the rank's vocab block V_s: the lookup
+combines across ranks (`common.embed_tokens`), the trunk is whole. Training
 differentiates with torch autograd; `cfg.remat` checkpoints each layer
 (`torch.utils.checkpoint`, non-reentrant) where the reference wraps its
 scan body in `jax.checkpoint`. Paged KV

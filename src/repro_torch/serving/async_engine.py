@@ -22,6 +22,12 @@ against a live `QueueSource`; asyncio callers talk to it through
                           stop the loop thread. `abort()` cancels
                           everything first.
 
+Sharded engines (`Engine(mesh=...)`): the front end runs on rank 0
+alone. Every other rank calls `run_follower(engine, ...)` with the same
+mode arguments: it runs the same `StepLoop`, fed by rank 0's
+per-iteration broadcast (serving/loop.py), until rank 0's loop ends on
+`drain()`. Hot grammar loads reach the followers through that broadcast.
+
 Thread bridging: the loop thread never touches the event loop directly —
 tokens and finishes are posted with `call_soon_threadsafe` onto
 per-request asyncio queues. Cancellation crosses the other way as a
@@ -40,7 +46,7 @@ from ..obs import Telemetry
 from ..spec.scheduler import SpecConfig
 from .devbridge import attach as _attach_devbridge
 from .engine import Engine, Request, RequestState
-from .loop import QueueSource, StepLoop, make_mode
+from .loop import ListSource, QueueSource, StepLoop, make_mode
 
 _DONE = object()
 
@@ -152,8 +158,15 @@ class AsyncEngine:
         self._loop_error: Optional[BaseException] = None
         self._aio: Optional[asyncio.AbstractEventLoop] = None
         self._next_rid = 0
+        self._loading: set = set()      # grammar names posted, not applied
 
     # ------------------------------ loop ------------------------------
+
+    def start(self) -> None:
+        """Start the step loop now, not at the first submit (a sharded
+        engine's followers wait on its broadcast from the start). Must be
+        called from a running asyncio event loop; idempotent."""
+        self._ensure_started()
 
     def _ensure_started(self) -> None:
         if self._thread is not None:
@@ -269,7 +282,15 @@ class AsyncEngine:
         """
         if self._loop_error is not None:
             raise RuntimeError("step loop died") from self._loop_error
-        if self._thread is None or not self._thread.is_alive():
+        mesh = self.engine.mesh
+        if mesh is not None and mesh.size > 1:
+            # the other ranks replay the registration, so it must not
+            # fail there: refuse a bad one here, and run it on the loop
+            self.engine.check_grammar(name, bundle)
+            if name in self._loading:
+                raise ValueError(f"grammar {name!r} already loading")
+            self._ensure_started()
+        elif self._thread is None or not self._thread.is_alive():
             self.engine.register_grammar(name, bundle)
             return
         aio = asyncio.get_running_loop()
@@ -283,7 +304,17 @@ class AsyncEngine:
                 box[0] = e
             aio.call_soon_threadsafe(done.set)
 
-        self._loop_obj.post_control(apply)
+        self._loading.add(name)
+        self._loop_obj.post_control(
+            apply, replicate=("register_grammar", (name, bundle)))
+        try:
+            await self._await_control(done, name, bundle)
+        finally:
+            self._loading.discard(name)
+        if box[0] is not None:
+            raise box[0]
+
+    async def _await_control(self, done, name, bundle) -> None:
         while not done.is_set():
             try:
                 await asyncio.wait_for(done.wait(), timeout=0.2)
@@ -294,8 +325,6 @@ class AsyncEngine:
                     if name not in self.engine.bundles:
                         self.engine.register_grammar(name, bundle)
                     return
-        if box[0] is not None:
-            raise box[0]
 
     async def generate(self, requests: list[Request]):
         """Async twin of Engine.generate/generate_speculative: submit
@@ -330,3 +359,23 @@ class AsyncEngine:
         for h in handles:
             h.cancel()
         await self.drain()
+
+
+def run_follower(engine: Engine, spec: Optional[SpecConfig] = None,
+                 speculative: bool = False, overlap: Optional[bool] = None,
+                 telemetry: Optional[Telemetry] = None,
+                 keep_states: bool = False):
+    """A follower rank's side of a sharded AsyncEngine (rank 0 runs the
+    front end): the same step loop and mode as rank 0's AsyncEngine, fed
+    by rank 0's broadcast, until rank 0's loop ends. -> (states, or None
+    without `keep_states`; stats)."""
+    mesh = engine.mesh
+    if mesh is None or mesh.rank == 0:
+        raise ValueError("run_follower runs on the ranks 1.. of a sharded "
+                         "engine's mesh; rank 0 runs the AsyncEngine")
+    loop = StepLoop(engine, make_mode(engine, spec=spec,
+                                      speculative=speculative,
+                                      overlap=overlap),
+                    ListSource([]), keep_states=keep_states,
+                    telemetry=telemetry)
+    return loop.run()

@@ -38,11 +38,37 @@ Sampling draws standard-Gumbel noise through an injectable
 draws on the device from a torch.Generator per row seeded by the row's
 key, so a slot's stream depends only on its own progress.
 
-Not ported here: mesh/tensor-parallel serving.
+Tensor-parallel serving (`mesh=`, `launch/mesh.py::make_serving_mesh`):
+every rank of the mesh runs this engine over the same requests, SPMD,
+one process and one device a rank. The vocabulary family is split at the
+mask store's word boundaries (`distributed/sharding.py::vocab_shard`):
+each rank holds its rows of `embed`, its columns of `lm_head` (so its
+logits are [.., V_s]) and its words of the packed store, and masks its
+own block (`masked_logits`, shard-local); one all-gather of the masked
+rows precedes the selection, which every rank runs on the same
+replicated row with the same noise (`fused_mask_select` unconstrained,
+`select_span`, the resample and the host fallbacks), so every rank
+commits the same ids. The embedding lookup combines with one all-reduce;
+the trunk, the caches, the page pools and the host-side page tables are
+replicated. Output is token for token the single-device engine's where
+the column-split lm_head product is bitwise the whole one: in the CPU
+tests (fp32, 1, 2 and 4 ranks), and on the H100 in bf16 at every split and
+row count measured there (`scripts/shard_probe.py`: V 49152 in 2 and 4
+blocks, V 50280 in 2, 1 to 512 rows) and in fp32 at 2 blocks. In fp32 at
+4 blocks of V 49152 cuBLAS's product differed (up to 2.7e-4 at 8 and 64
+rows), so fp32 on the card at more than 2 ranks may change tokens: the
+engine warns there, and that case is unverified. What
+wall time or other threads decide (admissions, cancellations, deadlines,
+hot grammar loads) rank 0 decides and broadcasts once per loop iteration
+(serving/loop.py). Not ported yet: `trunk_shard=True`, the reference's
+megatron-style trunk sharding, which gives that identity up (ROADMAP
+queue 1 item 6); it raises NotImplementedError.
 """
 from __future__ import annotations
 
+import contextlib
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -53,10 +79,15 @@ from ..core.constrain import GrammarConstraint, MAX_ACCEPT, accept_width
 from ..core.decoding import (DecodeConfig, NEG_INF, select_batch,
                              select_span)
 from ..core.tokenizer import BOS_ID, ByteTokenizer, EOS_ID
+from ..bridge import shard_params
 from ..device import resolve_device
-from ..kernels.fused_select.ops import fused_mask_select, gumbel_noise
-from ..kernels.masked_logits.ops import (apply_grammar_mask,
-                                         apply_grammar_mask_span)
+from ..distributed.api import all_gather_last, use_sharding
+from ..distributed.sharding import vocab_shard
+from ..kernels.fused_select.ops import (fused_mask_select,
+                                        fused_mask_select_sharded,
+                                        gumbel_noise)
+from ..kernels.masked_logits.ops import (apply_grammar_mask_shard,
+                                         apply_grammar_mask_span_shard)
 from ..obs import Telemetry
 from ..spec.scheduler import SPAN_BUCKETS, SlotPhase, SpecConfig
 from .kvpool import PagedAllocator, PoolExhausted
@@ -145,6 +176,7 @@ class EngineStats:
     device_mask_sample_s: float = 0.0       # synced mask+sample intervals
     overlap_hidden_s: float = 0.0
     attribution: Optional[dict] = None
+    mesh_devices: int = 1                   # tensor-parallel mesh size
 
     @property
     def tokens_per_sec(self):
@@ -189,7 +221,8 @@ class Engine:
                  num_pages: Optional[int] = None, prefill_chunk: int = 32,
                  overlap: bool = True, grammar_mode: str = "grammar_mask",
                  telemetry: bool = True, devtime: bool = False,
-                 noise_fn: Optional[Callable] = None, device="cuda"):
+                 noise_fn: Optional[Callable] = None, device="cuda",
+                 mesh=None, trunk_shard: bool = False):
         """grammar_bundles: name -> (grammar, table, store).
         slots: decode-pool width B. paged: serve KV through the shared
         page pool (page-table attention, refcounted prefix sharing,
@@ -206,12 +239,43 @@ class Engine:
         engine's device (N = B per step, B*S per speculative span, 1 per
         sequential draw); default `gumbel_noise` on that device.
         device: where params live and the engine runs ("cuda" by
-        default; raises without a card unless "cpu" is asked for)."""
+        default; raises without a card unless "cpu" is asked for).
+        mesh: a `ServingMesh` with a "model" axis (launch/mesh.py) --
+        serve tensor-parallel with the other ranks of its group, which run
+        this engine on the same requests (module docstring); `params` are
+        the whole tree, each rank keeps its block; the engine runs on the
+        mesh's device. trunk_shard: the reference's megatron-style trunk
+        sharding; not ported (NotImplementedError)."""
         if grammar_mode not in GrammarConstraint.MODES:
             raise ValueError(f"unknown grammar_mode {grammar_mode!r}; "
                              f"expected one of {GrammarConstraint.MODES}")
-        self.device = resolve_device(device)
+        if trunk_shard:
+            raise NotImplementedError(
+                "trunk_shard=True (megatron-style trunk sharding) is not "
+                "ported yet: ROADMAP queue 1 item 6, the next slice")
+        self.mesh = mesh
+        # this rank's VocabShard; the whole vocabulary without a mesh
+        self._vs = vocab_shard(model.cfg.vocab_size, 1, 0)
+        if mesh is not None:
+            if "model" not in mesh.axis_names:
+                raise ValueError(
+                    "serving mesh needs a 'model' axis "
+                    "(launch/mesh.py::make_serving_mesh)")
+            self._vs = vocab_shard(model.cfg.vocab_size,
+                                   mesh.shape["model"], mesh.rank)
+            self.device = mesh.device
+            params = shard_params(params, self._vs)
+        else:
+            self.device = resolve_device(device)
         pdev = params["embed_block"]["embed"].device
+        if self._split and self.device.type == "cuda" and \
+                self._vs.size > 2 and \
+                params["embed_block"]["embed"].dtype == torch.float32:
+            warnings.warn(
+                "fp32 vocab-parallel serving on the card over more than 2 "
+                "ranks is not verified token for token: the column-split "
+                "lm_head product is not bitwise the whole one there "
+                "(scripts/shard_probe.py); bf16 is", stacklevel=2)
         if pdev.type != self.device.type:
             raise ValueError(f"params live on {pdev}, engine on "
                              f"{self.device}")
@@ -248,10 +312,37 @@ class Engine:
         self._row_offset: dict[str, int] = {}
         self._rebuild_store_cat()
 
+    @property
+    def _split(self) -> bool:
+        """True when this engine holds one rank's block of a vocabulary
+        split across its mesh."""
+        return self.mesh is not None and self._vs.split
+
+    def _sharding(self):
+        """The sharding context of this engine's device calls (none
+        without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_sharding(self.mesh, self._vs)
+
+    def _gather(self, x):
+        """A rank's [.., V_s] block joined to the whole [.., V] row (the
+        identity without a mesh or when the vocabulary is replicated)."""
+        if not self._split:
+            return x
+        return all_gather_last(x, self._vs.widths, self.mesh)
+
+    def _words_local(self, words: np.ndarray) -> np.ndarray:
+        """[.., W] host words -> this rank's [.., W_s] (all of them
+        without a mesh)."""
+        return words[..., self._vs.w0:self._vs.w1]
+
     def _rebuild_store_cat(self):
         """Build the concatenated device store from self.bundles (the
         store lives on the device exactly once; a request's rows index
-        its grammar's block via the per-grammar row offset)."""
+        its grammar's block via the per-grammar row offset). Under a
+        split vocabulary the device keeps this rank's words [w0, w1);
+        `_words` stays the whole width the host layer builds."""
         self._row_offset = {}
         parts, off = [], 0
         for name, b in self.bundles.items():
@@ -261,8 +352,25 @@ class Engine:
         words = (self.tok.vocab_size + 31) // 32
         cat = (np.concatenate(parts, axis=0) if parts
                else np.zeros((1, words), np.uint32))
-        self._store_cat = torch.from_numpy(
-            np.ascontiguousarray(cat).view(np.int32)).to(self.device)
+        self._words = int(cat.shape[1])
+        self._store_cat = torch.from_numpy(np.ascontiguousarray(
+            self._words_local(cat)).view(np.int32)).to(self.device)
+        # the unconstrained selection over whole rows reads no store row
+        # (rows = -1): a rank's word block would not cover V, so it gets
+        # a blank whole-width one
+        self._select_store = self._store_cat if not self._split else \
+            torch.zeros((1, self._words), dtype=torch.int32,
+                        device=self.device)
+
+    def check_grammar(self, name: str, bundle) -> None:
+        """Raise ValueError where `register_grammar` would refuse."""
+        if name in self.bundles:
+            raise ValueError(f"grammar {name!r} already registered")
+        store = bundle[2]
+        if store.packed.shape[1] * 32 < self.tok.vocab_size:
+            raise ValueError(
+                f"store for {name!r} built for a smaller vocab "
+                f"({store.packed.shape[1] * 32} < {self.tok.vocab_size})")
 
     def register_grammar(self, name: str, bundle) -> None:
         """Hot-register a freshly compiled (grammar, table, store) bundle:
@@ -271,13 +379,7 @@ class Engine:
         next request, with no restart. Not safe while a step runs:
         `AsyncEngine.load_grammar` posts it onto the step loop's control
         queue, which drains between steps."""
-        if name in self.bundles:
-            raise ValueError(f"grammar {name!r} already registered")
-        store = bundle[2]
-        if store.packed.shape[1] * 32 < self.tok.vocab_size:
-            raise ValueError(
-                f"store for {name!r} built for a smaller vocab "
-                f"({store.packed.shape[1] * 32} < {self.tok.vocab_size})")
+        self.check_grammar(name, bundle)
         self.bundles[name] = bundle
         self._rebuild_store_cat()
 
@@ -294,19 +396,24 @@ class Engine:
     # ------------------------------ device steps ---------------------------
 
     def _decode(self, caches, token, pos):
-        """One [B] decode step; writes `caches` in place -> logits [B,V]."""
-        logits, _ = self.model.decode_step(self.params, caches, token, pos)
+        """One [B] decode step; writes `caches` in place -> logits [B,V]
+        ([B,V_s], this rank's block, under a split vocabulary)."""
+        with self._sharding():
+            logits, _ = self.model.decode_step(self.params, caches, token,
+                                               pos)
         return logits
 
     def _prefill(self, prompt, n):
-        return self.model.prefill(self.params, {"tokens": prompt},
-                                  cache_len=self.max_len, true_len=n)
+        with self._sharding():
+            return self.model.prefill(self.params, {"tokens": prompt},
+                                      cache_len=self.max_len, true_len=n)
 
     def _resample(self, masked, ban, redo, greedy, temp, top_k, top_p,
                   keys):
         """Ban one id per `redo` row, then select again through the same
         fused op, unconstrained (rows = -1): the card runs no second
-        selector. -> (masked, ids, ok)."""
+        selector. `masked` is the whole row on every rank.
+        -> (masked, ids, ok)."""
         B, V = masked.shape
         dev = self.device
         hit = (torch.arange(V, device=dev)[None, :] == ban[:, None]) & \
@@ -314,7 +421,7 @@ class Engine:
         masked = masked.masked_fill(hit, NEG_INF)
         noise = None if bool(np.all(greedy)) else self._noise(keys)
         ids, masked, ok = fused_mask_select(
-            masked, self._store_cat,
+            masked, self._select_store,
             torch.full((B, 1), -1, dtype=torch.int32, device=dev), None,
             torch.zeros(B, dtype=torch.bool, device=dev),
             torch.zeros(B, dtype=torch.bool, device=dev),
@@ -329,8 +436,10 @@ class Engine:
         """[B, S] span decode against dense caches, or through the page
         tables when given; writes `caches` in place -> logits [B,S,V]."""
         ctx = None if page_table is None else {"page_table": page_table}
-        logits, _ = self.model.decode_span(self.params, caches, tokens, pos,
-                                           feed_mask=fmask, batch_ctx=ctx)
+        with self._sharding():
+            logits, _ = self.model.decode_span(self.params, caches, tokens,
+                                               pos, feed_mask=fmask,
+                                               batch_ctx=ctx)
         return logits
 
     def span_feed_paged(self, caches, tokens, pos, fmask, page_table, sel):
@@ -360,11 +469,13 @@ class Engine:
         through) and select a token at every position. Host arrays ship
         as private copies. keys [B, S, 2] seed one noise row per (slot,
         position). -> (masked [B,S,V], ids [B,S] int32, ok [B,S] bool)."""
-        B, S, V = logits.shape
-        masked = apply_grammar_mask_span(
+        B, S, _ = logits.shape
+        V = self._vocab
+        # the rank's block masked, then the one gather of the masked span
+        masked = self._gather(apply_grammar_mask_span_shard(
             logits, self._store_cat, self._h2d(rows), self._h2d(eos),
-            constrained=self._h2d(constrained),
-            cd=self._h2d(cd.view(np.int32)))
+            self._vs, constrained=self._h2d(constrained),
+            cd=self._h2d(self._words_local(cd).view(np.int32))))
         noise = None
         if not bool(np.all(greedy)):
             noise = self._noise(keys.reshape(B * S, 2)).reshape(B, S, V)
@@ -409,18 +520,28 @@ class Engine:
         prompt[0, :n] = ids
         return self._h2d(prompt), n
 
-    def _admit_common(self, req: Request, b: int, caches):
+    def _admit_common(self, req: Request, b: int, caches, defer=None):
         """Build request state, prefill the prompt and insert its caches
-        into slot b of `caches` IN PLACE. -> state."""
+        into slot b of `caches` IN PLACE. -> state. With `defer` (a
+        list) the prefill and insert are appended to it as one call
+        instead: the step loop runs them after its host decisions, so a
+        sharded engine's broadcast of those decisions precedes the
+        prefill's collective on every rank."""
         st = RequestState(req=req, slot=b)
         st.constraint = self._make_constraint(req)
         ids = self._request_ids(req)
-        prompt, n = self._bucketed_prompt(ids[:-1])
-        _, pc = self._prefill(prompt, n)
-        for full_g, one_g in zip(caches, pc):
-            for full, one in zip(full_g, one_g):
-                for name in full:
-                    full[name][:, b] = one[name][:, 0]
+
+        def prefill():
+            prompt, n = self._bucketed_prompt(ids[:-1])
+            _, pc = self._prefill(prompt, n)
+            for full_g, one_g in zip(caches, pc):
+                for full, one in zip(full_g, one_g):
+                    for name in full:
+                        full[name][:, b] = one[name][:, 0]
+        if defer is None:
+            prefill()
+        else:
+            defer.append(prefill)
         st.token_ids = list(ids)
         st.pos = len(ids)
         st.prompt_len = len(ids)
@@ -506,7 +627,7 @@ class Engine:
                 if not bool(np.all(greedy)):
                     noise = self._noise(self._step_keys(seeds, salts, 0))
                 prop = select_batch(  # reprolint: dispatch
-                    logits, noise, self._h2d(greedy.copy()),
+                    self._gather(logits), noise, self._h2d(greedy.copy()),
                     self._h2d(temp.copy()), self._h2d(top_k.copy()),
                     self._h2d(top_p.copy())).cpu().numpy()
                 ctx.clean = False   # committed ids came from the
@@ -539,8 +660,8 @@ class Engine:
             rows, eos, _, groups = GrammarConstraint.ci_rows_batch(
                 cons, texts, max_accept=MAX_ACCEPT, row_offsets=offs)
         with obs.span("cd_check") as sp_cd:
-            cd = GrammarConstraint.cd_overlay_batch(
-                cons, groups, int(self._store_cat.shape[1]))
+            cd = GrammarConstraint.cd_overlay_batch(cons, groups,
+                                                    self._words)
         with obs.device_span("mask_sample") as dv:
             with obs.span("mask_dispatch") as sp_disp:
                 need_mask = np.array([c is not None for c in cons], bool)
@@ -551,13 +672,20 @@ class Engine:
                 if not bool(np.all(greedy)):
                     noise = self._noise_take(
                         self._step_keys(seeds, salts, 1))
-                ctx.ids, ctx.masked, ctx.ok = fused_mask_select(  # reprolint: dispatch
+                sel = fused_mask_select
+                kw = {"noise": noise}
+                if self._split:
+                    # the rank's block masked, gathered, then selected
+                    # whole (kernels/fused_select/ops.py)
+                    sel = fused_mask_select_sharded
+                    kw.update(shard=self._vs, mesh=self.mesh,
+                              blank_store=self._select_store)
+                ctx.ids, ctx.masked, ctx.ok = sel(  # reprolint: dispatch
                     logits, self._store_cat, self._h2d(rows.copy()),
-                    self._h2d(cd.view(np.int32).copy()),
+                    self._h2d(self._words_local(cd).view(np.int32).copy()),
                     self._h2d(eos.copy()), self._h2d(need_mask.copy()),
                     self._h2d(greedy.copy()), self._h2d(temp.copy()),
-                    self._h2d(top_k.copy()), self._h2d(top_p.copy()),
-                    noise=noise)
+                    self._h2d(top_k.copy()), self._h2d(top_p.copy()), **kw)
             dv.done((ctx.ids, ctx.ok))
         ctx.need_mask = need_mask
         ctr["mask_computations"] += int(need_mask.sum())
@@ -871,13 +999,14 @@ class Engine:
         return st
 
     def _logits(self, st: RequestState):
+        """-> [1, V] on the device ([1, V_s], this rank's block, under a
+        split vocabulary)."""
         if st.pending_logits is not None:
             lg, st.pending_logits = st.pending_logits, None
             return lg
         tok = self._h2d(np.array([st.token_ids[-1]], np.int32))
         pos = self._h2d(np.array([st.pos - 1], np.int32))
-        lg, _ = self.model.decode_step(self.params, st.caches, tok, pos)
-        return lg       # [1, V] on the device
+        return self._decode(st.caches, tok, pos)
 
     def _select(self, st: RequestState, logits, attempt: int) -> int:
         """One draw of the request's decode config; sampled draws take the
@@ -897,14 +1026,14 @@ class Engine:
         st.steps += 1
         req = st.req
         if st.constraint is None:
-            self._commit(st, self._select(st, logits, 0))
+            self._commit(st, self._select(st, self._gather(logits), 0))
             return
 
         gc = st.constraint
         text = st.generated
         if self.opportunistic:
             with obs.span("opportunistic"):
-                proposal = self._select(st, logits, 0)
+                proposal = self._select(st, self._gather(logits), 0)
                 hit = gc.is_valid_extension(text, proposal)
             if hit:
                 st.opportunistic_hits += 1
@@ -922,11 +1051,11 @@ class Engine:
         with obs.span("cd_check") as sp_cd:
             cdw = gc.cd_overlay(sg.groups)
             cd = None if cdw is None else self._h2d(
-                cdw[None, :].view(np.int32))
+                self._words_local(cdw[None, :]).view(np.int32))
         with obs.span("mask_dispatch") as sp_disp:
-            masked = apply_grammar_mask(logits, self._store_cat,
-                                        self._h2d(rows), self._h2d(eos),
-                                        cd=cd)
+            masked = self._gather(apply_grammar_mask_shard(
+                logits, self._store_cat, self._h2d(rows),
+                self._h2d(eos), self._vs, cd=cd))
         st.mask_time += sp_rows.dur + sp_cd.dur + sp_disp.dur
         st.mask_computations += 1
 
@@ -981,5 +1110,6 @@ class Engine:
             opportunistic_hits=sum(s.opportunistic_hits for s in states),
             decode_steps=sum(s.steps for s in states),
             batch_slots=1,
+            mesh_devices=self.mesh.size if self.mesh is not None else 1,
         )
         return states, stats

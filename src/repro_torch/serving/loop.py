@@ -35,6 +35,20 @@ construction.
 Host arrays that are changed in place after a dispatch (`feed_pos`, the
 token and mask buffers, page tables, the decode configs that `admit()`
 rewrites) ship to the device as private copies at every dispatch site.
+
+Sharded engines (`Engine(mesh=...)`): every rank runs this loop, and the
+step bodies are deterministic given the selected ids, which every rank
+shares. What other threads or the wall clock decide -- the requests
+popped from the source, cancellations, deadline expiries, hot grammar
+loads from the control queue, whether the source has closed -- rank 0
+decides: each loop iteration it logs every such outcome (`_LiveIO`) and
+broadcasts the log once; the other ranks replay it (`_ReplayIO`) and
+never read their own source or clock for it. A follower whose replay
+asks for something rank 0 did not log has diverged and raises. Device
+work of the host decisions (an admission's prefill, whose embedding
+lookup is a collective) waits until after the broadcast
+(`StepLoop.deferred`), so every rank calls the collectives in one
+order.
 """
 from __future__ import annotations
 
@@ -48,6 +62,7 @@ import torch
 
 from ..core.constrain import MAX_ACCEPT
 from ..core.decoding import DecodeConfig
+from ..distributed.api import broadcast_control
 from ..obs import Telemetry
 from ..spec.scheduler import SlotPhase, SlotPlan, SpecConfig, SpecScheduler
 from .devbridge import attach as _attach_devbridge
@@ -146,6 +161,68 @@ class QueueSource:
             return bool(self._q)
 
 
+# ------------------- what rank 0 decides, and its replay -------------------
+
+class _LiveIO:
+    """The loop's outside inputs read for real: the source, thread-set
+    flags, the clock. With `record`, every outcome is logged in order for
+    the follower ranks."""
+    replay = False
+
+    def __init__(self, source, record: bool):
+        self.source = source
+        self.log = [] if record else None
+
+    def take(self, kind: str, fn):
+        v = fn()
+        if self.log is not None:
+            self.log.append((kind, v))
+        return v
+
+    def pop(self):
+        return self.take("pop", self.source.try_pop)
+
+    def push_front(self, req) -> None:
+        self.source.push_front(req)
+
+    def closed(self) -> bool:
+        return self.take("closed", lambda: self.source.closed)
+
+
+class _ReplayIO:
+    """A follower rank's inputs: rank 0's log of this iteration, replayed
+    in order."""
+    replay = True
+    log = None
+
+    def __init__(self, log):
+        self._log = deque(log)
+
+    def take(self, kind: str, fn=None):
+        if not self._log:
+            raise RuntimeError(f"step loop diverged from rank 0: it logged "
+                               f"no {kind!r} here")
+        k, v = self._log.popleft()
+        if k != kind:
+            raise RuntimeError(f"step loop diverged from rank 0: it logged "
+                               f"{k!r} where this rank reads {kind!r}")
+        return v
+
+    def pop(self):
+        return self.take("pop")
+
+    def push_front(self, req) -> None:
+        pass
+
+    def closed(self) -> bool:
+        return self.take("closed")
+
+    def finish(self) -> None:
+        if self._log:
+            raise RuntimeError(f"step loop diverged from rank 0: "
+                               f"{len(self._log)} logged inputs unread")
+
+
 # ------------------------------ the loop -------------------------------
 
 class StepLoop:
@@ -191,11 +268,14 @@ class StepLoop:
         self.top_p = np.ones(B, np.float32)
         self.ids_cache: dict[int, list] = {}
         self.stall = 0
+        # device work of this iteration's admissions (dense prefills),
+        # run once its host decisions are made and, sharded, broadcast
+        self.deferred: list = []
 
         # control queue: closures posted from other threads, run on the
         # loop thread between steps (hot grammar registration: the
         # engine's device store must never change under a step that
-        # reads it)
+        # reads it), each with the engine call the follower ranks replay
         self._controls: deque = deque()
         self._ctl_lock = threading.Lock()
 
@@ -324,38 +404,57 @@ class StepLoop:
 
     # --------------------------- control queue ------------------------
 
-    def post_control(self, fn: Callable[[], None]) -> None:
+    def post_control(self, fn: Callable[[], None],
+                     replicate: Optional[tuple] = None) -> None:
         """Run fn() on the loop thread before the next step (thread-safe,
         FIFO). fn does its own error handling: an exception escaping a
-        control kills the loop like any other step error."""
+        control kills the loop like any other step error. `replicate`
+        (method name, args) is the engine call the other ranks of a
+        sharded engine make in its place; a multi-rank engine refuses a
+        control without one."""
+        mesh = self.eng.mesh
+        if replicate is None and mesh is not None and mesh.size > 1:
+            raise ValueError("a sharded engine's control needs the engine "
+                             "call its other ranks replay (replicate=)")
         with self._ctl_lock:
-            self._controls.append(fn)
+            self._controls.append((fn, replicate))
 
-    def _drain_controls(self) -> None:
-        while True:
+    def _drain_controls(self, io) -> None:
+        items = []
+        if not io.replay:
             with self._ctl_lock:
-                fn = self._controls.popleft() if self._controls else None
-            if fn is None:
-                return
+                items = list(self._controls)
+                self._controls.clear()
+        calls = io.take("controls", lambda: [r for _, r in items])
+        if io.replay:
+            for name, args in calls:
+                getattr(self.eng, name)(*args)
+            return
+        for fn, _ in items:
             fn()
 
     # --------------------- cancellation / deadlines -------------------
 
-    def _sweep(self) -> None:
+    def _sweep(self, io) -> None:
         now = None
+
+        def expired(st):
+            nonlocal now
+            now = time.perf_counter() if now is None else now
+            return now >= st.deadline_at
+
         for b in self.active():
             st = self.slot_state[b]
-            if st.cancelled:
+            if io.take("cancelled", lambda: st.cancelled):
                 st.done = True
                 st.finish_reason = "cancelled"
                 self.finish(b)
                 continue
-            if st.deadline_at is not None:
-                now = time.perf_counter() if now is None else now
-                if now >= st.deadline_at:
-                    st.done = True
-                    st.finish_reason = "deadline"
-                    self.finish(b)
+            if st.deadline_at is not None and \
+                    io.take("expired", lambda: expired(st)):
+                st.done = True
+                st.finish_reason = "deadline"
+                self.finish(b)
 
     # ------------------------------ run -------------------------------
 
@@ -363,51 +462,93 @@ class StepLoop:
         """Drive the loop until the source is closed AND drained AND the
         pool is idle. For a ListSource this is the synchronous generate
         path; for a QueueSource it is the persistent serving loop (idles
-        between requests, exits on close())."""
+        between requests, exits on close()). On a follower rank of a
+        sharded engine the source is never read: rank 0's log is."""
+        dev = self.eng.device
+        if dev.type == "cuda" and dev.index is not None:
+            # the thread's current device (an AsyncEngine loop thread's
+            # is card 0): the kernels launch on the engine's card's streams
+            torch.cuda.set_device(dev)
         while True:
-            self._drain_controls()
-            self._sweep()
-            for b in range(self.B):
-                if self.slot_state[b] is not None:
-                    continue
-                # pop-then-gate: cancel withdrawal runs on another
-                # thread, so the queue can empty between a check and a pop
-                req = self.source.try_pop()
-                if req is None:
-                    break
-                if not self.mode.can_admit_req(self, req):
-                    self.source.push_front(req)
-                    break
-                self.admit(b, req)
-            active = self.active()
-            if not active:
-                req = self.source.try_pop()
-                if req is not None:
-                    if self.mode.can_admit_req(self, req):
-                        # admittable after all (submitted after the
-                        # admission sweep): the next iteration takes it
-                        self.source.push_front(req)
-                        continue
-                    # no slot can ever take this request (the paged pool
-                    # is too small for its prompt): a closed source
-                    # raises, a live one fails the request and serves on
-                    if self.source.closed:
-                        raise PoolExhausted(
-                            "KV pool too small for the next request's "
-                            "prompt")
-                    self.fail_request(req, "kv_oom")
-                    continue
-                if self.source.closed:
-                    break
-                # idle: the queue is empty, so memoized prompt ids belong
-                # to withdrawn or failed requests (rids are never reused)
-                self.ids_cache.clear()
-                self.mode.on_idle(self)
-                self.source.wait_for_work(idle_wait)
+            io = self._open_round()
+            try:
+                action = self._round(io)
+            except BaseException:
+                if io.log is not None:      # the followers replay up to
+                    broadcast_control(io.log, self.eng.mesh)   # the error
+                raise
+            self._close_round(io)
+            work, self.deferred = self.deferred, []
+            for fn in work:
+                fn()
+            if action == "break":
+                break
+            if action == "idle":
+                if not io.replay:
+                    self.source.wait_for_work(idle_wait)
                 continue
-            self.mode.step(self, active)
+            if action == "step":
+                self.mode.step(self, self.active())
         return (self.all_states, self.stats()) if self.keep_states \
             else (None, self.stats())
+
+    def _open_round(self):
+        mesh = self.eng.mesh
+        if mesh is None or mesh.size == 1:
+            return _LiveIO(self.source, record=False)
+        if mesh.rank == 0:
+            return _LiveIO(self.source, record=True)
+        return _ReplayIO(broadcast_control(None, mesh))
+
+    def _close_round(self, io) -> None:
+        """Rank 0 broadcasts the iteration's log; a follower checks that
+        it read all of it."""
+        if io.log is not None:
+            broadcast_control(io.log, self.eng.mesh)
+        elif io.replay:
+            io.finish()
+
+    def _round(self, io) -> str:
+        """One iteration's host decisions -> "step", "idle", "again" or
+        "break"."""
+        self._drain_controls(io)
+        self._sweep(io)
+        for b in range(self.B):
+            if self.slot_state[b] is not None:
+                continue
+            # pop-then-gate: cancel withdrawal runs on another thread, so
+            # the queue can empty between a check and a pop
+            req = io.pop()
+            if req is None:
+                break
+            if not self.mode.can_admit_req(self, req):
+                io.push_front(req)
+                break
+            self.admit(b, req)
+        if self.active():
+            return "step"
+        req = io.pop()
+        if req is not None:
+            if self.mode.can_admit_req(self, req):
+                # admittable after all (submitted after the admission
+                # sweep): the next iteration takes it
+                io.push_front(req)
+                return "again"
+            # no slot can ever take this request (the paged pool is too
+            # small for its prompt): a closed source raises, a live one
+            # fails the request and serves on
+            if io.closed():
+                raise PoolExhausted(
+                    "KV pool too small for the next request's prompt")
+            self.fail_request(req, "kv_oom")
+            return "again"
+        if io.closed():
+            return "break"
+        # idle: the queue is empty, so memoized prompt ids belong to
+        # withdrawn or failed requests (rids are never reused)
+        self.ids_cache.clear()
+        self.mode.on_idle(self)
+        return "idle"
 
     # ------------------------------ stats ------------------------------
 
@@ -439,6 +580,7 @@ class StepLoop:
             device_mask_sample_s=tele.devtime.seconds("mask_sample"),
             overlap_hidden_s=tele.c_overlap_hidden.value,
             attribution=tele.attribution() if tele.enabled else None,
+            mesh_devices=self.eng.mesh.size if self.eng.mesh else 1,
         )
         return self.mode.stats_extra(self, s)
 
@@ -497,7 +639,7 @@ class DenseMode(_ModeBase):
         self.cur_tok = np.zeros(eng.slots, np.int32)
 
     def admit(self, loop, b, req):
-        st = self.eng._admit_common(req, b, self.caches)
+        st = self.eng._admit_common(req, b, self.caches, defer=loop.deferred)
         self.cur_tok[b] = st.token_ids[-1]
         loop.feed_pos[b] = st.pos - 1
         # the inserted prefill caches invalidate any in-flight
@@ -753,7 +895,8 @@ class SpecMode(_ModeBase):
                                    loop.waiting):
                 st.phase = SlotPhase.PREFILLING.value
         else:
-            st = eng._admit_common(req, b, self.caches)
+            st = eng._admit_common(req, b, self.caches,
+                                   defer=loop.deferred)
             loop.feed_pos[b] = st.pos - 1
         self.sched.on_admit(st)
         return st
@@ -903,7 +1046,7 @@ class SpecMode(_ModeBase):
                 r = np.where(sm.rows >= 0, sm.rows + off, sm.rows)
                 rows[b, f, :r.shape[0]] = r
         with loop.tele.span("cd_check"):
-            W = int(eng._store_cat.shape[1])
+            W = eng._words
             cdm = np.zeros((B, S, W), np.uint32)
             for (b, f), (sm, _) in span_sms.items():
                 if sm.cd_words is not None:

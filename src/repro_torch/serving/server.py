@@ -410,6 +410,12 @@ class EngineServer:
     # ----------------------------- lifecycle --------------------------
 
     async def start(self, host: str = "127.0.0.1", port: int = 8400):
+        """Listen. A sharded engine's step loop starts with the server:
+        its other ranks take rank 0's broadcast from the start (the
+        server runs on rank 0 alone)."""
+        mesh = self.aeng.engine.mesh
+        if mesh is not None and mesh.size > 1:
+            self.aeng.start()
         self._server = await asyncio.start_server(self._handle, host, port)
         return self._server.sockets[0].getsockname()[:2]
 

@@ -457,6 +457,50 @@ def test_masked_logits_kernel_matches_plain(dev, N, V, R, A, dtype):
         assert torch.equal(out.view(bits), want.view(bits))
 
 
+@pytest.mark.parametrize("V,M", [(50280, 2), (49152, 2), (49152, 4),
+                                 (1000, 4), (2048, 2)])
+@pytest.mark.parametrize("form", ["row", "span"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_logits_shards_join_to_the_unsharded_kernel(dev, V, M, form,
+                                                           dtype):
+    """The sharded engine's shard-local forms on word-aligned blocks
+    (`vocab_shard`): every rank's block, concatenated, bitwise equal to
+    the unsharded kernel, with EOS in each shard in turn (the other ranks
+    get it out of range)."""
+    from repro_torch.distributed.sharding import vocab_shard
+    from repro_torch.kernels.masked_logits.ops import (
+        apply_grammar_mask, apply_grammar_mask_shard,
+        apply_grammar_mask_span, apply_grammar_mask_span_shard)
+    rng = np.random.default_rng(V + M)
+    K = 3 if form == "span" else 1
+    store, rows, cd, eos, cons = _mask_inputs(rng, dev, 4 * K, V, 64, 48)
+    eos = torch.ones_like(eos)
+    lead = (4, K) if form == "span" else (4,)
+    rows, cd = rows.reshape(*lead, -1), cd.reshape(*lead, -1)
+    eos, cons = eos.reshape(lead), cons.reshape(lead)
+    logits = torch.from_numpy((rng.normal(size=(*lead, V)) * 3).astype(
+        np.float32)).to(dev).to(dtype)
+    whole, part = ((apply_grammar_mask_span, apply_grammar_mask_span_shard)
+                   if form == "span" else
+                   (apply_grammar_mask, apply_grammar_mask_shard))
+    shards = [vocab_shard(V, M, r) for r in range(M)]
+    assert all(s.split for s in shards)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for owner in shards:
+        eos_id = owner.v0 + owner.width // 2
+        want = whole(logits, store, rows, eos, eos_id=eos_id,
+                     constrained=cons, cd=cd)
+        got = torch.cat([part(
+            logits[..., s.v0:s.v1].contiguous(),
+            store[:, s.w0:s.w1].contiguous(), rows, eos, s, eos_id=eos_id,
+            constrained=cons, cd=cd[..., s.w0:s.w1].contiguous())
+            for s in shards], dim=-1)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(bits), want.view(bits))
+        # EOS is open on every constrained row (the others pass through)
+        assert bool((got[..., eos_id] > -1e29)[cons].all())
+
+
 @pytest.mark.parametrize("B,K,V,A", [(8, 8, 49152, 48), (2, 3, 1000, 7),
                                      (8, 8, 151936, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
