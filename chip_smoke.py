@@ -164,7 +164,20 @@ no result line):
    parsed; then the shard-local masked_logits row and span forms at V
    50280 split 25152 + 25128 (real json rows): both shards joined bitwise
    equal to the unsharded kernel with EOS in each shard in turn, rank 0's
-   block timed beside its plain version and bound.
+   block timed beside its plain version and bound;
+13. the static cost count (`distributed/cost.py`) and the dry run
+   (`launch/dryrun.py`): smollm-360m at full width served dense and
+   paged with devtime on (phase 12's 8 requests x 32 new tokens, each
+   run's counters zeroed just before and read just after: fused_select
+   and flash, fused_select and paged attention must launch); for
+   `forward` and `mask_sample` the calls, seconds, FLOPs and bytes a
+   call and the achieved TFLOP/s and TB/s beside the bf16 peak and HBM's
+   rate; the decode step's FLOPs (B 8, 512 cache positions) equal to
+   FlopCounterMode's count on the card; the dry run of every config x
+   shape on both production meshes on the meta device (88 records, the
+   card's memory untouched); the estimate at phase 9's smollm train
+   shape on one card beside phase 9's measured peak, which must hold at
+   least the params, moments and batch.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -1959,7 +1972,8 @@ def _train_run(torch, counters, arch, depth, B, S, steps, opt):
 
 def phase_train(torch, counters, bwd_rows):
     """smollm-360m trained at full width, its checkpoint served and read
-    back; then the other families. Fills the backward rows' launches."""
+    back; then the other families. Fills the backward rows' launches.
+    -> smollm-360m's peak memory in training (bytes)."""
     from repro_torch.core.decoding import DecodeConfig
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving.engine import Request
@@ -1985,6 +1999,7 @@ def phase_train(torch, counters, bwd_rows):
     for r in bwd_rows:
         if r["model"] == "smollm-360m":
             r["launches"] = launches["attention_backward"]
+    smollm_peak = peak
 
     # one profiled step (the same batch shape; params are not kept)
     from repro_torch.training.optimizer import init_opt_state
@@ -2068,6 +2083,7 @@ def phase_train(torch, counters, bwd_rows):
         log(f"phase 9, {arch}: freed; "
             f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
             f"allocated")
+    return smollm_peak
 
 
 # --------------------------------------------------- phase 10: audio family
@@ -3260,6 +3276,136 @@ def phase_sharded(torch, np, counters, unsharded):
 
 
 
+# ------------------------------------------- phase 13: the static cost
+
+COST_B, COST_L = 8, 512     # the decode step held to FlopCounterMode
+
+
+def cost_devtime_run(torch, counters, engine, bundles, label, needed):
+    """Phase 12's 8 requests (32 new tokens) through a step loop with
+    device timing on (the engine's devtime), the counters zeroed just
+    before and read just after; every kernel in `needed` must have
+    launched. -> the loop's devtime summary."""
+    from repro_torch.serving.loop import ListSource, StepLoop, make_mode
+    loop = StepLoop(engine, make_mode(engine),
+                    ListSource(sharded_requests()))
+    states, stats, launches = run_counted(torch, counters, loop.run)
+    report(label, states, stats, bundles, launches)
+    missing = [k for k in needed if not launches[k]]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched: "
+                             f"{launches}")
+    return loop.tele.devtime.summary()
+
+
+def cost_lines(label, summary):
+    """Log forward's and mask_sample's device accounting and their
+    achieved rates against the card's roofs."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    for fn in ("forward", "mask_sample"):
+        d = summary.get(fn, {})
+        if "hbm_bytes_per_call" not in d:
+            raise AssertionError(f"{label}: no cost attached to {fn}: {d}")
+        fl, by = d["achieved_flops_per_s"], d["achieved_bytes_per_s"]
+        log(f"phase 13, {label} {fn}: {d['calls']} calls, "
+            f"{d['seconds']:.6f} s ({d['seconds'] / d['calls'] * 1e3:.4f} "
+            f"ms a call); {d['flops_per_call']:.0f} FLOP and "
+            f"{d['hbm_bytes_per_call']:.0f} B a call; achieved "
+            f"{fl / 1e12:.6f} TFLOP/s ({fl / PEAK_FLOPS_BF16:.6f} of the "
+            f"bf16 peak) and {by / 1e12:.6f} TB/s ({by / HBM_BW:.6f} of "
+            f"HBM)")
+
+
+def cost_flop_check(torch, engine):
+    """`cost.decode_step`'s FLOPs against torch's FlopCounterMode over
+    the model's decode step on the card (B 8, 512 cache positions; the
+    dense decode's attention is plain torch ops, so the counter sees
+    every contraction)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.distributed import cost
+    model = engine.model
+    caches = model.init_decode_caches(COST_B, COST_L)
+    dev = torch.device("cuda")
+    tok = torch.zeros(COST_B, dtype=torch.int32, device=dev)
+    pos = torch.full((COST_B,), COST_L // 2, dtype=torch.int32, device=dev)
+    fc = FlopCounterMode(display=False)
+    with torch.no_grad(), fc:
+        model.decode_step(engine.params, caches, tok, pos)
+    torch.cuda.synchronize()
+    got = fc.get_total_flops()
+    c = cost.decode_step(model.cfg, COST_B, COST_L)
+    log(f"phase 13, smollm-360m decode step (B {COST_B}, {COST_L} cache "
+        f"positions): cost.py {c['flops']:.0f} FLOP, {c['hbm_bytes']:.0f} "
+        f"B; FlopCounterMode on the card {got} FLOP")
+    if got != c["flops"]:
+        raise AssertionError(f"decode-step FLOPs: cost.py {c['flops']}, "
+                             f"FlopCounterMode {got}")
+    del caches
+
+
+def cost_dry_run(torch, smollm_peak):
+    """Every config x shape on both production meshes, on the meta
+    device; then the estimate at phase 9's smollm shape on one card
+    beside phase 9's measured peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    recs = []
+    for multi_pod in (False, True):
+        got, failures = dryrun.run_all(multi_pod, save=False, quiet=True)
+        if failures:
+            raise AssertionError(f"dry run failures: {failures}")
+        recs += got
+    done = [r for r in recs if "skipped" not in r]
+    fits = sum(r["fits_hbm"] for r in done)
+    log(f"phase 13, dry run (meta device, no card): {len(recs)} records "
+        f"({len(recs) - len(done)} skipped) in "
+        f"{time.perf_counter() - t0:.1f} s; fits_hbm {fits} of "
+        f"{len(done)}")
+    if len(recs) != 88 or torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"dry run: {len(recs)} records, card memory "
+                             f"{before} -> {torch.cuda.memory_allocated()}")
+    one = MeshShape({"data": 1, "model": 1}, ("data", "model"))
+    est = dryrun.train_estimate(get_config("smollm-360m"), 8, 1024, one)
+    log(f"phase 13, smollm-360m train step B 8 x S 1024 on one card: dry "
+        f"run argument bytes {est['argument_bytes']} (params, moments, "
+        f"batch: {est['arguments']}), temp estimate "
+        f"{est['temp_bytes']:.0f}, peak estimate {est['peak_bytes']:.0f}; "
+        f"phase 9 measured peak {smollm_peak} "
+        f"({smollm_peak / est['peak_bytes']:.4f} of the estimate)")
+    if smollm_peak < est["argument_bytes"]:
+        raise AssertionError(f"phase 9's peak {smollm_peak} is below the "
+                             f"resident arguments {est['argument_bytes']}")
+
+
+def phase_cost(torch, counters, smollm_peak):
+    """smollm-360m served dense and paged with devtime on: the engine's
+    per-call costs (`distributed/cost.py`) and their achieved rates; the
+    decode step's count against FlopCounterMode; the dry run."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.engine import Engine
+    engine, bundles, _ = build_engine(
+        "smollm-360m", grammars=("json", "jsonmsg"), max_len=512, slots=8,
+        device="cuda", devtime=True)
+    paged = Engine(engine.model, engine.params, engine.tok, bundles,
+                   max_len=512, slots=8, paged=True, devtime=True,
+                   device="cuda")
+    engine.generate(sharded_requests()[:1])         # warm-up
+    cost_lines("dense", cost_devtime_run(
+        torch, counters, engine, bundles, "phase 13 dense generate, "
+        "devtime (8 x 32)", ("fused_mask_select", "attention")))
+    cost_lines("paged", cost_devtime_run(
+        torch, counters, paged, bundles, "phase 13 paged generate, "
+        "devtime (8 x 32)", ("fused_mask_select", "paged_attention")))
+    cost_flop_check(torch, engine)
+    del engine, paged, bundles
+    gc.collect()
+    torch.cuda.empty_cache()
+    cost_dry_run(torch, smollm_peak)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3339,7 +3485,7 @@ def main():
         stamp(f"phase 8, {arch}")
     bwd_rows = phase_attention_backward(torch)
     stamp("phase 9, backward kernel")
-    phase_train(torch, counters, bwd_rows)
+    smollm_peak = phase_train(torch, counters, bwd_rows)
     rows += bwd_rows
     stamp("phase 9")
     rows += phase_audio(torch, np, counters)
@@ -3348,6 +3494,8 @@ def main():
     stamp("phase 11")
     rows += phase_sharded(torch, np, counters, unsharded)
     stamp("phase 12")
+    phase_cost(torch, counters, smollm_peak)
+    stamp("phase 13")
 
     for r in rows:
         r.pop("key", None)

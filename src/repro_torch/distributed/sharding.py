@@ -24,12 +24,16 @@ the cache *sequence* dim goes on model, then head_dim.
 
 Where the reference wraps each rule in a `NamedSharding` tree
 (`params_shardings`, ...), the port returns the tree of specs
-(`param_specs`, ...) and cuts a rank's block with `shard_slice`. Only the
-serving rules run in the port so far: the vocabulary split of the
-sharded engine (`vocab_shard`, word-aligned; see its docstring for how it
-differs from `serving_store_spec`). The trunk, training and activation
-rules are held to the reference's specs by the tests, ready for the
-slices that shard the trunk, the optimizer state and the batch.
+(`param_specs`, ...) and cuts a rank's block with `shard_slice`. The
+serving engine runs the vocabulary split (`vocab_shard`, word-aligned;
+see its docstring for how it differs from `serving_store_spec`). The
+training rules (FSDP `param_spec(fsdp=True)` when `needs_fsdp`, ZeRO-1
+`opt_state_specs`, `batch_specs`) and `cache_specs` are what the dry run
+(`launch/dryrun.py`) cuts each device's arguments with and what the
+static cost count (`distributed/cost.py`) splits FLOPs, bytes and
+collectives by, as the reference's dry run does; no live trainer shards
+(the reference's has no mesh either). The trunk rules wait for
+`trunk_shard`. All are held to the reference's specs by the tests.
 """
 from __future__ import annotations
 

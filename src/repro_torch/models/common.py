@@ -39,6 +39,8 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    if out.is_meta:     # abstract params: shapes only, nothing drawn
+        return out
     for part in (out if len(shape) >= 3 else (out,)):
         part.copy_(torch.randn(part.shape, generator=gen,
                                dtype=torch.float32, device=gen.device)

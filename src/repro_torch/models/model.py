@@ -106,15 +106,24 @@ def _stack(trees):
             else torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+class _MetaDraw:
+    """The generator `abstract_params` hands to the init functions: its
+    device is meta, so `dense_init` allocates and draws nothing
+    (`torch.Generator` has no meta device)."""
+    device = torch.device("meta")
+
+
 @dataclass
 class Model:
     """`device` is resolved like every entry point's: "cuda" unless the
-    caller asks for the CPU, raising when there is no card."""
+    caller asks for the CPU, raising when there is no card. "meta" is the
+    abstract path (the dry run's): params and caches with shapes and
+    dtypes and no storage, never a default."""
     cfg: ModelConfig
     device: object = "cuda"
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        self.device = resolve_device(self.device, abstract=True)
 
     # ------------------------------ init ---------------------------------
     def init(self, gen: torch.Generator):
@@ -134,6 +143,12 @@ class Model:
             params["encoder"] = (KIND_INIT["enc"](
                 gen, cfg, dtype, (cfg.encoder_layers,)),)
         return params
+
+    def abstract_params(self):
+        """The param tree of `init` (same tree, shapes and dtypes) as
+        meta tensors: no storage, no draw (the counterpart of the
+        reference's `jax.eval_shape(self.init, rng)`)."""
+        return self.init(_MetaDraw())
 
     def _layer(self, fn, x):
         """fn(x) -> (x, ...) under a per-layer checkpoint when `cfg.remat`

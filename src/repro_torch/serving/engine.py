@@ -81,6 +81,7 @@ from ..core.decoding import (DecodeConfig, NEG_INF, select_batch,
 from ..core.tokenizer import BOS_ID, ByteTokenizer, EOS_ID
 from ..bridge import shard_params
 from ..device import resolve_device
+from ..distributed import cost
 from ..distributed.api import all_gather_last, use_sharding
 from ..distributed.sharding import vocab_shard
 from ..kernels.fused_select.ops import (fused_mask_select,
@@ -393,6 +394,22 @@ class Engine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _note_cost(self, tele, name: str, count: Callable) -> None:
+        """Attach a call's static FLOP/byte count (`distributed/cost.py`,
+        `count()` at the shapes the caller just dispatched) to the devtime
+        registry: once per fn name, and only when device timing is on
+        (the counterpart of the reference's `_note_jit_cost`). With
+        devtime off nothing is counted."""
+        devtime = tele.devtime
+        if not devtime.enabled or name in devtime.costs:
+            return
+        c = count()
+        devtime.set_cost(name, c["flops"], c["hbm_bytes"], c["wire_bytes"])
+
+    def _vocab_width(self) -> int:
+        """Vocab ids of this rank's lm head and logits."""
+        return self._vs.width if self._split else self.model.cfg.vocab_size
+
     # ------------------------------ device steps ---------------------------
 
     def _decode(self, caches, token, pos):
@@ -687,6 +704,9 @@ class Engine:
                     self._h2d(greedy.copy()), self._h2d(temp.copy()),
                     self._h2d(top_k.copy()), self._h2d(top_p.copy()), **kw)
             dv.done((ctx.ids, ctx.ok))
+        self._note_cost(obs, "mask_sample", lambda: cost.mask_sample(
+            *logits.shape, rows.shape[1], logits.element_size(),
+            sampled=noise is not None))
         ctx.need_mask = need_mask
         ctr["mask_computations"] += int(need_mask.sum())
         ctx.mask_elapsed = sp_ci.dur + sp_cd.dur + sp_disp.dur

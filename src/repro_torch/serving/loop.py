@@ -62,6 +62,7 @@ import torch
 
 from ..core.constrain import MAX_ACCEPT
 from ..core.decoding import DecodeConfig
+from ..distributed import cost
 from ..distributed.api import broadcast_control
 from ..obs import Telemetry
 from ..spec.scheduler import SlotPhase, SlotPlan, SpecConfig, SpecScheduler
@@ -671,6 +672,9 @@ class DenseMode(_ModeBase):
                     pos_dev = eng._h2d(loop.feed_pos.copy())  # reprolint: dispatch
                     logits = eng._decode(self.caches, tok_dev, pos_dev)
                 dv.done(logits)
+            eng._note_cost(tele, "forward", lambda: cost.decode_step(
+                eng.model.cfg, len(self.cur_tok), eng.max_len,
+                vocab=eng._vocab_width()))
         loop.c_decode_steps.inc()
         for b in active:
             loop.slot_state[b].steps += 1
@@ -812,14 +816,17 @@ class PagedMode(_ModeBase):
             # as a private copy
             with loop.tele.device_span("forward") as dv:
                 with loop.tele.span("forward"):
+                    table = alloc.table_rows(np)
                     # reprolint: dispatch
                     logits = eng.span_feed_paged(
                         self.caches, eng._h2d(tokens.copy()),
                         eng._h2d(loop.feed_pos.copy()),
-                        eng._h2d(fmask.copy()),
-                        eng._h2d(alloc.table_rows(np)),
+                        eng._h2d(fmask.copy()), eng._h2d(table),
                         eng._h2d(sel.copy()))
                 dv.done(logits)
+            eng._note_cost(loop.tele, "forward", lambda: cost.paged_feed(
+                eng.model.cfg, B, S, table.shape[1], eng.page_size,
+                vocab=eng._vocab_width()))
             loop.c_decode_steps.inc()
             for b in live:
                 st = loop.slot_state[b]

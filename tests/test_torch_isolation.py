@@ -128,3 +128,27 @@ def test_config_registry_is_the_reference_subset():
     want = _rewrite_imports("".join(lines)).replace(
         'f"repro.configs.', 'f"repro_torch.configs.')
     assert (PORT / "configs" / "__init__.py").read_text() == want
+
+
+def test_cost_and_dry_run_run_without_jax():
+    """The static cost count and the dry run (the port's counterparts of
+    `distributed/hlo_cost.py`, `hlo_stats.py` and `launch/{shapes,
+    dryrun}.py`) import and run with jax blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from repro_torch.distributed import cost\n"
+        "from repro_torch.launch import dryrun, shapes\n"
+        "from repro_torch.configs import get_config\n"
+        "r = dryrun.run_one('qwen3-moe-30b-a3b', 'train_4k', save=False,\n"
+        "                   verbose=False)\n"
+        "c = cost.decode_step(get_config('smollm-360m'), 8, 512)\n"
+        "bad = sorted(k for k, v in sys.modules.items() if v is not None\n"
+        "             and (k == 'repro' or k.startswith(('repro.', 'jax'))))\n"
+        "print(r['fits_hbm'], c['flops'] > 0, bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.split() == ["True", "True", "[]"]
