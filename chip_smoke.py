@@ -59,7 +59,7 @@ no result line):
 8. architectures: mamba2-370m (ssm, all 48 layers, V 50280),
    recurrentgemma-9b (hybrid RG-LRU + local attention, all 38 layers,
    head_dim 256, MQA, window 2048, V 256000) and qwen3-moe-30b-a3b (moe,
-   full width: 128 experts top-8, 32/4 heads, head_dim 128, V 151936; 8
+   full width: 128 experts top-8, 32/4 heads, head_dim 128, V 151936; 4
    of its 48 layers), each built in turn through `build_engine` with
    seeded random weights and freed before the next. Kernel checks at each
    model's shapes, as in phase 4 (event and device ms, plain version,
@@ -177,7 +177,32 @@ no result line):
    shape on both production meshes on the meta device (88 records, the
    card's memory untouched); the estimate at phase 9's smollm train
    shape on one card beside phase 9's measured peak, which must hold at
-   least the params, moments and batch.
+   least the params, moments and batch;
+14. trunk-sharded serving (`Engine(mesh, trunk_shard=True)`: Megatron
+   column/row blocks with explicit all-reduces, kv-head-sharded caches
+   and pools, expert-parallel MoE), a 2-rank gloo world on the one card,
+   bf16 at full width: qwen1.5-0.5b (all 24 layers, 16/16 heads, QKV
+   bias, d_ff 2816, V 151936) and qwen3-moe-30b-a3b (phase 8's 4
+   layers, 32/4 heads, 128 experts top-8), each rank drawing only its
+   blocks (`build_engine(..., trunk_shard=True)`); one spawned world
+   serves both models in turn. Against the one-device engine on the same
+   seeded weights (run first in this process): the first decode step's logits over 8 seeded prompts of 16
+   tokens within TRUNK_ULPS bf16 ulps at the largest logit (MoE: rows
+   whose token every layer routed alike); phase 12's 8 requests x 32
+   new tokens dense, paged and speculative on both sides, each run
+   counted on its own (flash once per layer per admission at the local
+   H/2 q and K/2 kv heads, paged attention once per layer per feed at
+   them, masked_logits once per constrained step, masked_logits_span
+   once per span step, fused_select at least once a step), every eos
+   output parsed and every output walked by the oracle
+   (`is_valid_extension`), ms a step beside the one-device engine's and
+   the share of requests identical printed, not required; one decode
+   step's collective tally beside `distributed/cost.py`'s wire count;
+   each rank's param bytes equal to the trunk specs' argument bytes, its
+   peak while building below the whole tree's bytes, its peak beside the
+   specs' params + caches + pools; then an fp32 copy at 2 layers: 16
+   greedy steps of 8 rows through both sides, identical up to each row's
+   first near-tie.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -1416,9 +1441,10 @@ def phase_front_end(torch, engine, bundles, counters, dense_states):
 # (arch, depth or None for all layers): each built at full width with
 # seeded random weights, served, checked and freed before the next.
 # qwen3-moe at all 48 layers fits the card but takes the script past half
-# its time limit (PERF.md §4).
+# its time limit; 8 layers until phase 14 came, 4 since (PERF.md §4).
+MOE_DEPTH = 4
 ARCHS = (("mamba2-370m", None), ("recurrentgemma-9b", None),
-         ("qwen3-moe-30b-a3b", 8))
+         ("qwen3-moe-30b-a3b", MOE_DEPTH))
 
 
 def arch_requests():
@@ -2599,16 +2625,25 @@ class _Routes:
     position to ([B, k] ids, sorted; -1 for a pair dropped past the
     expert's capacity), by wrapping `models.layers.moe_ffn` (the router's
     own arithmetic: fp32 softmax, a stable descending sort cut at k; a
-    pair's place in its expert counts the row's earlier pairs)."""
+    pair's place in its expert counts the row's earlier pairs). Under a
+    trunk split of the experts (phase 14) the rank's router columns are
+    gathered first, a collective every rank makes at the same call."""
 
     def __enter__(self):
+        from repro_torch.distributed.api import (all_gather_last,
+                                                 current_mesh, current_trunk)
         from repro_torch.models import layers
         from repro_torch.models.moe import capacity
         self.layers, self.orig, self.calls = layers, layers.moe_ffn, []
 
         def spy(p, x, cfg):
             B, S, _ = x.shape
-            probs = (x.float() @ p["router"]).softmax(-1)
+            logits = x.float() @ p["router"]
+            tp = current_trunk()
+            if tp is not None and tp.experts_split:
+                logits = all_gather_last(logits, (tp.experts,) * tp.size,
+                                         current_mesh())
+            probs = logits.softmax(-1)
             top = probs.sort(dim=-1, descending=True, stable=True).indices[
                 ..., :cfg.experts_per_token]                  # [B, S, k]
             last, earlier = top[:, -1], top[:, :-1].reshape(B, 1, -1)
@@ -3406,6 +3441,467 @@ def phase_cost(torch, counters, smollm_peak):
     cost_dry_run(torch, smollm_peak)
 
 
+# ------------------------------------------ phase 14: trunk-sharded serving
+
+# (arch, depth or None for all layers) served by a 2-rank gloo world on the
+# one card under trunk_shard (NCCL refuses two ranks on one device)
+TRUNK_ARCHS = (("qwen1.5-0.5b", None), ("qwen3-moe-30b-a3b", MOE_DEPTH))
+TRUNK_M = 2
+TRUNK_B, TRUNK_P = 8, 16        # the first-step check: 8 prompts of 16
+# the first decode step's logits against the one-device engine's: 16 bf16
+# ulps at the largest |logit|, between what scripts/trunk_tolerance.py
+# reads for a sound split (CPU, 2-rank gloo, bf16, random QKV biases: at
+# most 5.5, qwen3-moe at 8 layers; qwen1.5 at 24 layers 4.25) and for one
+# with a planted fault (at least 63: no FFN all-reduce, qwen1.5 at full
+# width and 2 layers; a wrong expert offset routes fewer than half the
+# rows alike, which fails the check too)
+TRUNK_ULPS = 16
+TRUNK_FP32_LAYERS, TRUNK_FP32_STEPS = 2, 16
+# an fp32 near-tie: a top-2 logit gap, or a gap between the k-th and
+# (k+1)-th router probability, below which the split's fp32 sum order
+# (about 1e-6 relative on the card) could flip the pick
+TRUNK_GAP, TRUNK_MARGIN = 1e-3, 1e-6
+
+
+def _trunk_counters():
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.fused_select.ops import fused_mask_select
+    from repro_torch.kernels.masked_logits.ops import (
+        apply_grammar_mask, apply_grammar_mask_span)
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    return (fused_mask_select, attention, apply_grammar_mask,
+            apply_grammar_mask_span, paged_attention)
+
+
+class _Heads:
+    """While active, records the (q heads, kv heads) of every flash and
+    paged attention call the model's layers make."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers = layers
+        self.orig = (layers.attention, layers.paged_attention)
+        self.flash, self.paged = set(), set()
+        attn, paged = self.orig
+
+        def flash(q, k, v, **kw):
+            self.flash.add((q.shape[2], k.shape[2]))
+            return attn(q, k, v, **kw)
+
+        def paged_(q, kp, vp, pt, pos):
+            self.paged.add((q.shape[2], kp.shape[2]))
+            return paged(q, kp, vp, pt, pos)
+        layers.attention, layers.paged_attention = flash, paged_
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.attention, self.layers.paged_attention = self.orig
+
+
+def valid_prefixes(engine, states):
+    """Every output walked token by token with the copied oracle
+    (`GrammarConstraint.is_valid_extension`): each generated token must
+    keep the output in the grammar's prefix language, eos only where the
+    output is complete. -> outputs cut short of eos."""
+    from repro_torch.core.tokenizer import EOS_ID
+    cut = 0
+    for st in states:
+        gc = engine._make_constraint(st.req)
+        ids = st.token_ids[len(engine._request_ids(st.req)):]
+        out = b""
+        for t in ids:
+            if not gc.is_valid_extension(out, t):
+                raise AssertionError(f"request {st.req.rid}: token {t} "
+                                     f"leaves the grammar after {out!r}")
+            if t == EOS_ID:
+                break
+            out += engine.tok.id_to_bytes[t]
+        if out != st.generated:
+            raise AssertionError(f"request {st.req.rid}: walked {out!r}, "
+                                 f"generated {st.generated!r}")
+        cut += st.finish_reason != "eos"
+    return cut
+
+
+def trunk_first_step(torch, engine, routes):
+    """TRUNK_B seeded prompts of TRUNK_P tokens prefilled and one decode
+    step, through the engine's own calls -> (the decode logits gathered,
+    fp32 on the host; each MoE layer's routes of the step, or None; the
+    step's inputs, for a rerun)."""
+    V = engine._cfg.vocab_size
+    g = torch.Generator(device="cpu").manual_seed(14)
+    toks = torch.randint(3, V, (TRUNK_B, TRUNK_P + 1), generator=g,
+                         dtype=torch.int32).to(engine.device)
+    _, caches = engine._prefill(toks[:, :TRUNK_P], TRUNK_P)
+    pos = torch.full((TRUNK_B,), TRUNK_P, dtype=torch.int32,
+                     device=engine.device)
+    if routes is not None:
+        routes.take()
+    logits = engine._gather(engine._decode(caches, toks[:, TRUNK_P], pos))
+    got = logits.float().cpu()
+    return got, None if routes is None else [
+        r.cpu() for r in routes.take()], (caches, toks[:, TRUNK_P], pos)
+
+
+def trunk_runs(torch, counters, engine, bundles, tok,
+               names=("dense", "paged", "speculative")):
+    """The first-step check, then dense, paged (a twin on the engine's
+    params) and speculative runs of phase 12's 8 requests x 32 new
+    tokens, each with the launch counters zeroed just before and read
+    just after, every eos output parsed and every output walked by the
+    oracle -> {"first", "routes", "runs": {run: tokens, steps, ms a
+    step, launches, attention heads, ...}}."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    moe = engine._cfg.arch_type == "moe"
+    with _Routes() as routes:
+        first, first_routes, _ = trunk_first_step(
+            torch, engine, routes if moe else None)
+    engine.generate(sharded_requests()[:1])          # warm-up
+    paged = Engine(build_model(engine._cfg, device=engine.device),
+                   engine.params,
+                   tok, bundles, max_len=512, slots=8, paged=True,
+                   page_size=16, device="cuda", mesh=engine.mesh,
+                   trunk_shard=engine.mesh is not None)
+    runs = {}
+    for name, fn in (("dense", lambda: engine.generate(sharded_requests())),
+                     ("paged", lambda: paged.generate(sharded_requests())),
+                     ("speculative", lambda: engine.generate_speculative(
+                         sharded_requests()))):
+        if name not in names:
+            continue
+        with _Heads() as heads:
+            states, stats, lc = run_counted(torch, counters, fn)
+        check_outputs(states, bundles)
+        cut = valid_prefixes(engine, states)
+        runs[name] = {"tokens": tokens_of(states),
+                      "steps": stats.decode_steps,
+                      "admitted": len(states),
+                      "ms": 1e3 * stats.wall / max(stats.decode_steps, 1),
+                      "launches": lc, "flash": sorted(heads.flash),
+                      "paged_heads": sorted(heads.paged), "cut": cut,
+                      "eos": sum(s.finish_reason == "eos" for s in states)}
+    del paged
+    return {"first": first, "routes": first_routes, "runs": runs}
+
+
+def trunk_launch_check(who, cfg, res, M):
+    """The four kernels' launches against each run's steps, at the local
+    heads: flash once per layer per admission at (H/M, K/M), paged once
+    per layer per feed at (H/M, K/M), masked_logits once per constrained
+    step (vocab split) or none, fused_select at least once a dense step;
+    masked_logits_span once per speculative step."""
+    L = cfg.num_layers
+    heads = (cfg.num_heads // M, cfg.num_kv_heads // M)
+    runs, bad = res["runs"], []
+    d = runs["dense"]
+    lc = d["launches"]
+    if lc["attention"] != d["admitted"] * L or d["flash"] != [heads]:
+        bad.append(f"dense flash {lc['attention']} at {d['flash']}")
+    if lc["fused_mask_select"] < d["steps"]:
+        bad.append(f"dense fused_select {lc['fused_mask_select']}")
+    if lc["apply_grammar_mask"] != (d["steps"] if M > 1 else 0):
+        bad.append(f"dense masked_logits {lc['apply_grammar_mask']}")
+    p = runs.get("paged")
+    if p and (p["launches"]["paged_attention"] != p["steps"] * L or
+              p["paged_heads"] != [heads]):
+        bad.append(f"paged {p['launches']['paged_attention']} at "
+                   f"{p['paged_heads']} in {p['steps']} steps")
+    s = runs.get("speculative")
+    if s and s["launches"]["apply_grammar_mask_span"] != s["steps"]:
+        bad.append(f"speculative masked_logits_span "
+                   f"{s['launches']['apply_grammar_mask_span']} in "
+                   f"{s['steps']} steps")
+    if bad:
+        raise AssertionError(f"phase 14 {who}: launches {bad} (dense "
+                             f"steps {d['steps']})")
+
+
+def trunk_rank(rank, n, arch, depth):
+    """One rank of the 2-rank gloo world on the card: `arch` built under
+    trunk_shard (each rank draws only its blocks), the first-step check,
+    the three runs, the decode step's collective tally against cost.py,
+    and peak memory against the trunk specs' argument bytes."""
+    import torch
+    from repro_torch.distributed import cost
+    from repro_torch.distributed.api import (collective_tally,
+                                             reset_collective_tally)
+    from repro_torch.distributed.sharding import (serving_cache_specs,
+                                                  serving_param_specs)
+    from repro_torch.launch.dryrun import tree_shard_bytes
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models.model import build_model
+    from repro_torch.training.tree import leaves
+    counters = _trunk_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, bundles, tok = build_engine(
+        arch, grammars=("json", "jsonmsg"), max_len=512, slots=8,
+        device="cuda", mesh=n, trunk_shard=True, num_layers=depth)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built_peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated()
+    res = trunk_runs(torch, counters, engine, bundles, tok)
+    # one decode step again (it rewrites the same positions) with the
+    # tally on and no route spy
+    _, _, (caches, t, pos) = trunk_first_step(torch, engine, None)
+    torch.cuda.synchronize()
+    reset_collective_tally()
+    engine._decode(caches, t, pos)
+    torch.cuda.synchronize()
+    res["tally"] = collective_tally()
+    cfg, mesh = engine._cfg, engine.mesh
+    res["cost"] = cost.decode_step(cfg, TRUNK_B, engine.max_len, mesh=mesh)
+    meta = build_model(cfg, device="meta")
+    params = meta.abstract_params()
+    caches = meta.init_decode_caches(8, engine.max_len)
+    pools = meta.init_paged_caches(engine.num_pages, engine.page_size)
+    res["est"] = {
+        "params": tree_shard_bytes(params, serving_param_specs(
+            params, mesh, cfg, trunk_shard=True), mesh),
+        "caches": tree_shard_bytes(caches, serving_cache_specs(
+            caches, mesh, cfg, trunk_shard=True), mesh),
+        "pools": tree_shard_bytes(pools, serving_cache_specs(
+            pools, mesh, cfg, trunk_shard=True), mesh)}
+    res["whole_params"] = sum(t.numel() * t.element_size()
+                              for t in leaves(params))
+    res["block_params"] = sum(t.numel() * t.element_size()
+                              for t in leaves(engine.params))
+    res.update(build_s=build_s, built_peak=built_peak, held=held,
+               peak=torch.cuda.max_memory_allocated(),
+               device=str(engine.device), backend=mesh.backend,
+               local=(engine.model.cfg.num_heads,
+                      engine.model.cfg.num_kv_heads, engine.model.cfg.d_ff))
+    return res
+
+
+def trunk_one_device(torch, arch, depth):
+    """The one-device engine on the same seeded weights, in this process:
+    the same first-step check and the dense run (the script's time
+    leaves out its paged and speculative twins)."""
+    from repro_torch.launch.serve import build_engine
+    counters = _trunk_counters()
+    torch.cuda.reset_peak_memory_stats()
+    engine, bundles, tok = build_engine(
+        arch, grammars=("json", "jsonmsg"), max_len=512, slots=8,
+        device="cuda", num_layers=depth)
+    res = trunk_runs(torch, counters, engine, bundles, tok,
+                     names=("dense",))
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["cfg"] = engine._cfg
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def trunk_fp32_greedy(rank, n, arch):
+    """fp32 copy at TRUNK_FP32_LAYERS layers: TRUNK_B seeded prompts
+    prefilled, then TRUNK_FP32_STEPS unconstrained greedy steps through
+    the engine's own calls (one device when n is None, else rank `rank`
+    of n under trunk_shard) -> (tokens [B, steps]; at each step the
+    one-device side's top-2 logit gap and smallest router margin, [B,
+    steps], or None under the mesh)."""
+    import torch
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.core.tokenizer import ByteTokenizer
+    from repro_torch.distributed.sharding import trunk_slice, vocab_shard
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    cfg = replace(get_config(arch), num_layers=TRUNK_FP32_LAYERS,
+                  dtype="float32")
+    mesh = None if n is None else make_serving_mesh(n, device="cuda")
+    model = build_model(cfg, device=mesh.device if mesh else "cuda")
+    cut = None
+    if mesh is not None:        # each rank draws only its blocks
+        vs = vocab_shard(cfg.vocab_size, n, mesh.rank)
+        cut = lambda p, shape: trunk_slice(p, shape, mesh, mesh.rank, vs)
+    params = model.init(torch.Generator(device=model.device).manual_seed(0),
+                        cut=cut)
+    engine = Engine(model, params, ByteTokenizer(cfg.vocab_size), {},
+                    max_len=64, slots=TRUNK_B, device="cuda", mesh=mesh,
+                    trunk_shard=mesh is not None)
+    margins, orig = [], layers.moe_ffn
+    if n is None and cfg.arch_type == "moe":
+        def spy(p, x, c):
+            probs = (x[:, -1].float() @ p["router"]).softmax(-1)
+            top = probs.sort(-1, descending=True).values
+            k = c.experts_per_token
+            margins.append(top[:, k - 1] - top[:, k])
+            return orig(p, x, c)
+        layers.moe_ffn = spy
+    try:
+        g = torch.Generator(device="cpu").manual_seed(15)
+        toks = torch.randint(3, cfg.vocab_size, (TRUNK_B, TRUNK_P),
+                             generator=g, dtype=torch.int32).to(
+                                 engine.device)
+        logits, caches = engine._prefill(toks, TRUNK_P)
+        row = engine._gather(logits)[:, -1].float()
+        out, gaps, mins = [], [], []
+        for i in range(TRUNK_FP32_STEPS):
+            top2 = row.topk(2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu())
+            t = row.argmax(-1).to(torch.int32)
+            out.append(t.cpu())
+            margins.clear()
+            pos = torch.full((TRUNK_B,), TRUNK_P + i, dtype=torch.int32,
+                             device=engine.device)
+            row = engine._gather(engine._decode(caches, t, pos)).float()
+            mins.append(torch.stack(margins).amin(0).cpu() if margins
+                        else torch.full((TRUNK_B,), 1.0))
+    finally:
+        layers.moe_ffn = orig
+    tok = torch.stack(out, 1)
+    if n is not None:
+        return tok, None
+    # a near-tie at step i may flip the token chosen at step i (the
+    # logits gap) or the next step's routing (that step's router margin)
+    tie = (torch.stack(gaps, 1) < TRUNK_GAP) | \
+        (torch.cat([torch.ones(TRUNK_B, 1), torch.stack(mins, 1)[:, :-1]],
+                   1) < TRUNK_MARGIN)
+    return tok, tie
+
+
+def trunk_fp32_check(arch, one, ranks):
+    """The fp32 2-layer copy: every rank's greedy tokens equal the
+    one-device engine's (`one`: tokens, near-ties) on every row up to
+    its first near-tie."""
+    import torch
+    want, tie = one
+    first = [int(tie[b].nonzero()[0]) if tie[b].any() else TRUNK_FP32_STEPS
+             for b in range(TRUNK_B)]
+    for r, got in enumerate(ranks):
+        for b in range(TRUNK_B):
+            if not torch.equal(got[b, :first[b]], want[b, :first[b]]):
+                raise AssertionError(
+                    f"phase 14 fp32 {arch}: rank {r} row {b} greedy tokens "
+                    f"{got[b].tolist()} differ from the one-device "
+                    f"{want[b].tolist()} before the first near-tie at "
+                    f"step {first[b]}")
+    held = sum(f == TRUNK_FP32_STEPS for f in first)
+    same = sum(torch.equal(g, want) for g in ranks)
+    log(f"phase 14 fp32 {arch} ({TRUNK_FP32_LAYERS} layers, {TRUNK_B} rows "
+        f"x {TRUNK_FP32_STEPS} greedy steps, world {TRUNK_M} over gloo): "
+        f"tokens identical to the one-device engine up to each row's first "
+        f"near-tie (logit gap < {TRUNK_GAP} or router margin < "
+        f"{TRUNK_MARGIN}); rows with no near-tie {held}/{TRUNK_B}; ranks "
+        f"identical on every row {same}/{len(ranks)}")
+    if held < TRUNK_B // 2:
+        raise AssertionError(f"phase 14 fp32 {arch}: only {held} rows "
+                             f"free of near-ties")
+
+
+def trunk_world(rank, n):
+    """One rank of the 2-rank gloo world, both archs in turn (one world
+    for the phase: each spawn costs the ranks' start-up): the bf16 runs
+    (`trunk_rank`), then the fp32 2-layer greedy tokens. -> {arch:
+    results}."""
+    import torch
+    out = {}
+    for arch, depth in TRUNK_ARCHS:
+        out[arch] = trunk_rank(rank, n, arch, depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch]["fp32"] = trunk_fp32_greedy(rank, n, arch)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _share(a, b):
+    """Requests of run a whose tokens equal run b's -> 'k/n'."""
+    return f"{sum(a[r] == b[r] for r in a)}/{len(a)}"
+
+
+def phase_trunk(torch):
+    """Phase 14: trunk-sharded serving (`Engine(mesh, trunk_shard=True)`)
+    of qwen1.5-0.5b (all 24 layers) and qwen3-moe-30b-a3b (MOE_DEPTH
+    layers) at full width in bf16 over a 2-rank gloo world on the one
+    card, against the one-device engine on the same seeded weights."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    ones = {}
+    for arch, depth in TRUNK_ARCHS:
+        ones[arch] = trunk_one_device(torch, arch, depth)
+        trunk_launch_check(f"{arch} one device", ones[arch]["cfg"],
+                           ones[arch], 1)
+        ones[arch]["fp32"] = trunk_fp32_greedy(0, None, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[phase 14 one-device runs done at {time.perf_counter() - t0:.1f} "
+        f"s]")
+    worlds = spawn(TRUNK_M, trunk_world, TRUNK_M, backend="gloo",
+                   device="cuda")
+    for arch, depth in TRUNK_ARCHS:
+        one, ranks = ones[arch], [w[arch] for w in worlds]
+        cfg = one["cfg"]
+        want = one["first"]
+        top = float(want.abs().max())
+        tol = TRUNK_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+        for r, res in enumerate(ranks):
+            trunk_launch_check(f"{arch} rank {r}", cfg, res, TRUNK_M)
+            rows = torch.ones(TRUNK_B, dtype=torch.bool)
+            if one["routes"] is not None:
+                for a, b in zip(res["routes"], one["routes"]):
+                    rows &= (a == b).all(-1)
+            held = int(rows.sum())
+            err = float((res["first"] - want).abs().amax(-1)[rows].max()) \
+                if held else float("inf")
+            if held < TRUNK_B // 2 or not err <= tol:
+                raise AssertionError(
+                    f"phase 14 {arch} rank {r}: first decode step's logits "
+                    f"max abs err {err:.4e} over {held} rows, tolerance "
+                    f"{tol:.4e} ({TRUNK_ULPS} bf16 ulps at {top:.4f})")
+            base = one["runs"]["dense"]
+            ar = res["tally"].get("all-reduce", {})
+            ag = res["tally"].get("all-gather", {})
+            est = res["est"]
+            log(f"phase 14 {arch} ({depth or cfg.num_layers} layers) rank "
+                f"{r} ({res['backend']}, {res['device']}; local heads "
+                f"{res['local'][0]}/{res['local'][1]}, d_ff "
+                f"{res['local'][2]}): built in {res['build_s']:.1f} s; "
+                f"first decode step logits max abs err {err:.4e} over "
+                f"{held}/{TRUNK_B} rows (tolerance {tol:.4e}: {TRUNK_ULPS} "
+                f"bf16 ulps at {top:.4f}"
+                + ("; rows routed alike" if one["routes"] is not None
+                   else "") + ")")
+            for k, run in res["runs"].items():
+                vs = "" if k != "dense" else (
+                    f" (one device {base['ms']:.2f}; requests identical "
+                    f"to its run {_share(run['tokens'], base['tokens'])})")
+                log(f"  {k}: {run['steps']} steps, {run['ms']:.2f} ms a "
+                    f"step{vs}; eos {run['eos']}, cut {run['cut']} (valid "
+                    f"prefixes); launches {run['launches']}; flash heads "
+                    f"{run['flash']}, paged heads {run['paged_heads']}")
+            log(f"  collectives of one decode step (B {TRUNK_B}, 512 "
+                f"positions): all-reduce {ar.get('count', 0)} x, "
+                f"{ar.get('bytes', 0)} B, wire {ar.get('wire_bytes', 0):.0f}"
+                f" B; all-gather {ag.get('count', 0)} x, "
+                f"{ag.get('bytes', 0)} B, wire {ag.get('wire_bytes', 0):.0f}"
+                f" B; cost.py decode_step wire {res['cost']['wire_bytes']:.0f}"
+                f" B {dict(res['cost']['collectives'])}")
+            log(f"  memory: params held {res['block_params']} B; held "
+                f"after build {res['held']} B (peak "
+                f"{res['built_peak']} B), run peak {res['peak']} B; trunk "
+                f"spec argument bytes params {est['params']}, decode caches "
+                f"{est['caches']}, page pools {est['pools']} (sum "
+                f"{sum(est.values())}); whole params {res['whole_params']}; "
+                f"one-device run peak {one['peak']} B")
+            if res["block_params"] != est["params"] or \
+                    not res["built_peak"] < res["whole_params"]:
+                raise AssertionError(
+                    f"phase 14 {arch} rank {r}: holds {res['block_params']} "
+                    f"B of params, not its blocks' {est['params']}, or its "
+                    f"peak while building ({res['built_peak']} B) reaches "
+                    f"the whole tree's {res['whole_params']} B")
+        trunk_fp32_check(arch, one["fp32"], [res["fp32"] for res in ranks])
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3496,6 +3992,8 @@ def main():
     stamp("phase 12")
     phase_cost(torch, counters, smollm_peak)
     stamp("phase 13")
+    phase_trunk(torch)
+    stamp("phase 14")
 
     for r in rows:
         r.pop("key", None)

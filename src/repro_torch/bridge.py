@@ -17,7 +17,8 @@ leaves as their uint16 bit image, which a JAX caller views back with
 `shard_params` cuts one rank's block out of a (bridged) param tree for
 the sharded serving engine: the rows of `embed` and the columns of
 `lm_head` that hold its vocab ids (`distributed/sharding.py::
-vocab_slice`), every other leaf whole.
+vocab_slice`), every other leaf whole; or, under trunk_shard, every
+leaf's block (`trunk_slice`).
 
 The same calls carry an optimizer state ({"mu", "nu", "step"}: fp32
 moment trees and a 0-dim int32 step) between `repro.training.optimizer`
@@ -28,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .distributed.sharding import map_with_path, vocab_slice
+from .distributed.sharding import leaves_with_path, map_with_path, vocab_slice
 
 
 def _map(tree, fn):
@@ -73,13 +74,29 @@ def to_device(tree, device):
     return _map(tree, lambda t: t.to(device))
 
 
-def shard_params(tree, shard):
+def shard_params(tree, shard, whole=None):
     """One rank's serving params: each leaf cut to `vocab_slice` of the
-    rank's `VocabShard` (a contiguous copy where cut, the leaf itself
-    where whole)."""
+    rank's `VocabShard`, or to `shard(path, shape)` when `shard` is a
+    function of the leaf's path and whole shape (`trunk_slice`): a
+    contiguous copy where cut, the leaf itself where whole. `whole`, a
+    tree of the leaves' whole shapes (`Model.abstract_params()`), admits
+    leaves that are already the rank's blocks (`Model.init(gen,
+    cut=...)`): one whose shape is not its whole shape must be its
+    block's, and is kept."""
+    rule = shard if callable(shard) else \
+        (lambda path, shape: vocab_slice(path, shape, shard))
+    shapes = {} if whole is None else {
+        p: tuple(t.shape) for p, t in leaves_with_path(whole)}
+
     def cut(path, t):
-        sl = vocab_slice(path, tuple(t.shape), shard)
-        if all(s.start == 0 and s.stop == n for s, n in zip(sl, t.shape)):
+        shape = shapes.get(path, tuple(t.shape))
+        sl = rule(path, shape)
+        if tuple(t.shape) != shape:
+            if tuple(t.shape) != tuple(s.stop - s.start for s in sl):
+                raise ValueError(f"{path}: shape {tuple(t.shape)} is neither "
+                                 f"the whole leaf {shape} nor its block")
+            return t
+        if all(s.start == 0 and s.stop == n for s, n in zip(sl, shape)):
             return t
         return t[sl].contiguous()
     return map_with_path(cut, tree)

@@ -1,39 +1,56 @@
 """Sharding context and the sharded engine's collectives (port of
 `repro.distributed.api`).
 
-`use_sharding(mesh, vocab)` marks the model calls a sharded engine
-makes: model code asks `current_vocab()` whether the vocabulary is split
-(the embedding lookup's combine, `models/common.py::embed_tokens`). The
-context is per thread, as the reference's is: an engine enters it around
-each device call, on whatever thread runs the step loop. The reference's
-context also carries the logical-name rules that `shard_hint` reads;
-here `shard_hint(x, name)` is the identity, so the context holds no
-rules: where the reference asks GSPMD to place an activation, the port's
-ranks each hold their block and call the collectives below by hand (the
-engine gathers the logits itself before it selects).
+`use_sharding(mesh, vocab, trunk)` marks the model calls a sharded
+engine makes: model code asks `current_vocab()` whether the vocabulary
+is split (the embedding lookup's combine, `models/common.py::
+embed_tokens`) and `current_trunk()` what of the trunk this rank holds
+(`distributed/sharding.py::TrunkPlan`: the row-parallel all-reduces in
+`common.attn_out`/`common.ffn`, the QKV bias columns, the expert block in
+`models/moe.py`). The context is per thread, as the reference's is: an
+engine enters it around each device call, on whatever thread runs the
+step loop. The reference's context also carries the logical-name rules
+that `shard_hint` reads; here `shard_hint(x, name)` is the identity, so
+the context holds no rules: where the reference asks GSPMD to place an
+activation and insert the collectives, the port's ranks each hold their
+block and call the collectives below by hand (the engine gathers the
+logits itself before it selects).
 
-The three collectives of vocab-parallel serving, over the mesh's process
-group (identities when the mesh has no group, a single process):
+The collectives of sharded serving, over the mesh's process group
+(identities when the mesh has no group, a single process):
   * `vocab_all_reduce`: the embedding lookup's SUM of one true row and
     zeros (exact);
-  * `all_gather_last`: the masked logits' blocks joined on the last dim,
-    each padded to the widest block for the collective and trimmed after;
+  * `all_gather_last`: blocks joined on the last dim, each padded to the
+    widest block for the collective and trimmed after: the masked
+    logits before the selection, and under trunk_shard the MoE router's
+    expert columns;
+  * `trunk_all_reduce` (trunk_shard): the SUM of the ranks' partial
+    row-parallel products (attention out, FFN down, the experts'
+    combine), not exact: the sum runs in another order than the
+    one-device product's;
   * `broadcast_control`: the step loop's per-iteration record of what
     rank 0 decided (admissions, cancellations, deadlines, hot loads),
     always in host memory over a gloo group.
-The first two take tensors where they lie, on NCCL and gloo alike (gloo
-took CUDA tensors in torch 2.11 on the H100, so no host staging is
-written). Nothing here catches a collective's error: a
-failed rank ends the run.
+The tensor collectives take tensors where they lie, on NCCL and gloo
+alike (gloo took CUDA tensors in torch 2.11 on the H100, so no host
+staging is written), and add their count, result bytes and ring wire
+bytes (`distributed/cost.py::wire`) to a per-kind tally of the
+collectives actually issued (`collective_tally`). Nothing here catches a
+collective's error: a failed rank ends the run.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+from collections import defaultdict
 
 import torch
 
+from .cost import wire
+
 _state = threading.local()
+# kind -> {"count", "bytes" (results), "wire_bytes"}, this process
+_tally = defaultdict(lambda: {"count": 0, "bytes": 0, "wire_bytes": 0.0})
 
 
 def _ctx():
@@ -41,11 +58,12 @@ def _ctx():
 
 
 @contextlib.contextmanager
-def use_sharding(mesh, vocab=None):
+def use_sharding(mesh, vocab=None, trunk=None):
     """mesh: the engine's `ServingMesh`; vocab: this rank's
-    `VocabShard`, or None."""
+    `VocabShard`, or None; trunk: this rank's `TrunkPlan` under
+    trunk_shard, or None (the trunk whole)."""
     prev = _ctx()
-    _state.ctx = (mesh, vocab)
+    _state.ctx = (mesh, vocab, trunk)
     try:
         yield
     finally:
@@ -75,16 +93,58 @@ def current_vocab():
     return None if ctx is None else ctx[1]
 
 
+def current_trunk():
+    """The active context's `TrunkPlan` when it splits the trunk, else
+    None."""
+    ctx = _ctx()
+    return ctx[2] if ctx is not None and ctx[2] is not None and \
+        ctx[2].split else None
+
+
 # ------------------------------ collectives ------------------------------
+
+def collective_tally() -> dict:
+    """{kind: {"count", "bytes", "wire_bytes"}} of the tensor collectives
+    this process issued since `reset_collective_tally` ("bytes": each
+    result's bytes; "wire_bytes": what the reference's ring factors say
+    a rank sends for it)."""
+    return {k: dict(v) for k, v in _tally.items()}
+
+
+def reset_collective_tally() -> None:
+    _tally.clear()
+
+
+def _note(kind: str, n: int, mesh) -> None:
+    """One collective of `kind` whose result is n bytes a rank."""
+    d = _tally[kind]
+    d["count"] += 1
+    d["bytes"] += n
+    d["wire_bytes"] += wire(kind, n, mesh.size)
+
+
+def _all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    import torch.distributed as dist
+    if mesh is None or mesh.group is None:
+        return x
+    _note("all-reduce", x.numel() * x.element_size(), mesh)
+    dist.all_reduce(x, group=mesh.group)
+    return x
+
 
 def vocab_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
     """SUM of x over the mesh's ranks, in place; returns x. With one
     true row and zeros elsewhere the sum is exact in any dtype."""
-    import torch.distributed as dist
-    if mesh is None or mesh.group is None:
-        return x
-    dist.all_reduce(x, group=mesh.group)
-    return x
+    return _all_reduce(x, mesh)
+
+
+def trunk_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """SUM of the ranks' partial products x (a row-parallel product whose
+    contraction "model" splits), in place; returns x. Not exact: each
+    rank rounds its partial sum, and the collective adds the partials in
+    its own order, where the one-device product accumulates the whole
+    contraction at once."""
+    return _all_reduce(x, mesh)
 
 
 def all_gather_last(x: torch.Tensor, widths, mesh) -> torch.Tensor:
@@ -100,6 +160,7 @@ def all_gather_last(x: torch.Tensor, widths, mesh) -> torch.Tensor:
     x = x.contiguous()
     outs = [torch.empty_like(x) for _ in widths]
     dist.all_gather(outs, x, group=mesh.group)
+    _note("all-gather", x.numel() * x.element_size() * len(widths), mesh)
     return torch.cat([o[..., :w] for o, w in zip(outs, widths)], dim=-1)
 
 

@@ -627,16 +627,18 @@ def span_decode(cfg, B: int, K: int, cache_len: int, mesh=None,
 
 
 def paged_feed(cfg, B: int, S: int, pages: int, page_size: int,
-               vocab=None):
+               mesh=None, vocab=None):
     """One paged span feed (`Engine.span_feed_paged`): B rows of S
     tokens through a [B, pages] page table of `page_size` pages. FLOPs:
     attention against every table entry's positions (the reference
     gathers them all); bytes: the pool at the pages the table names,
     the S positions written a row, the table and the feed mask, and the
-    logits of every fed position."""
-    t, w = _forward(cfg, "decode", B, S, None, vocab,
+    logits of every fed position. Under a mesh, per device: the pool's
+    kv heads split as `cache_spec` splits them."""
+    t, w = _forward(cfg, "decode", B, S, mesh, vocab,
                     cache=pages * page_size, paged=True)
-    kv = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * w.it
+    kv = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * w.it / \
+        t.split(cfg.num_kv_heads)
     t.bytes += _n_self_attn(cfg) * B * (pages * page_size + S) * kv
     t.bytes += B * pages * 4 + B * S + B * 4
     return t.forward()

@@ -32,13 +32,17 @@ training rules (FSDP `param_spec(fsdp=True)` when `needs_fsdp`, ZeRO-1
 (`launch/dryrun.py`) cuts each device's arguments with and what the
 static cost count (`distributed/cost.py`) splits FLOPs, bytes and
 collectives by, as the reference's dry run does; no live trainer shards
-(the reference's has no mesh either). The trunk rules wait for
-`trunk_shard`. All are held to the reference's specs by the tests.
+(the reference's has no mesh either). Under `trunk_shard=True` the
+serving engine cuts each trunk leaf by `serving_param_spec(...,
+trunk_shard=True)` and each cache and pool leaf by `serving_cache_specs`
+(`trunk_plan` says what that splits and refuses the splits the port does
+not serve; `trunk_slice` is one leaf's cut). All are held to the
+reference's specs by the tests.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 
 def data_axes(mesh):
@@ -243,7 +247,8 @@ def cache_specs(caches, mesh, cfg=None):
 # math on them. The trunk and every KV cache stay replicated; ONE gather
 # of the masked logits precedes the selection. `trunk_shard=True` (the
 # megatron-style `param_spec` / `cache_spec` rules) gives that identity
-# up; the port does not serve it yet.
+# up: the row-parallel products end in an all-reduce whose sum runs in
+# another order than the one-device product's (`trunk_plan`).
 
 def serving_param_spec(path_str: str, shape, mesh, cfg,
                        trunk_shard: bool = False) -> tuple:
@@ -444,3 +449,100 @@ def vocab_slice(path_str: str, shape, shard: VocabShard) -> tuple:
     if name == "lm_head" and len(shape) == 2:
         return (full[0], ids)
     return full
+
+
+# ------------------------------ the trunk split -----------------------------
+
+# the layer kinds a rank runs over its block of the trunk; the others
+# refuse trunk_shard (their leaves split on state or channel dims that
+# need collectives the port does not issue)
+TRUNK_KINDS = ("attn", "moe")
+
+
+@dataclass(frozen=True)
+class TrunkPlan:
+    """What `trunk_shard=True` splits on a "model" axis of `size` ranks,
+    seen from rank `rank`: the blocks `serving_param_spec(...,
+    trunk_shard=True)` and `serving_cache_specs` give it. q heads, kv
+    heads (cache and pool leaves too) and the QKV columns split whole
+    heads: rank r holds q heads [rH/M, (r+1)H/M) and kv heads [rK/M,
+    (r+1)K/M), so q head h still reads kv head h // (H/K). `d_ff` splits
+    when M divides it (`ff_split`, else every rank holds the whole FFN),
+    the experts likewise (`experts_split`). `heads`, `kv_heads`, `d_ff`
+    and `experts` are the counts one rank holds."""
+    size: int
+    rank: int
+    heads: int
+    kv_heads: int
+    d_ff: int
+    experts: int
+    ff_split: bool
+    experts_split: bool
+
+    @property
+    def split(self) -> bool:
+        """False at M = 1: every block is the whole leaf."""
+        return self.size > 1
+
+    def local_config(self, cfg):
+        """The rank-local view of `cfg` its layers run over: H/M q heads,
+        K/M kv heads, its share of d_ff; head_dim, the expert count, the
+        expert width and the vocabulary stay whole (routing and capacity
+        read the global E)."""
+        kw = dict(num_heads=self.heads, num_kv_heads=self.kv_heads,
+                  head_dim=cfg.resolved_head_dim, d_ff=self.d_ff)
+        if cfg.num_experts:
+            kw["moe_d_ff"] = cfg.expert_d_ff
+        return replace(cfg, **kw)
+
+
+def _trunk_kinds(cfg) -> set:
+    from ..models.model import layer_groups
+    kinds = {k for pat, _ in layer_groups(cfg) for k in pat}
+    if cfg.arch_type == "audio":
+        kinds.add("enc")
+    return kinds
+
+
+def trunk_plan(cfg, M: int, rank: int = 0) -> TrunkPlan:
+    """The trunk split of `cfg` over M ranks. At M = 1 nothing is split.
+    Above, raises ValueError (naming the config, M and the dimension)
+    for a split the port does not serve: a layer kind other than attn
+    and moe (the ssm, hybrid, vlm and audio families), or q or kv heads
+    that M does not divide. There the reference's rule would cut inside
+    a head (wq's columns) and put the cache's sequence dim, or a pool's
+    in-page offset, on "model", which needs a partial attention per rank
+    and a log-sum-exp combine across them (`cache_spec`)."""
+    M = int(M)
+    if M < 1:
+        raise ValueError(f"trunk_shard: M must be >= 1, got {M}")
+    H, K, F, E = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff, cfg.num_experts
+    if M == 1:
+        return TrunkPlan(1, 0, H, K, F, E, False, False)
+    where = f"trunk_shard: {cfg.name} at M = {M}"
+    other = sorted(_trunk_kinds(cfg) - set(TRUNK_KINDS))
+    if other:
+        raise ValueError(f"{where}: layer kinds {other} ({cfg.arch_type}) "
+                         f"are not trunk-sharded; the port splits only "
+                         f"{TRUNK_KINDS}")
+    for dim, n in (("num_heads", H), ("num_kv_heads", K)):
+        if n % M:
+            raise ValueError(
+                f"{where}: {dim} {n} does not split {M} ways on head "
+                f"boundaries (a sequence-sharded cache and a pool split on "
+                f"the in-page offset are not ported)")
+    ff, ex = F % M == 0, bool(E) and E % M == 0
+    return TrunkPlan(M, int(rank), H // M, K // M, F // M if ff else F,
+                     E // M if ex else E, ff, ex)
+
+
+def trunk_slice(path_str: str, shape, mesh, rank: int,
+                shard: VocabShard) -> tuple:
+    """The block of one serving param that rank `rank` holds under
+    trunk_shard: `vocab_slice` for embed and lm_head (the word-aligned
+    vocabulary split), `shard_slice` of `serving_param_spec(...,
+    trunk_shard=True)` for every other leaf."""
+    if _leaf_name(path_str) in ("embed", "lm_head"):
+        return vocab_slice(path_str, shape, shard)
+    spec = serving_param_spec(path_str, shape, mesh, None, trunk_shard=True)
+    return shard_slice(spec, tuple(shape), mesh, rank)

@@ -8,7 +8,7 @@ Usage (on the card; `--device cpu` runs the same path on the CPU):
       [--paged [--page-size 16] [--num-pages N]] [--opportunistic] \
       [--speculative [--draft-k 4] [--max-jump 16] [--proposer sam|ngram]
        [--literal-jump]] [--sequential] [--no-overlap] [--devtime] \
-      [--mesh N]
+      [--mesh N [--trunk-shard]]
 
   --serve [--host 127.0.0.1] [--port 8400] starts the streaming HTTP
   endpoint (serving/server.py) over one persistent AsyncEngine instead
@@ -29,6 +29,13 @@ processes on N devices (`launch/mesh.py::spawn`), NCCL on the card and
 gloo with `--device cpu`; N = 1 runs in this process. Every rank serves
 the same requests; rank 0 prints the summary and, with `--serve`, runs
 the HTTP front end while the others follow its step loop.
+`--trunk-shard` (with `--mesh N`) also splits the trunk, the KV caches
+and the page pools (Megatron column/row blocks, kv heads, experts): each
+rank draws only its blocks. It takes the dense and MoE configs whose q
+and kv heads N divides (syncode-demo, qwen1.5-0.5b, internlm2-1.8b,
+deepseek-coder-33b, qwen3-moe-30b-a3b and kimi-k2-1t-a32b at N = 2 and
+4) and refuses the rest with a ValueError (smollm-360m's 15/5 heads, the
+ssm, hybrid, vlm and audio families).
 
 Weights are random, drawn from `--seed` by a torch.Generator on the
 device, or loaded with `--checkpoint` from a msgpack checkpoint that
@@ -43,6 +50,7 @@ from dataclasses import replace
 
 import torch
 
+from ..bridge import shard_params, to_device
 from ..configs import get_config
 from ..core.decoding import DecodeConfig
 from ..core.grammars import BUILTIN, load_grammar
@@ -50,6 +58,8 @@ from ..core.mask_store import build_mask_store
 from ..core.parser import IncrementalParser
 from ..core.tokenizer import ByteTokenizer
 from ..device import resolve_device
+from ..distributed.sharding import (map_with_path, trunk_plan, trunk_slice,
+                                    vocab_shard)
 from ..models.model import build_model
 from ..serving.engine import Engine, Request
 from ..spec import SpecConfig
@@ -67,11 +77,15 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
     weights in the parity tests; `checkpoint` (a msgpack file of either
     package) then replaces every leaf, as the reference's flag does.
     `num_layers` keeps the config's first layers and every width
-    (chip_smoke.py serves qwen3-moe at 8 of 48 to bound its run time).
+    (chip_smoke.py serves qwen3-moe at 4 of 48 to bound its run time).
     `mesh`: None, an int (the model-parallel degree over this process
     group's ranks, `make_serving_mesh`; 1 needs no group) or a
     `ServingMesh`; the engine then runs on the mesh's device, and each
-    rank keeps its vocab block of the same seeded weights. The other
+    rank keeps its vocab block of the same seeded weights. With
+    `trunk_shard` over more than one rank, each rank draws only its
+    blocks of those weights, leaf by leaf on the device
+    (`Model.init(gen, cut=...)`), or cuts them from a checkpoint read
+    into host memory: the whole tree is never on the card. The other
     keywords are the Engine's."""
     if isinstance(mesh, int):
         mesh = make_serving_mesh(mesh, device=device)
@@ -79,20 +93,34 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
     cfg = get_config(arch)
     if num_layers:
         cfg = replace(cfg, num_layers=num_layers)
+    cut = None
+    if trunk_shard and mesh is not None and \
+            trunk_plan(cfg, mesh.shape["model"], mesh.rank).split:
+        vs = vocab_shard(cfg.vocab_size, mesh.shape["model"], mesh.rank)
+        cut = lambda p, shape: trunk_slice(p, shape, mesh, mesh.rank, vs)
     tok = ByteTokenizer(cfg.vocab_size)
     bundles = {}
     for name in grammars:
         g, tab = load_grammar(name)
         bundles[name] = (g, tab, build_mask_store(g, tok))
     model = build_model(cfg, device=dev)
-    if params is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        params = model.init(gen)
-    if checkpoint:
+    if checkpoint and cut is not None:
         from ..training.checkpoint import load_checkpoint
-        params, step, _ = load_checkpoint(checkpoint, params)
+        like = map_with_path(lambda _, t: torch.zeros(
+            (), dtype=t.dtype).expand(t.shape), model.abstract_params())
+        whole, step, _ = load_checkpoint(checkpoint, like)
+        params = to_device(shard_params(whole, cut), dev)
+        del whole
         print(f"loaded checkpoint at step {step}")
+    else:
+        if params is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            params = model.init(gen, cut=cut)
+        if checkpoint:
+            from ..training.checkpoint import load_checkpoint
+            params, step, _ = load_checkpoint(checkpoint, params)
+            print(f"loaded checkpoint at step {step}")
     return Engine(model, params, tok, bundles, max_len=max_len,
                   opportunistic=opportunistic, slots=slots, paged=paged,
                   page_size=page_size, num_pages=num_pages,
@@ -164,8 +192,13 @@ def main(argv=None):
                          "store and the mask path split by vocab, token "
                          "for token the single-device engine's")
     ap.add_argument("--trunk-shard", action="store_true",
-                    help="with --mesh: the reference's megatron-style "
-                         "trunk sharding (not ported: raises)")
+                    help="with --mesh N: also split the trunk, KV caches "
+                         "and page pools (Megatron column/row blocks with "
+                         "all-reduces, kv heads, experts); dense and MoE "
+                         "configs whose q and kv heads N divides "
+                         "(syncode-demo, qwen1.5-0.5b, internlm2-1.8b, "
+                         "deepseek-coder-33b, qwen3-moe-30b-a3b, "
+                         "kimi-k2-1t-a32b at N = 2, 4); others raise")
     args = ap.parse_args(argv)
     if args.mesh is None:
         _serve(None, args)
@@ -234,7 +267,9 @@ def _serve(rank, args):
           f"opportunistic hits {stats.opportunistic_hits}")
     if stats.mesh_devices > 1:
         print(f"tensor-parallel: {stats.mesh_devices}-device mesh "
-              f"(vocab-sharded mask path)")
+              f"(vocab-sharded mask path"
+              f"{'; trunk, caches and pools sharded' if engine._trunk else ''}"
+              f")")
     if args.speculative:
         print(f"speculation: jump {stats.jump_tokens} tokens "
               f"({stats.jump_fraction:.0%} of output), drafts "

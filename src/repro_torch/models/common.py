@@ -6,17 +6,25 @@ Parameters are plain dicts of tensors in the JAX package's layout
 points follow the reference: `rms_norm` reduces in fp32 and rounds the
 inverse to x's dtype before the multiply; `apply_rope` works in fp32 and
 casts back; matrix products take operands in their dtype.
+
+Under a trunk-sharded engine (`distributed.api.current_trunk()`) a rank
+holds the column blocks of wq/wk/wv/w_gate/w_up and the row blocks of
+wo/w_down (Megatron), runs over the rank-local config (H/M, K/M heads):
+`attn_out` and `ffn` all-reduce their partial products, and `qkv_proj`
+takes the rank's columns of the whole 1-D QKV biases.
 """
 from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..distributed.api import current_mesh, current_vocab, vocab_all_reduce
+from ..distributed.api import (current_mesh, current_trunk, current_vocab,
+                               trunk_all_reduce, vocab_all_reduce)
 
 NEG_INF = -1e30
 
@@ -30,7 +38,8 @@ def dtype_of(cfg) -> torch.dtype:
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
                dtype=torch.bfloat16) -> torch.Tensor:
     """Normal(0, 1) * scale (default 1/sqrt(fan_in), fan_in = shape[-2]),
-    drawn in fp32 on the generator's device and cast to `dtype`. A leaf
+    drawn in fp32 on the generator's device and cast to `dtype`
+    (`draw_block` of the whole leaf). A leaf
     stacked over layers (3 dims or more) is drawn one layer at a time, so
     the fp32 draw never holds more than one layer: qwen3-moe's expert
     leaf [48, 128, 2048, 768] would take 38.6 GB in fp32 at once. The
@@ -38,13 +47,60 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
     2048] is 22.5 GB in fp32, and a scaled copy would double it."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
-    if out.is_meta:     # abstract params: shapes only, nothing drawn
+    shape = tuple(shape)
+    if isinstance(gen, HeldDraws):
+        return gen.hold(shape, scale, dtype)
+    if gen.device.type == "meta":   # abstract params: shapes only
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return draw_block(gen, HeldDraw(shape, scale, dtype, 0),
+                      tuple(slice(0, s) for s in shape))
+
+
+@dataclass(frozen=True)
+class HeldDraw:
+    """A `dense_init` draw held back: its shape, scale, dtype and its
+    place in the generator's stream."""
+    shape: tuple
+    scale: float
+    dtype: torch.dtype
+    order: int
+
+
+class HeldDraws:
+    """The generator `Model.init(gen, cut=...)` hands to the init
+    functions: `dense_init` records each draw (`HeldDraw`) instead of
+    making it; zeros and ones are made on `device` as usual."""
+
+    def __init__(self, device):
+        self.device = device
+        self.n = 0
+
+    def hold(self, shape, scale, dtype) -> HeldDraw:
+        self.n += 1
+        return HeldDraw(shape, scale, dtype, self.n)
+
+
+def draw_block(gen: torch.Generator, held: HeldDraw, sl) -> torch.Tensor:
+    """The block `sl` (one slice a dim) of a leaf of `held.shape`: fp32
+    normal draws from `gen` (one layer at a time for a stacked leaf, so
+    at most one layer of the whole leaf is ever held), scaled in place,
+    each cut to the block and cast. Every block of a leaf makes the same
+    draws, so blocks cut apart fit together bit for bit; `dense_init` is
+    the block of every slice whole."""
+    shape, dev = held.shape, gen.device
+    out = torch.empty(tuple(s.stop - s.start for s in sl), dtype=held.dtype,
+                      device=dev)
+
+    def one(part_shape):
+        return torch.randn(part_shape, generator=gen, dtype=torch.float32,
+                           device=dev).mul_(held.scale)
+    if len(shape) < 3:
+        out.copy_(one(shape)[sl])
         return out
-    for part in (out if len(shape) >= 3 else (out,)):
-        part.copy_(torch.randn(part.shape, generator=gen,
-                               dtype=torch.float32, device=gen.device)
-                   .mul_(scale))
+    for i in range(shape[0]):
+        layer = one(shape[1:])
+        if sl[0].start <= i < sl[0].stop:
+            out[i - sl[0].start].copy_(layer[sl[1:]])
     return out
 
 
@@ -107,6 +163,15 @@ def init_attention(gen, cfg, dtype, lead=()):
     return p
 
 
+def _rank_cols(b, n):
+    """A whole 1-D bias -> the n columns of this rank's heads under a
+    trunk split (the bias itself when it has n)."""
+    if b.shape[-1] == n:
+        return b
+    r = current_trunk().rank
+    return b[..., r * n:(r + 1) * n]
+
+
 def qkv_proj(p, x, cfg):
     B, S, D = x.shape
     H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -114,16 +179,21 @@ def qkv_proj(p, x, cfg):
     k = matmul(x, p["wk"])
     v = matmul(x, p["wv"])
     if "bq" in p:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + _rank_cols(p["bq"], H * Dh)
+        k = k + _rank_cols(p["bk"], K * Dh)
+        v = v + _rank_cols(p["bv"], K * Dh)
     return (q.reshape(B, S, H, Dh), k.reshape(B, S, K, Dh),
             v.reshape(B, S, K, Dh))
 
 
 def attn_out(p, o):
+    """o [B,S,H,Dh] @ wo; under a trunk split the rank's heads give a
+    partial sum over H*Dh, all-reduced."""
     B, S, H, Dh = o.shape
-    return matmul(o.reshape(B, S, H * Dh), p["wo"])
+    y = matmul(o.reshape(B, S, H * Dh), p["wo"])
+    if current_trunk() is not None:
+        y = trunk_all_reduce(y, current_mesh())
+    return y
 
 
 # ----------------------------- FFN -----------------------------------------
@@ -137,9 +207,15 @@ def init_ffn(gen, d_model, d_ff, dtype, lead=()):
 
 
 def ffn(p, x):
+    """SwiGLU; under a trunk split of d_ff the rank's block gives a
+    partial sum over d_ff, all-reduced (an FFN kept whole is not)."""
     h = torch.nn.functional.silu(matmul(x, p["w_gate"])) * \
         matmul(x, p["w_up"])
-    return matmul(h, p["w_down"])
+    y = matmul(h, p["w_down"])
+    tp = current_trunk()
+    if tp is not None and tp.ff_split:
+        y = trunk_all_reduce(y, current_mesh())
+    return y
 
 
 # ----------------------------- embedding -----------------------------------

@@ -56,14 +56,15 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .common import (cross_entropy_loss, dtype_of, embed_tokens, init_embed,
-                     lm_logits)
+from .common import (HeldDraw, HeldDraws, cross_entropy_loss, draw_block,
+                     dtype_of, embed_tokens, init_embed, lm_logits)
 from .config import ModelConfig
 from .layers import (KIND_DECODE, KIND_INIT, KIND_PREFILL, KIND_TRAIN,
                      init_kv_cache)
 from .rglru import init_rglru_cache
 from .ssm import init_ssm_cache
 from ..device import resolve_device
+from ..distributed.sharding import leaves_with_path, map_with_path
 
 LB_COEF = 0.01
 Z_COEF = 0.001
@@ -126,13 +127,36 @@ class Model:
         self.device = resolve_device(self.device, abstract=True)
 
     # ------------------------------ init ---------------------------------
-    def init(self, gen: torch.Generator):
+    def init(self, gen: torch.Generator, cut=None):
         """Random params with the reference's shapes and scales (normal x
         1/sqrt(fan_in); embedding scale 1.0; conv kernels 0.5; norms
         ones; biases zeros; the MoE router and the recurrent gates' fp32
         leaves as the reference keeps them), drawn from `gen` on its
         device. The numbers are torch's, not jax.random's: parity tests
-        bridge the reference's params instead (`repro_torch.bridge`)."""
+        bridge the reference's params instead (`repro_torch.bridge`).
+
+        cut(path string, whole shape) -> one slice a dim: each leaf is
+        cut to that block as it is drawn, so the whole tree never exists
+        on the device, and the blocks are bit for bit those of the
+        uncut tree's leaves (a trunk-sharded rank's weights:
+        `distributed/sharding.py::trunk_slice`)."""
+        if cut is None:
+            return self._init_tree(gen)
+        tree = self._init_tree(HeldDraws(gen.device))
+        held = sorted(((path, leaf) for path, leaf in leaves_with_path(tree)
+                       if isinstance(leaf, HeldDraw)),
+                      key=lambda pl: pl[1].order)
+        blocks = {}
+        for path, leaf in held:     # the generator's stream order
+            blocks[path] = draw_block(gen, leaf, cut(path, leaf.shape))
+
+        def keep(path, leaf):
+            if isinstance(leaf, HeldDraw):
+                return blocks[path]
+            return leaf[cut(path, tuple(leaf.shape))].contiguous()
+        return map_with_path(keep, tree)
+
+    def _init_tree(self, gen):
         cfg = self.cfg
         dtype = dtype_of(cfg)
         params = {"embed_block": init_embed(gen, cfg, dtype), "groups": []}
@@ -148,7 +172,7 @@ class Model:
         """The param tree of `init` (same tree, shapes and dtypes) as
         meta tensors: no storage, no draw (the counterpart of the
         reference's `jax.eval_shape(self.init, rng)`)."""
-        return self.init(_MetaDraw())
+        return self._init_tree(_MetaDraw())
 
     def _layer(self, fn, x):
         """fn(x) -> (x, ...) under a per-layer checkpoint when `cfg.remat`

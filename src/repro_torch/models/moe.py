@@ -17,6 +17,14 @@ Parity points with the reference:
   adds an exact zero at (expert 0, slot 0), as the reference's
   `.at[].add` does, so the kept set and its values are exact.
 
+Expert parallelism (a trunk-sharded engine whose plan splits the
+experts, `distributed.api.current_trunk()`): rank r holds experts [r*E/M,
+(r+1)*E/M) and their router columns. The rank's router logits are
+gathered into the whole [B, S, E] row (`all_gather_last`), so top-k, the
+positions and the drops are computed on every rank from the same row
+with the global E and capacity; the rank dispatches and runs only its
+experts' pairs, and one all-reduce sums the ranks' combined outputs.
+
 Aux outputs: load-balance loss (Switch-style f.P) and router z-loss.
 """
 from __future__ import annotations
@@ -26,6 +34,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.api import (all_gather_last, current_mesh, current_trunk,
+                               trunk_all_reduce)
 from .common import dense_init
 
 
@@ -52,7 +62,12 @@ def moe_ffn(params, x, cfg):
     C = capacity(cfg, S)
     dev = x.device
 
+    tp = current_trunk()
+    split = tp is not None and tp.experts_split
     logits = x.float() @ params["router"]                     # [B,S,E]
+    if split:           # this rank's expert columns -> the whole row
+        logits = all_gather_last(logits, (tp.experts,) * tp.size,
+                                 current_mesh())
     probs = torch.softmax(logits, dim=-1)
     srt, order_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = srt[..., :k], order_e[..., :k]               # [B,S,k]
@@ -71,14 +86,18 @@ def moe_ffn(params, x, cfg):
     pos.scatter_(1, order, pos_sorted)
     keep = pos < C
 
-    # ---- dispatch: accumulate into [B, E, C, D] (row-local) ----
+    # ---- dispatch: accumulate into [B, E_r, C, D] (row-local) over the
+    # experts [e0, e0 + E_r) this rank holds (all of them unsplit) ----
+    E_r = params["w_gate"].shape[0]
+    e0 = tp.rank * E_r if split else 0
+    mine = keep & (e_flat >= e0) & (e_flat < e0 + E_r) if split else keep
     tok_of_pair = torch.arange(S * k, device=dev) // k
     src = x[:, tok_of_pair]                                   # [B,S*k,D]
-    contrib = torch.where(keep[..., None], src, torch.zeros_like(src))
-    e_safe = torch.where(keep, e_flat, 0)
-    p_safe = torch.where(keep, pos, 0)
+    contrib = torch.where(mine[..., None], src, torch.zeros_like(src))
+    e_safe = torch.where(mine, e_flat - e0, 0)
+    p_safe = torch.where(mine, pos, 0)
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S * k)
-    buf = torch.zeros((B, E, C, D), dtype=x.dtype, device=dev)
+    buf = torch.zeros((B, E_r, C, D), dtype=x.dtype, device=dev)
     buf.index_put_((bidx, e_safe, p_safe), contrib, accumulate=True)
 
     # ---- expert FFNs (batched over B, E) ----
@@ -88,10 +107,12 @@ def moe_ffn(params, x, cfg):
 
     # ---- combine: gather back, weight by gates, sum the k slots ----
     out_pairs = y_buf[bidx, e_safe, p_safe]
-    out_pairs = torch.where(keep[..., None], out_pairs,
+    out_pairs = torch.where(mine[..., None], out_pairs,
                             torch.zeros_like(out_pairs))
     out_pairs = out_pairs * gates.reshape(B, S * k)[..., None].to(x.dtype)
     y = out_pairs.reshape(B, S, k, D).sum(dim=2)
+    if split:           # the other ranks' experts' share
+        y = trunk_all_reduce(y, current_mesh())
 
     # ---- aux losses (Switch f.P, router z-loss) ----
     me = probs.mean(dim=(0, 1))                               # [E]

@@ -60,9 +60,27 @@ rows), so fp32 on the card at more than 2 ranks may change tokens: the
 engine warns there, and that case is unverified. What
 wall time or other threads decide (admissions, cancellations, deadlines,
 hot grammar loads) rank 0 decides and broadcasts once per loop iteration
-(serving/loop.py). Not ported yet: `trunk_shard=True`, the reference's
-megatron-style trunk sharding, which gives that identity up (ROADMAP
-queue 1 item 6); it raises NotImplementedError.
+(serving/loop.py).
+
+Trunk sharding (`mesh=` with `trunk_shard=True`), the reference's
+megatron-style rules for weights past one device: each rank also holds
+its block of every trunk leaf (`serving_param_spec(..., trunk_shard=
+True)`: the q/kv heads of wq/wk/wv and the rows of wo, d_ff's columns of
+w_gate/w_up and rows of w_down when M divides d_ff, its E/M experts and
+their router columns when M divides E) and of every cache and page pool
+(`serving_cache_specs`: its K/M kv heads), and runs its layers over the
+rank-local config (`TrunkPlan.local_config`: H/M and K/M heads, so the
+attention kernels run unchanged on the rank's heads). Two all-reduces a
+layer join the row-parallel products (attention out, FFN down), and an
+MoE layer gathers its router columns and all-reduces its experts'
+combined outputs (`models/common.py`, `models/moe.py`). The vocabulary
+split above is kept. This gives token identity up, as the reference
+says: each all-reduce adds partial sums in another order than the
+one-device product (in the CPU tests, fp32 at 1, 2 and 4 ranks: logits
+within atol 1e-4 of the JAX one-device model, and every serving path
+gives the unsharded engine's tokens). `trunk_plan` serves the dense and
+MoE families where M divides the q and the kv heads and refuses the
+rest with a ValueError (ROADMAP queue 1 item 2 lists what is left).
 """
 from __future__ import annotations
 
@@ -83,7 +101,7 @@ from ..bridge import shard_params
 from ..device import resolve_device
 from ..distributed import cost
 from ..distributed.api import all_gather_last, use_sharding
-from ..distributed.sharding import vocab_shard
+from ..distributed.sharding import trunk_plan, trunk_slice, vocab_shard
 from ..kernels.fused_select.ops import (fused_mask_select,
                                         fused_mask_select_sharded,
                                         gumbel_noise)
@@ -245,16 +263,19 @@ class Engine:
         serve tensor-parallel with the other ranks of its group, which run
         this engine on the same requests (module docstring); `params` are
         the whole tree, each rank keeps its block; the engine runs on the
-        mesh's device. trunk_shard: the reference's megatron-style trunk
-        sharding; not ported (NotImplementedError)."""
+        mesh's device. trunk_shard: with a mesh, also split the trunk,
+        the caches and the page pools (module docstring); `params` may
+        then be the whole tree or already this rank's blocks
+        (`Model.init(gen, cut=...)`, as `launch.serve.build_engine`
+        draws them), and `self.model` is the rank-local model. At M = 1,
+        or without a mesh, nothing is split: the plain engine. A split
+        `trunk_plan` refuses raises ValueError."""
         if grammar_mode not in GrammarConstraint.MODES:
             raise ValueError(f"unknown grammar_mode {grammar_mode!r}; "
                              f"expected one of {GrammarConstraint.MODES}")
-        if trunk_shard:
-            raise NotImplementedError(
-                "trunk_shard=True (megatron-style trunk sharding) is not "
-                "ported yet: ROADMAP queue 1 item 6, the next slice")
         self.mesh = mesh
+        self._cfg = model.cfg           # the whole config
+        self._trunk = None              # this rank's TrunkPlan, if split
         # this rank's VocabShard; the whole vocabulary without a mesh
         self._vs = vocab_shard(model.cfg.vocab_size, 1, 0)
         if mesh is not None:
@@ -262,10 +283,21 @@ class Engine:
                 raise ValueError(
                     "serving mesh needs a 'model' axis "
                     "(launch/mesh.py::make_serving_mesh)")
-            self._vs = vocab_shard(model.cfg.vocab_size,
-                                   mesh.shape["model"], mesh.rank)
+            M = mesh.shape["model"]
+            self._vs = vocab_shard(model.cfg.vocab_size, M, mesh.rank)
             self.device = mesh.device
-            params = shard_params(params, self._vs)
+            plan = trunk_plan(model.cfg, M, mesh.rank) if trunk_shard \
+                else None
+            if plan is not None and plan.split:
+                self._trunk, vs = plan, self._vs
+                params = shard_params(
+                    params, lambda p, shape: trunk_slice(p, shape, mesh,
+                                                         mesh.rank, vs),
+                    whole=model.abstract_params())
+                model = type(model)(self._trunk.local_config(model.cfg),
+                                    self.device)
+            else:
+                params = shard_params(params, self._vs)
         else:
             self.device = resolve_device(device)
         pdev = params["embed_block"]["embed"].device
@@ -324,7 +356,7 @@ class Engine:
         without a mesh)."""
         if self.mesh is None:
             return contextlib.nullcontext()
-        return use_sharding(self.mesh, self._vs)
+        return use_sharding(self.mesh, self._vs, self._trunk)
 
     def _gather(self, x):
         """A rank's [.., V_s] block joined to the whole [.., V] row (the
@@ -409,6 +441,16 @@ class Engine:
     def _vocab_width(self) -> int:
         """Vocab ids of this rank's lm head and logits."""
         return self._vs.width if self._split else self.model.cfg.vocab_size
+
+    def _forward_cost(self, count: Callable, *shape) -> dict:
+        """`count(cfg, *shape, ...)` of a `distributed/cost.py` forward
+        call kind for this engine: per device over the mesh under a
+        trunk split (the whole config, the specs' splits: the reference's
+        V % M vocabulary rule there, not the word-aligned one), else
+        this rank's model with its vocab width."""
+        if self._trunk is not None:
+            return count(self._cfg, *shape, mesh=self.mesh)
+        return count(self.model.cfg, *shape, vocab=self._vocab_width())
 
     # ------------------------------ device steps ---------------------------
 

@@ -672,9 +672,8 @@ class DenseMode(_ModeBase):
                     pos_dev = eng._h2d(loop.feed_pos.copy())  # reprolint: dispatch
                     logits = eng._decode(self.caches, tok_dev, pos_dev)
                 dv.done(logits)
-            eng._note_cost(tele, "forward", lambda: cost.decode_step(
-                eng.model.cfg, len(self.cur_tok), eng.max_len,
-                vocab=eng._vocab_width()))
+            eng._note_cost(tele, "forward", lambda: eng._forward_cost(
+                cost.decode_step, len(self.cur_tok), eng.max_len))
         loop.c_decode_steps.inc()
         for b in active:
             loop.slot_state[b].steps += 1
@@ -824,9 +823,8 @@ class PagedMode(_ModeBase):
                         eng._h2d(fmask.copy()), eng._h2d(table),
                         eng._h2d(sel.copy()))
                 dv.done(logits)
-            eng._note_cost(loop.tele, "forward", lambda: cost.paged_feed(
-                eng.model.cfg, B, S, table.shape[1], eng.page_size,
-                vocab=eng._vocab_width()))
+            eng._note_cost(loop.tele, "forward", lambda: eng._forward_cost(
+                cost.paged_feed, B, S, table.shape[1], eng.page_size))
             loop.c_decode_steps.inc()
             for b in live:
                 st = loop.slot_state[b]

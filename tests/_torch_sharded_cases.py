@@ -139,18 +139,23 @@ def _async_cancel(eng):
     return tokens(asyncio.run(go()))
 
 
-def run_cases(mesh, vocab, params_np, tok, grammars, async_cancel=False):
+def run_cases(mesh, vocab, params_np, tok, grammars, async_cancel=False,
+              cfg=None, device="cpu", **engine_kw):
     """Every case on one engine set-up: the reference's weights as numpy
     leaves, the port's tokenizer and {name: bundle} of the six builtin
-    grammars. `mesh` None is the unsharded port."""
-    model = build_model(config(vocab), device="cpu")
-    params = bridge.to_torch(params_np)
+    grammars. `mesh` None is the unsharded port. `cfg` replaces the
+    narrow syncode-demo at `vocab`; `device` is the unsharded engine's
+    (a mesh brings its own); `engine_kw` go to every Engine (e.g.
+    trunk_shard=True)."""
+    dev = mesh.device if mesh is not None else torch.device(device)
+    model = build_model(cfg or config(vocab), device=dev)
+    params = bridge.to_torch(params_np, dev)
 
     def engine(bs=None, **kw):
         kw.setdefault("slots", 4)
         return Engine(model, params, tok, grammars if bs is None else
                       {k: grammars[k] for k in bs}, max_len=MAX_LEN,
-                      device="cpu", mesh=mesh, **kw)
+                      device=dev, mesh=mesh, **engine_kw, **kw)
 
     out, stores = {}, {}
     eng = engine()

@@ -949,3 +949,22 @@ def test_smollm_width_train_step_matches_cpu(dev):
         losses[where] = (float(m["loss"]), float(after))
     for a, b in zip(losses["cpu"], losses["cuda"]):
         assert abs(a - b) <= 0.01 * abs(a), losses
+
+
+def test_trunk_shard_world_of_two_on_the_card(dev):
+    """`Engine(mesh=..., trunk_shard=True)` over a 2-rank gloo world on
+    the one card (NCCL refuses two ranks on one device), the narrow fp32
+    dense and MoE configs of `tests/_torch_trunk_cases.py` with the port's
+    own seeded weights: every serving case of `_torch_sharded_cases`
+    (greedy and sampled over six grammars, speculative, paged with a
+    shared prefix, two-grammar store, sequential, opportunistic) gives
+    the one-device engine's tokens on both ranks."""
+    import _torch_trunk_cases as T
+    from repro_torch.launch.mesh import spawn
+    want = T.card_world(0, None)
+    ranks = spawn(2, T.card_world, 2, backend="gloo", device="cuda")
+    for rank, got in enumerate(ranks):
+        for name in T.CONFIGS:
+            assert got[name].keys() <= want[name].keys()
+            for case, toks in got[name].items():
+                assert toks == want[name][case], (rank, name, case)

@@ -256,24 +256,44 @@ def _tiny_engine(**kw):
                   max_len=32, device="cpu", **kw)
 
 
+def _one_rank_of(M):
+    """Rank 0 of an M-rank mesh with no process group: enough for the
+    engine's checks, which come before any collective."""
+    from repro_torch.launch.mesh import ServingMesh
+    return ServingMesh({"data": 1, "model": M}, ("data", "model"))
+
+
 def test_engine_needs_a_model_axis_and_refuses_trunk_shard():
+    """No 'model' axis: ValueError. trunk_shard at M = 1 (or without a
+    mesh) splits nothing: the plain engine, the same tensors; a split the
+    trunk plan refuses raises ValueError naming it (here 2 q heads over
+    1 kv head at M = 2)."""
     with pytest.raises(ValueError, match="'model' axis"):
         _tiny_engine(mesh=MeshShape({"data": 2}, ("data",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tiny_engine(mesh=make_serving_mesh(1, device="cpu"),
-                     trunk_shard=True)
-    with pytest.raises(NotImplementedError):
-        _tiny_engine(trunk_shard=True)
+    plain = _tiny_engine()
+    for kw in ({"mesh": make_serving_mesh(1, device="cpu")}, {}):
+        eng = _tiny_engine(trunk_shard=True, **kw)
+        assert eng._trunk is None and eng.model.cfg == plain.model.cfg
+        assert [tuple(t.shape) for _, t in port.leaves_with_path(
+            eng.params)] == [tuple(t.shape) for _, t in
+                             port.leaves_with_path(plain.params)]
+    with pytest.raises(ValueError, match="num_kv_heads 1 does not split"):
+        _tiny_engine(mesh=_one_rank_of(2), trunk_shard=True)
     eng = _tiny_engine(mesh=make_serving_mesh(1, device="cpu"))
     assert eng._vs.split and eng._vs.width == 320
     assert eng._store_cat.shape == (1, 10)
 
 
 def test_build_engine_passes_mesh_and_trunk_shard():
+    """build_engine hands trunk_shard to the engine: at M = 1 the plain
+    engine; at M = 2 a refused config (smollm-360m's 15 heads) raises."""
     from repro_torch.launch.serve import build_engine
-    with pytest.raises(NotImplementedError):
-        build_engine(grammars=(), device="cpu", mesh=1, trunk_shard=True,
-                     num_layers=1)
+    with pytest.raises(ValueError, match="smollm-360m at M = 2"):
+        build_engine("smollm-360m", grammars=(), device="cpu",
+                     mesh=_one_rank_of(2), trunk_shard=True, num_layers=1)
+    eng, _, _ = build_engine(grammars=("json",), device="cpu", mesh=1,
+                             trunk_shard=True, num_layers=1)
+    assert eng.mesh.size == 1 and eng._trunk is None
     eng, _, _ = build_engine(grammars=("json",), device="cpu", mesh=1,
                              num_layers=1)
     assert eng.mesh.size == 1 and eng._vs.width == eng._vocab
