@@ -180,29 +180,46 @@ no result line):
    least the params, moments and batch;
 14. trunk-sharded serving (`Engine(mesh, trunk_shard=True)`: Megatron
    column/row blocks with explicit all-reduces, kv-head-sharded caches
-   and pools, expert-parallel MoE), a 2-rank gloo world on the one card,
+   and pools, expert-parallel MoE; where M does not divide the kv heads,
+   the sequence split: column blocks that cut inside heads gathered into
+   whole heads, each rank holding its share of the cache's positions and
+   of every page's offsets, a partial attention with its log-sum-exp per
+   rank and the partials joined), a 2-rank gloo world on the one card,
    bf16 at full width: qwen1.5-0.5b (all 24 layers, 16/16 heads, QKV
-   bias, d_ff 2816, V 151936) and qwen3-moe-30b-a3b (phase 8's 4
-   layers, 32/4 heads, 128 experts top-8), each rank drawing only its
-   blocks (`build_engine(..., trunk_shard=True)`); one spawned world
-   serves both models in turn. Against the one-device engine on the same
-   seeded weights (run first in this process): the first decode step's logits over 8 seeded prompts of 16
-   tokens within TRUNK_ULPS bf16 ulps at the largest logit (MoE: rows
-   whose token every layer routed alike); phase 12's 8 requests x 32
-   new tokens dense, paged and speculative on both sides, each run
-   counted on its own (flash once per layer per admission at the local
-   H/2 q and K/2 kv heads, paged attention once per layer per feed at
-   them, masked_logits once per constrained step, masked_logits_span
+   bias, d_ff 2816, V 151936), qwen3-moe-30b-a3b (phase 8's 4 layers,
+   32/4 heads, 128 experts top-8) and smollm-360m (all 32 layers, 15/5
+   heads: the sequence split, max_len 64 so that both ranks' shares hold
+   positions of the requests), each rank drawing only its blocks
+   (`build_engine(..., trunk_shard=True)`); one spawned world serves the
+   models in turn. First the partial paged kernel
+   (`paged_attention_partial`) at smollm's rank-local pool (phase 4's
+   pool cut to one rank's 8 offsets of each 16-position page, S = 1, 8
+   and 32, both ranks, bf16 and fp32) against its plain version, timed
+   beside it, its bound and sdpa. Against the one-device engine on the
+   same seeded weights (run first in this process): the first decode
+   step's logits over 8 seeded prompts (16 tokens; smollm 32, so the
+   step's own position is rank 1's first) within TRUNK_ULPS bf16 ulps at
+   the largest logit (MoE: rows whose token every layer routed alike);
+   phase 12's 8 requests x 32 new tokens (qwen1.5 and qwen3-moe 4 x 16)
+   dense, paged and speculative on both sides, each run counted on its
+   own (flash once per layer per admission at the local H/2 q and K/2 kv
+   heads, or every head under the sequence split, paged attention once
+   per layer per feed at them, the partial form under the sequence
+   split, masked_logits once per constrained step, masked_logits_span
    once per span step, fused_select at least once a step), every eos
-   output parsed and every output walked by the oracle
-   (`is_valid_extension`), ms a step beside the one-device engine's and
-   the share of requests identical printed, not required; one decode
-   step's collective tally beside `distributed/cost.py`'s wire count;
-   each rank's param bytes equal to the trunk specs' argument bytes, its
-   peak while building below the whole tree's bytes, its peak beside the
-   specs' params + caches + pools; then an fp32 copy at 2 layers: 16
-   greedy steps of 8 rows through both sides, identical up to each row's
-   first near-tie.
+   output parsed and every output
+   walked by the oracle (`is_valid_extension`), ms a step beside the
+   one-device engine's and the share of requests identical printed, not
+   required; under the sequence split, the live positions in each
+   rank's share of the first step's cache and the positions each run fed
+   into it, each above 0; smollm's partial paged kernel on the paged
+   run's own calls (each layer's of the last feed of each width) against
+   its plain version, bf16 and fp32; one decode step's collective tally
+   beside `distributed/cost.py`'s wire count; each rank's param, dense
+   cache and page pool bytes equal to the trunk specs' argument bytes,
+   its peak while building below the whole tree's bytes, its peak
+   beside the specs' params + caches + pools; then an fp32 copy at 2 layers: 16 greedy steps of 8 rows
+   through both sides, identical up to each row's first near-tie.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -3443,20 +3460,52 @@ def phase_cost(torch, counters, smollm_peak):
 
 # ------------------------------------------ phase 14: trunk-sharded serving
 
-# (arch, depth or None for all layers) served by a 2-rank gloo world on the
-# one card under trunk_shard (NCCL refuses two ranks on one device)
-TRUNK_ARCHS = (("qwen1.5-0.5b", None), ("qwen3-moe-30b-a3b", MOE_DEPTH))
+# (arch, depth or None for all layers, max_len, the first-step check's
+# prompt length) served by a 2-rank gloo world on the one card under
+# trunk_shard (NCCL refuses two ranks on one device). smollm-360m's 5 kv
+# heads do not split 2 ways: the sequence split, rank r holding positions
+# [32r, 32r + 32) of its 64 and offsets [8r, 8r + 8) of each 16-position
+# page; the 8 requests (about 23 prompt tokens, 32 new) cross position
+# 32, and the first step's 32 prompt tokens put its own position 32 on
+# rank 1
+TRUNK_ARCHS = (("qwen1.5-0.5b", None, 512, 16),
+               ("qwen3-moe-30b-a3b", MOE_DEPTH, 512, 16),
+               ("smollm-360m", None, 64, 32))
+# for the script's time (their steps are the host oracle's at V 151936),
+# qwen1.5's and qwen3-moe's runs serve 4 of the requests at 16 new
+# tokens, smollm's all 8 at SHARD_NEW; each warm-up is one request at
+# TRUNK_WARM new tokens. (qwen1.5's depth stays whole: at 4 layers its
+# vocabulary tables outweigh the layers, and the peak of drawing them
+# passes the whole tree's bytes, which the memory check forbids)
+TRUNK_CUT = {"qwen1.5-0.5b": (4, 16), "qwen3-moe-30b-a3b": (4, 16)}
+TRUNK_WARM = 4
+
+
+def trunk_requests(arch, warm=False):
+    """The requests phase 14 serves `arch` with (its warm-up's)."""
+    n, new = (1, TRUNK_WARM) if warm else \
+        TRUNK_CUT.get(arch, (8, SHARD_NEW))
+    reqs = sharded_requests()[:n]
+    for r in reqs:
+        r.max_new_tokens = new
+    return reqs
 TRUNK_M = 2
-TRUNK_B, TRUNK_P = 8, 16        # the first-step check: 8 prompts of 16
+TRUNK_B, TRUNK_P = 8, 16        # the checks' 8 prompts of 16 (fp32: 16)
 # the first decode step's logits against the one-device engine's: 16 bf16
 # ulps at the largest |logit|, between what scripts/trunk_tolerance.py
 # reads for a sound split (CPU, 2-rank gloo, bf16, random QKV biases: at
 # most 5.5, qwen3-moe at 8 layers; qwen1.5 at 24 layers 4.25) and for one
 # with a planted fault (at least 63: no FFN all-reduce, qwen1.5 at full
 # width and 2 layers; a wrong expert offset routes fewer than half the
-# rows alike, which fails the check too)
+# rows alike, which fails the check too); under the sequence split
+# (smollm-360m at full width, 32 prompt tokens) sound at most 4.0 at 32
+# layers, faults at least 22.95 (the partials joined with equal weights
+# instead of their log-sum-exp's, 2 layers) and 59.0 (a rank's prefill
+# writing the other rank's positions)
 TRUNK_ULPS = 16
 TRUNK_FP32_LAYERS, TRUNK_FP32_STEPS = 2, 16
+TRUNK_FP32_LEN = TRUNK_P + TRUNK_FP32_STEPS    # its max_len: smollm's
+#                                                rank 1 holds 16-31
 # an fp32 near-tie: a top-2 logit gap, or a gap between the k-th and
 # (k+1)-th router probability, below which the split's fp32 sum order
 # (about 1e-6 relative on the card) could flip the pick
@@ -3468,34 +3517,115 @@ def _trunk_counters():
     from repro_torch.kernels.fused_select.ops import fused_mask_select
     from repro_torch.kernels.masked_logits.ops import (
         apply_grammar_mask, apply_grammar_mask_span)
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_partial)
     return (fused_mask_select, attention, apply_grammar_mask,
-            apply_grammar_mask_span, paged_attention)
+            apply_grammar_mask_span, paged_attention, paged_attention_partial)
 
 
 class _Heads:
     """While active, records the (q heads, kv heads) of every flash and
-    paged attention call the model's layers make."""
+    paged attention call (whole or partial) the model's layers make."""
 
     def __enter__(self):
         from repro_torch.models import layers
         self.layers = layers
-        self.orig = (layers.attention, layers.paged_attention)
+        self.orig = (layers.attention, layers.paged_attention,
+                     layers.paged_attention_partial)
         self.flash, self.paged = set(), set()
-        attn, paged = self.orig
+        attn, paged, partial = self.orig
 
         def flash(q, k, v, **kw):
             self.flash.add((q.shape[2], k.shape[2]))
             return attn(q, k, v, **kw)
 
-        def paged_(q, kp, vp, pt, pos):
+        def paged_(q, kp, vp, *a):
             self.paged.add((q.shape[2], kp.shape[2]))
-            return paged(q, kp, vp, pt, pos)
+            return paged(q, kp, vp, *a)
+
+        def partial_(q, kp, vp, *a):
+            self.paged.add((q.shape[2], kp.shape[2]))
+            return partial(q, kp, vp, *a)
         layers.attention, layers.paged_attention = flash, paged_
+        layers.paged_attention_partial = partial_
         return self
 
     def __exit__(self, *exc):
-        self.layers.attention, self.layers.paged_attention = self.orig
+        (self.layers.attention, self.layers.paged_attention,
+         self.layers.paged_attention_partial) = self.orig
+
+
+class _PartialSpy:
+    """While active, keeps what the partial paged kernel took and gave on
+    the main path (`layers.paged_attention_partial`, one call a layer a
+    feed): every layer's call of the last feed of each feed width S,
+    copied as the call made it (the last, not the first: a run's first
+    feeds sit at position 0, where rank 1 holds no key). `check()`,
+    after the run, holds each kept output against the plain partial on
+    the same inputs (bf16, the run's own launch), then the kernel against
+    the plain partial on those inputs in fp32 -> {S: [calls, o err bf16,
+    lse err bf16, o err fp32, lse err fp32, share of rows with a live
+    key]}; raises beyond the paged tolerances, or where no row of a
+    width had a live key on this rank."""
+
+    def __init__(self, num_layers):
+        self.L, self.n, self.feeds, self.cur = num_layers, 0, {}, None
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, orig = layers, layers.paged_attention_partial
+        self.orig = orig
+
+        def spy(q, kp, vp, pt, pos, ps, base):
+            if self.n % self.L == 0:            # a feed's first layer
+                self.cur = self.feeds[q.shape[1]] = []
+            self.n += 1
+            o, lse = orig(q, kp, vp, pt, pos, ps, base)
+            self.cur.append(((q.clone(), kp.clone(), vp.clone(), pt.clone(),
+                              pos.clone(), ps, base), o.clone(),
+                             lse.clone()))
+            return o, lse
+        layers.paged_attention_partial = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.paged_attention_partial = self.orig
+
+    def check(self, who):
+        from repro_torch.kernels.paged_attention.ops import (
+            paged_attention_partial)
+        from repro_torch.kernels.paged_attention.ref import (
+            paged_attention_partial_ref)
+        out = {}
+        for S, calls in self.feeds.items():
+            row = out[S] = [len(calls), 0.0, 0.0, 0.0, 0.0, 0.0]
+            for args, o, lse in calls:
+                wo, wl = paged_attention_partial_ref(*args)
+                a32 = (args[0].float(), args[1].float(), args[2].float(),
+                       *args[3:])
+                o32, l32 = paged_attention_partial(*a32)
+                w32, wl32 = paged_attention_partial_ref(*a32)
+                errs = [(o.float() - wo.float()).abs().max().item(),
+                        (lse - wl).abs().max().item(),
+                        (o32 - w32).abs().max().item(),
+                        (l32 - wl32).abs().max().item()]
+                row[1:5] = [max(a, b) for a, b in zip(row[1:5], errs)]
+                row[5] += (wl > -1e29).float().mean().item() / len(calls)
+        for S, (n, eo, el, eo32, el32, live) in out.items():
+            if not (eo <= 2.0 ** -5 and el <= 1e-4 and eo32 <= 1e-5
+                    and el32 <= 1e-5 and live > 0):
+                raise AssertionError(
+                    f"{who}: paged_attention_partial on the main path, S={S} "
+                    f"({n} calls, rows with a live key {live:.3f}): max abs "
+                    f"err o {eo}, lse {el} (bf16; tol {2.0 ** -5}, 1e-4), o "
+                    f"{eo32}, lse {el32} (fp32; tol 1e-5, 1e-5)")
+        self.feeds.clear()
+        return out
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.training.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
 def valid_prefixes(engine, states):
@@ -3523,55 +3653,67 @@ def valid_prefixes(engine, states):
     return cut
 
 
-def trunk_first_step(torch, engine, routes):
-    """TRUNK_B seeded prompts of TRUNK_P tokens prefilled and one decode
-    step, through the engine's own calls -> (the decode logits gathered,
-    fp32 on the host; each MoE layer's routes of the step, or None; the
-    step's inputs, for a rerun)."""
+def trunk_first_step(torch, engine, routes, P):
+    """TRUNK_B seeded prompts of P tokens prefilled and one decode step,
+    through the engine's own calls -> (the decode logits gathered, fp32
+    on the host; each MoE layer's routes of the step, or None; the step's
+    caches and inputs, for a rerun)."""
     V = engine._cfg.vocab_size
     g = torch.Generator(device="cpu").manual_seed(14)
-    toks = torch.randint(3, V, (TRUNK_B, TRUNK_P + 1), generator=g,
+    toks = torch.randint(3, V, (TRUNK_B, P + 1), generator=g,
                          dtype=torch.int32).to(engine.device)
-    _, caches = engine._prefill(toks[:, :TRUNK_P], TRUNK_P)
-    pos = torch.full((TRUNK_B,), TRUNK_P, dtype=torch.int32,
+    _, caches = engine._prefill(toks[:, :P], P)
+    pos = torch.full((TRUNK_B,), P, dtype=torch.int32,
                      device=engine.device)
     if routes is not None:
         routes.take()
-    logits = engine._gather(engine._decode(caches, toks[:, TRUNK_P], pos))
+    logits = engine._gather(engine._decode(caches, toks[:, P], pos))
     got = logits.float().cpu()
     return got, None if routes is None else [
-        r.cpu() for r in routes.take()], (caches, toks[:, TRUNK_P], pos)
+        r.cpu() for r in routes.take()], (caches, toks[:, P], pos)
 
 
-def trunk_runs(torch, counters, engine, bundles, tok,
+def trunk_runs(torch, counters, engine, bundles, tok, P, arch,
                names=("dense", "paged", "speculative")):
     """The first-step check, then dense, paged (a twin on the engine's
-    params) and speculative runs of phase 12's 8 requests x 32 new
-    tokens, each with the launch counters zeroed just before and read
-    just after, every eos output parsed and every output walked by the
-    oracle -> {"first", "routes", "runs": {run: tokens, steps, ms a
-    step, launches, attention heads, ...}}."""
+    params) and speculative runs of `trunk_requests(arch)` (phase 12's
+    8 requests x 32 new tokens; qwen1.5, qwen3-moe 4 x 16), each with
+    the launch counters zeroed just before and read just after, every
+    eos output parsed and every output walked by the oracle, the partial
+    paged kernel's calls held by `_PartialSpy` -> {"first", "routes",
+    "runs": {run: tokens, steps, ms a step, launches, attention heads,
+    ...}, "bytes": the dense caches' and the page pools' bytes as the
+    runs build them}."""
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
     moe = engine._cfg.arch_type == "moe"
     with _Routes() as routes:
         first, first_routes, _ = trunk_first_step(
-            torch, engine, routes if moe else None)
-    engine.generate(sharded_requests()[:1])          # warm-up
+            torch, engine, routes if moe else None, P)
+    engine.generate(trunk_requests(arch, warm=True))
     paged = Engine(build_model(engine._cfg, device=engine.device),
                    engine.params,
-                   tok, bundles, max_len=512, slots=8, paged=True,
+                   tok, bundles, max_len=engine.max_len, slots=8, paged=True,
                    page_size=16, device="cuda", mesh=engine.mesh,
                    trunk_shard=engine.mesh is not None)
+    # the bytes a rank's dense caches and page pools hold, as the runs
+    # build them
+    held = {"caches": _tree_bytes(engine._decode_caches(8)),
+            "pools": _tree_bytes(paged._paged_setup(8)[1]),
+            "pages": (paged.num_pages, paged.page_size)}
     runs = {}
-    for name, fn in (("dense", lambda: engine.generate(sharded_requests())),
-                     ("paged", lambda: paged.generate(sharded_requests())),
-                     ("speculative", lambda: engine.generate_speculative(
-                         sharded_requests()))):
+    for name, eng, fn in (
+            ("dense", engine, lambda: engine.generate(trunk_requests(arch))),
+            ("paged", paged, lambda: paged.generate(trunk_requests(arch))),
+            ("speculative", engine, lambda: engine.generate_speculative(
+                trunk_requests(arch)))):
         if name not in names:
             continue
-        with _Heads() as heads:
+        spy = _PartialSpy(engine._cfg.num_layers)
+        with _Heads() as heads, spy:
             states, stats, lc = run_counted(torch, counters, fn)
+        checked = spy.check(f"phase 14 {engine._cfg.name} {name}") \
+            if spy.feeds else None
         check_outputs(states, bundles)
         cut = valid_prefixes(engine, states)
         runs[name] = {"tokens": tokens_of(states),
@@ -3580,19 +3722,28 @@ def trunk_runs(torch, counters, engine, bundles, tok,
                       "ms": 1e3 * stats.wall / max(stats.decode_steps, 1),
                       "launches": lc, "flash": sorted(heads.flash),
                       "paged_heads": sorted(heads.paged), "cut": cut,
+                      "plan": eng._trunk, "partial_checked": checked,
                       "eos": sum(s.finish_reason == "eos" for s in states)}
     del paged
-    return {"first": first, "routes": first_routes, "runs": runs}
+    return {"first": first, "routes": first_routes, "runs": runs,
+            "bytes": held}
 
 
 def trunk_launch_check(who, cfg, res, M):
-    """The four kernels' launches against each run's steps, at the local
+    """The kernels' launches against each run's steps, at the local
     heads: flash once per layer per admission at (H/M, K/M), paged once
     per layer per feed at (H/M, K/M), masked_logits once per constrained
     step (vocab split) or none, fused_select at least once a dense step;
-    masked_logits_span once per speculative step."""
+    masked_logits_span once per speculative step. Under the sequence
+    split (M does not divide K) flash runs at every head (H, K) and the
+    paged feeds launch the partial kernel instead, at (H, K) over the
+    rank's offsets."""
     L = cfg.num_layers
-    heads = (cfg.num_heads // M, cfg.num_kv_heads // M)
+    seq = cfg.num_kv_heads % M != 0
+    heads = (cfg.num_heads, cfg.num_kv_heads) if seq else \
+        (cfg.num_heads // M, cfg.num_kv_heads // M)
+    kind, other = ("paged_attention_partial", "paged_attention") if seq \
+        else ("paged_attention", "paged_attention_partial")
     runs, bad = res["runs"], []
     d = runs["dense"]
     lc = d["launches"]
@@ -3603,10 +3754,11 @@ def trunk_launch_check(who, cfg, res, M):
     if lc["apply_grammar_mask"] != (d["steps"] if M > 1 else 0):
         bad.append(f"dense masked_logits {lc['apply_grammar_mask']}")
     p = runs.get("paged")
-    if p and (p["launches"]["paged_attention"] != p["steps"] * L or
-              p["paged_heads"] != [heads]):
-        bad.append(f"paged {p['launches']['paged_attention']} at "
-                   f"{p['paged_heads']} in {p['steps']} steps")
+    if p and (p["launches"][kind] != p["steps"] * L or
+              p["launches"][other] or p["paged_heads"] != [heads]):
+        bad.append(f"paged {p['launches'][kind]} ({kind}; {other} "
+                   f"{p['launches'][other]}) at {p['paged_heads']} in "
+                   f"{p['steps']} steps")
     s = runs.get("speculative")
     if s and s["launches"]["apply_grammar_mask_span"] != s["steps"]:
         bad.append(f"speculative masked_logits_span "
@@ -3617,11 +3769,35 @@ def trunk_launch_check(who, cfg, res, M):
                              f"steps {d['steps']})")
 
 
-def trunk_rank(rank, n, arch, depth):
+def _share_reach(runs, max_len):
+    """Positions each run fed into this rank's share of the cache under
+    the sequence split (summed over the requests: a request fed
+    positions 0 .. len(ids) - 2): the dense runs' [lo, hi), the paged
+    run's in-page offsets [o0, o1). -> {run: count}, or None without the
+    split."""
+    out = {}
+    for name, run in runs.items():
+        plan = run["plan"]
+        if plan is None or not plan.seq:
+            return None
+        fed = [range(len(ids) - 1) for ids, _ in run["tokens"].values()]
+        if name == "paged":
+            (o0, o1), ps = plan.offsets, \
+                (plan.offsets[1] - plan.offsets[0]) * plan.size
+            out[name] = sum(o0 <= p % ps < o1 for f in fed for p in f)
+        else:
+            lo, hi = plan.positions
+            out[name] = sum(lo <= p % max_len < hi for f in fed for p in f)
+    return out
+
+
+def trunk_rank(rank, n, arch, depth, max_len, P):
     """One rank of the 2-rank gloo world on the card: `arch` built under
     trunk_shard (each rank draws only its blocks), the first-step check,
     the three runs, the decode step's collective tally against cost.py,
-    and peak memory against the trunk specs' argument bytes."""
+    the positions its share of the caches held (sequence split), and
+    the bytes of its params, dense caches and page pools against the
+    trunk specs' argument bytes."""
     import torch
     from repro_torch.distributed import cost
     from repro_torch.distributed.api import (collective_tally,
@@ -3636,27 +3812,35 @@ def trunk_rank(rank, n, arch, depth):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine, bundles, tok = build_engine(
-        arch, grammars=("json", "jsonmsg"), max_len=512, slots=8,
+        arch, grammars=("json", "jsonmsg"), max_len=max_len, slots=8,
         device="cuda", mesh=n, trunk_shard=True, num_layers=depth)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     built_peak = torch.cuda.max_memory_allocated()
     held = torch.cuda.memory_allocated()
-    res = trunk_runs(torch, counters, engine, bundles, tok)
+    res = trunk_runs(torch, counters, engine, bundles, tok, P, arch)
     # one decode step again (it rewrites the same positions) with the
     # tally on and no route spy
-    _, _, (caches, t, pos) = trunk_first_step(torch, engine, None)
+    _, _, (caches, t, pos) = trunk_first_step(torch, engine, None, P)
     torch.cuda.synchronize()
     reset_collective_tally()
     engine._decode(caches, t, pos)
     torch.cuda.synchronize()
     res["tally"] = collective_tally()
+    plan = engine._trunk
+    if plan is not None and plan.seq:
+        lo, hi = plan.positions
+        res["first_live"] = int((caches[0][0]["kv_pos"][0, :, lo:hi]
+                                 >= 0).sum())
+        res["positions"] = plan.positions
+        res["offsets"] = res["runs"]["paged"]["plan"].offsets
+    res["reach"] = _share_reach(res["runs"], max_len)
     cfg, mesh = engine._cfg, engine.mesh
     res["cost"] = cost.decode_step(cfg, TRUNK_B, engine.max_len, mesh=mesh)
     meta = build_model(cfg, device="meta")
     params = meta.abstract_params()
     caches = meta.init_decode_caches(8, engine.max_len)
-    pools = meta.init_paged_caches(engine.num_pages, engine.page_size)
+    pools = meta.init_paged_caches(*res["bytes"].pop("pages"))
     res["est"] = {
         "params": tree_shard_bytes(params, serving_param_specs(
             params, mesh, cfg, trunk_shard=True), mesh),
@@ -3676,7 +3860,7 @@ def trunk_rank(rank, n, arch, depth):
     return res
 
 
-def trunk_one_device(torch, arch, depth):
+def trunk_one_device(torch, arch, depth, max_len, P):
     """The one-device engine on the same seeded weights, in this process:
     the same first-step check and the dense run (the script's time
     leaves out its paged and speculative twins)."""
@@ -3684,9 +3868,9 @@ def trunk_one_device(torch, arch, depth):
     counters = _trunk_counters()
     torch.cuda.reset_peak_memory_stats()
     engine, bundles, tok = build_engine(
-        arch, grammars=("json", "jsonmsg"), max_len=512, slots=8,
+        arch, grammars=("json", "jsonmsg"), max_len=max_len, slots=8,
         device="cuda", num_layers=depth)
-    res = trunk_runs(torch, counters, engine, bundles, tok,
+    res = trunk_runs(torch, counters, engine, bundles, tok, P, arch,
                      names=("dense",))
     res["peak"] = torch.cuda.max_memory_allocated()
     res["cfg"] = engine._cfg
@@ -3723,8 +3907,8 @@ def trunk_fp32_greedy(rank, n, arch):
     params = model.init(torch.Generator(device=model.device).manual_seed(0),
                         cut=cut)
     engine = Engine(model, params, ByteTokenizer(cfg.vocab_size), {},
-                    max_len=64, slots=TRUNK_B, device="cuda", mesh=mesh,
-                    trunk_shard=mesh is not None)
+                    max_len=TRUNK_FP32_LEN, slots=TRUNK_B, device="cuda",
+                    mesh=mesh, trunk_shard=mesh is not None)
     margins, orig = [], layers.moe_ffn
     if n is None and cfg.arch_type == "moe":
         def spy(p, x, c):
@@ -3802,8 +3986,8 @@ def trunk_world(rank, n):
     results}."""
     import torch
     out = {}
-    for arch, depth in TRUNK_ARCHS:
-        out[arch] = trunk_rank(rank, n, arch, depth)
+    for arch, depth, max_len, P in TRUNK_ARCHS:
+        out[arch] = trunk_rank(rank, n, arch, depth, max_len, P)
         gc.collect()
         torch.cuda.empty_cache()
         out[arch]["fp32"] = trunk_fp32_greedy(rank, n, arch)[0]
@@ -3817,16 +4001,126 @@ def _share(a, b):
     return f"{sum(a[r] == b[r] for r in a)}/{len(a)}"
 
 
-def phase_trunk(torch):
+def paged_partial_rows(torch, np, H=15, K=5, Dh=64, sizes=(1, 8, 32)):
+    """The partial form of paged_attention_span at smollm-360m's heads
+    under the sequence split over 2 ranks, timed: phase 4's pool (B 8,
+    32 pages of 16 a slot, 256 pages, holes, shared pages) cut to one
+    rank's 8 offsets of each page (the main path's own calls, 4 pages a
+    slot, are held by `_PartialSpy`), ranks 0 and 1, bf16 and
+    fp32, against the plain partial (o within the paged tolerance, lse
+    within 1e-5 in fp32 and 1e-4 in bf16); rank 1's call timed beside its
+    plain version, its bound and sdpa over the gathered view of the
+    rank's positions (which returns no lse). -> {S: bf16 row}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention_partial)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_partial_ref)
+    dev = torch.device("cuda")
+    B, ps, nP, P, M = 8, 16, 32, 256, TRUNK_M
+    psl = ps // M
+    rng = np.random.default_rng(27)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    pt = rng.permutation(P)[:B * nP].reshape(B, nP).astype(np.int32)
+    pt[:, 1:][rng.random((B, nP - 1)) < 0.15] = -1
+    pt[1:4, :4] = pt[0, :4]
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-5
+        lse_tol = 1e-4 if dtype == torch.bfloat16 else 1e-5
+        kp = rng.normal(size=(P, ps, K, Dh)).astype(np.float32)
+        vp = rng.normal(size=(P, ps, K, Dh)).astype(np.float32)
+        for S in sizes:
+            q = t(rng.normal(size=(B, S, H, Dh)).astype(np.float32)).to(
+                dtype)
+            pos = rng.integers(S, nP * ps - S, size=B).astype(np.int32)
+            err = lerr = 0.0
+            for r in range(M):
+                base = r * psl
+                args = (q, t(kp[:, base:base + psl]).to(dtype),
+                        t(vp[:, base:base + psl]).to(dtype), t(pt), t(pos),
+                        ps, base)
+                o, lse = paged_attention_partial(*args)
+                wo, wl = paged_attention_partial_ref(*args)
+                err = max(err, (o - wo).abs().max().item())
+                lerr = max(lerr, (lse - wl).abs().max().item())
+                if not (err <= tol and lerr <= lse_tol):
+                    raise AssertionError(
+                        f"paged_attention_partial S={S} {dtype} rank {r}: "
+                        f"max abs err o {err}, lse {lerr} (tol {tol}, "
+                        f"{lse_tol})")
+            ms = cuda_ms(torch, lambda: paged_attention_partial(*args))
+            dev_ms = device_ms(torch, lambda: paged_attention_partial(*args))
+            plain = cuda_ms(torch, lambda: paged_attention_partial_ref(*args))
+            # the rank's positions of each slot's pages, gathered
+            safe = t(pt).clamp(min=0).long()
+            kc = args[1][safe].reshape(B, nP * psl, K, Dh).transpose(1, 2)
+            vc = args[2][safe].reshape(B, nP * psl, K, Dh).transpose(1, 2)
+            loc = torch.arange(nP * psl, device=dev)
+            idx = loc // psl * ps + base + loc % psl
+            qpos = t(pos)[:, None] + torch.arange(S, device=dev)[None, :]
+            mapped = (t(pt) >= 0).repeat_interleave(psl, dim=1)
+            mask = mapped[:, None, :] & (idx[None, None, :] <=
+                                         qpos[:, :, None])
+            qt = q.transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=mask[:, None], enable_gqa=True)
+            lib = cuda_ms(torch, sdpa)
+            lib_dev = device_ms(torch, sdpa)
+            # this run's work: the rank's offsets of the mapped pages each
+            # slot reads up to its last query, q once, o and lse (fp32)
+            # written; 4 operations per (query head, valid position,
+            # channel)
+            last = pos + S - 1
+            pages = {int(pt[b, j]) for b in range(B) for j in range(nP)
+                     if pt[b, j] >= 0 and j * ps + base <= last[b]}
+            esz = q.element_size()
+            nbytes = (2 * len(pages) * psl * K * Dh * esz
+                      + B * S * H * Dh * esz + B * S * H * (Dh + 1) * 4
+                      + B * nP * 4 + B * 4)
+            flops = 4 * int(mask.sum().item()) * H * Dh
+            peak = PEAK_FLOPS[str(dtype)[6:]]
+            t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            log(f"paged_attention_partial H={H} K={K} Dh={Dh} S={S} "
+                f"{str(dtype)[6:]} (pool [{P},{psl},{K},{Dh}], offsets "
+                f"{base}-{base + psl - 1} of {ps}; ranks 0-{M - 1} held): "
+                f"max abs err o {err:.3e}, lse {lerr:.3e}; {ms:.4f} ms, "
+                f"device {dev_ms:.4f} ms; plain {plain:.4f} ms; sdpa on the "
+                f"gathered view {lib:.4f} ms, device {lib_dev:.4f} ms; "
+                f"bound {bound:.6f} ms ({by})")
+            if dtype == torch.bfloat16:
+                rows[S] = {
+                    "name": "paged_attention_partial", "route": "cuda",
+                    "source": "src/repro_torch/csrc/paged_attention.cu",
+                    "replaces": "src/repro/kernels/paged_attention/"
+                                "kernel.py:83",
+                    "shape": f"B={B} S={S} H={H} K={K} Dh={Dh} bf16, "
+                             f"{nP} pages, offsets {base}-"
+                             f"{base + psl - 1} of {ps}",
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "device_ms": dev_ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                    "library_device_ms": lib_dev}
+    log("  (sdpa reads the already gathered view of the rank's positions "
+        "and returns no log-sum-exp)")
+    return rows
+
+
+def phase_trunk(torch, np):
     """Phase 14: trunk-sharded serving (`Engine(mesh, trunk_shard=True)`)
-    of qwen1.5-0.5b (all 24 layers) and qwen3-moe-30b-a3b (MOE_DEPTH
-    layers) at full width in bf16 over a 2-rank gloo world on the one
-    card, against the one-device engine on the same seeded weights."""
+    of qwen1.5-0.5b (all 24 layers), qwen3-moe-30b-a3b (MOE_DEPTH
+    layers) and smollm-360m (all 32 layers; the sequence split) at full
+    width in bf16 over a 2-rank gloo world on the one card, against the
+    one-device engine on the same seeded weights; first the partial
+    paged kernel at smollm's rank-local pool. -> kernel rows."""
     from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
+    partial = paged_partial_rows(torch, np)
     ones = {}
-    for arch, depth in TRUNK_ARCHS:
-        ones[arch] = trunk_one_device(torch, arch, depth)
+    for arch, depth, max_len, P in TRUNK_ARCHS:
+        ones[arch] = trunk_one_device(torch, arch, depth, max_len, P)
         trunk_launch_check(f"{arch} one device", ones[arch]["cfg"],
                            ones[arch], 1)
         ones[arch]["fp32"] = trunk_fp32_greedy(0, None, arch)
@@ -3836,7 +4130,7 @@ def phase_trunk(torch):
         f"s]")
     worlds = spawn(TRUNK_M, trunk_world, TRUNK_M, backend="gloo",
                    device="cuda")
-    for arch, depth in TRUNK_ARCHS:
+    for arch, depth, max_len, P in TRUNK_ARCHS:
         one, ranks = ones[arch], [w[arch] for w in worlds]
         cfg = one["cfg"]
         want = one["first"]
@@ -3877,7 +4171,35 @@ def phase_trunk(torch):
                     f"step{vs}; eos {run['eos']}, cut {run['cut']} (valid "
                     f"prefixes); launches {run['launches']}; flash heads "
                     f"{run['flash']}, paged heads {run['paged_heads']}")
-            log(f"  collectives of one decode step (B {TRUNK_B}, 512 "
+            got = res["runs"]["paged"]["partial_checked"]
+            if got is not None:
+                log(f"  paged_attention_partial on the main path, held "
+                    f"against its plain version on the same inputs (one "
+                    f"call a layer of the last feed of each width S): "
+                    + "; ".join(
+                        f"S={S} {n} calls, rows with a live key {lv:.3f}, "
+                        f"max abs err o {eo:.3e} lse {el:.3e} bf16, o "
+                        f"{eo32:.3e} lse {el32:.3e} fp32"
+                        for S, (n, eo, el, eo32, el32, lv) in sorted(
+                            got.items())))
+            if (got is not None) != (res["reach"] is not None):
+                raise AssertionError(
+                    f"phase 14 {arch} rank {r}: the paged run's partial "
+                    f"kernel calls checked {got} against the sequence "
+                    f"split {res['reach']}")
+            if res["reach"] is not None:
+                log(f"  sequence split: positions {res['positions']} of "
+                    f"{max_len}, in-page offsets {res['offsets']}; live "
+                    f"positions of the first step's cache in the rank's "
+                    f"share {res['first_live']} ({TRUNK_B} rows x {P + 1} "
+                    f"positions fed); positions the runs fed into it "
+                    f"{res['reach']}")
+                if res["first_live"] <= 0 or min(res["reach"].values()) <= 0:
+                    raise AssertionError(
+                        f"phase 14 {arch} rank {r}: no live position in the "
+                        f"rank's share ({res['first_live']}, "
+                        f"{res['reach']})")
+            log(f"  collectives of one decode step (B {TRUNK_B}, {max_len} "
                 f"positions): all-reduce {ar.get('count', 0)} x, "
                 f"{ar.get('bytes', 0)} B, wire {ar.get('wire_bytes', 0):.0f}"
                 f" B; all-gather {ag.get('count', 0)} x, "
@@ -3891,6 +4213,9 @@ def phase_trunk(torch):
                 f"{est['caches']}, page pools {est['pools']} (sum "
                 f"{sum(est.values())}); whole params {res['whole_params']}; "
                 f"one-device run peak {one['peak']} B")
+            log(f"  the rank's dense caches of 8 slots hold "
+                f"{res['bytes']['caches']} B, its page pools "
+                f"{res['bytes']['pools']} B (as the runs build them)")
             if res["block_params"] != est["params"] or \
                     not res["built_peak"] < res["whole_params"]:
                 raise AssertionError(
@@ -3898,8 +4223,22 @@ def phase_trunk(torch):
                     f"B of params, not its blocks' {est['params']}, or its "
                     f"peak while building ({res['built_peak']} B) reaches "
                     f"the whole tree's {res['whole_params']} B")
+            for k in ("caches", "pools"):
+                if res["bytes"][k] != est[k]:
+                    raise AssertionError(
+                        f"phase 14 {arch} rank {r}: its {k} hold "
+                        f"{res['bytes'][k]} B, not the trunk specs' "
+                        f"{est[k]} B")
         trunk_fp32_check(arch, one["fp32"], [res["fp32"] for res in ranks])
+    smollm = worlds[0]["smollm-360m"]["runs"]["paged"]
+    row = partial[1]
+    row["launches"] = smollm["launches"]["paged_attention_partial"]
+    row["model"] = "smollm-360m"
+    row["main_path_max_abs_err"] = max(
+        e[1] for w in worlds
+        for e in w["smollm-360m"]["runs"]["paged"]["partial_checked"].values())
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return [row]
 
 
 def main():
@@ -3992,7 +4331,7 @@ def main():
     stamp("phase 12")
     phase_cost(torch, counters, smollm_peak)
     stamp("phase 13")
-    phase_trunk(torch)
+    rows += phase_trunk(torch, np)
     stamp("phase 14")
 
     for r in rows:

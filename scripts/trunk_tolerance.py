@@ -3,9 +3,12 @@ bf16, measured on the CPU (gloo ranks): the bound `chip_smoke.py` phase 14
 holds the card's first decode step to.
 
     PYTHONPATH=src python scripts/trunk_tolerance.py [--json out.json]
+        [--arch ARCH]
 
 For each case (a config, a depth, a width) it draws seeded weights,
-prefills 8 prompts of 16 tokens and runs one decode step through the
+prefills 8 prompts of 16 tokens (32 where M = 2 does not divide the kv
+heads, smollm-360m's 5: the sequence split, whose rank 1 then holds the
+step's own position 32 of the 64) and runs one decode step through the
 one-device engine and through each rank of a 2-rank trunk-sharded engine
 (`Engine(mesh, trunk_shard=True)`, the engines' own `_prefill`/`_decode`,
 the logits gathered), and prints the largest |difference| of the decode
@@ -20,7 +23,11 @@ The cases with a fault plant one broken split in the ranks only (the
 one-device side stays sound), by replacing a function of the port in the
 rank's process: `ffn-no-all-reduce` drops the FFN's all-reduce,
 `bias-columns` adds the other rank's columns of the QKV biases,
-`expert-offset` runs the other rank's share of the experts' pairs. Each
+`expert-offset` runs the other rank's share of the experts' pairs;
+under the sequence split, `combine-no-lse` joins the ranks' partial
+attentions with equal weights instead of their log-sum-exp weights, and
+`other-rank-slots` has each rank's prefill write the positions of the
+other rank's share into its cache. Each
 line says whether phase 14's rule catches the case at BOUND ulps (fewer
 than half the rows routed alike, or more ulps than the bound): a sound
 case must not be caught, a faulty one must.
@@ -50,7 +57,14 @@ CASES = (("qwen1.5-0.5b", "reduced", 2, None),
          ("qwen1.5-0.5b", "reduced", 24, "bias-columns"),
          ("qwen1.5-0.5b", "full", 2, "bias-columns"),
          ("qwen3-moe-30b-a3b", "reduced", 4, "expert-offset"),
-         ("qwen3-moe-30b-a3b", "reduced", 8, "expert-offset"))
+         ("qwen3-moe-30b-a3b", "reduced", 8, "expert-offset"),
+         ("smollm-360m", "full", 2, None),
+         ("smollm-360m", "full", 8, None),
+         ("smollm-360m", "full", 32, None),
+         ("smollm-360m", "full", 2, "combine-no-lse"),
+         ("smollm-360m", "full", 32, "combine-no-lse"),
+         ("smollm-360m", "full", 2, "other-rank-slots"),
+         ("smollm-360m", "full", 32, "other-rank-slots"))
 BIAS_SCALE = 0.5
 BOUND = 16              # chip_smoke.py's TRUNK_ULPS
 
@@ -84,13 +98,13 @@ def plant(fault):
                 common.trunk_all_reduce = reduce
         layers.ffn = unreduced
     elif fault == "bias-columns":
-        def other_cols(b, n):
-            if b.shape[-1] == n:
+        def other_cols(b, span):
+            if span is None:
                 return b
-            tp = common.current_trunk()
+            n, tp = span[1] - span[0], common.current_trunk()
             r = (tp.rank + 1) % tp.size
             return b[..., r * n:(r + 1) * n]
-        common._rank_cols = other_cols
+        common._cols = other_cols
     elif fault == "expert-offset":
         trunk = moe.current_trunk
 
@@ -98,6 +112,24 @@ def plant(fault):
             tp = trunk()
             return tp and replace(tp, rank=(tp.rank + 1) % tp.size)
         moe.current_trunk = shifted
+    elif fault == "combine-no-lse":
+        layers.combine_partials = lambda o, lse, dtype: o.mean(0).to(dtype)
+    elif fault == "other-rank-slots":
+        prefill, split = layers._self_attention_prefill, layers._seq_split
+
+        def other():
+            tp = split()
+            lo, hi = tp.positions
+            r = (tp.rank + 1) % tp.size
+            return replace(tp, positions=(r * (hi - lo), (r + 1) * (hi - lo)))
+
+        def shifted(p, x, cfg, ctx):
+            layers._seq_split = other
+            try:
+                return prefill(p, x, cfg, ctx)
+            finally:
+                layers._seq_split = split
+        layers._self_attention_prefill = shifted
     elif fault is not None:
         raise ValueError(f"unknown fault {fault!r}")
 
@@ -113,6 +145,13 @@ def with_biases(params):
                 t.dtype)
         return t
     return map_with_path(draw, params)
+
+
+def prompt_len(cfg):
+    """16, or 32 under the sequence split (M = 2 does not divide the kv
+    heads): the decode step's position then opens rank 1's share of the
+    64 positions."""
+    return P if cfg.num_kv_heads % 2 == 0 else 32
 
 
 def run(rank, n, arch, width, depth, fault=None):
@@ -145,12 +184,14 @@ def run(rank, n, arch, width, depth, fault=None):
         return orig(p, x, c)
     layers.moe_ffn = spy
     g = torch.Generator().manual_seed(1)
-    toks = torch.randint(3, cfg.vocab_size, (B, P + 1), generator=g,
+    n_p = prompt_len(cfg)
+    toks = torch.randint(3, cfg.vocab_size, (B, n_p + 1), generator=g,
                          dtype=torch.int32)
-    _, caches = eng._prefill(toks[:, :P], P)
+    _, caches = eng._prefill(toks[:, :n_p], n_p)
     calls.clear()
-    logits = eng._gather(eng._decode(caches, toks[:, P],
-                                     torch.full((B,), P, dtype=torch.int32)))
+    logits = eng._gather(eng._decode(caches, toks[:, n_p],
+                                     torch.full((B,), n_p,
+                                                dtype=torch.int32)))
     layers.moe_ffn = orig
     return logits.float(), routes_of(calls)
 
@@ -178,9 +219,12 @@ def measure(arch, width, depth, fault):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None)
+    ap.add_argument("--arch", default=None, help="only this config's cases")
     args = ap.parse_args()
     out = []
     for arch, width, depth, fault in CASES:
+        if args.arch not in (None, arch):
+            continue
         r = measure(arch, width, depth, fault)
         print(json.dumps(r), flush=True)
         out.append(r)

@@ -13,6 +13,16 @@
 // A row with no valid position gets uniform weights over all L positions
 // (an unmapped page reads page 0), as the plain version's gather does.
 //
+// Partial form (`lse` given): the pools hold one rank's in-page offsets
+// [base, base + ps) of pages of gps positions (a pool split on the
+// in-page offset, [P, gps/M, K, Dh] a rank), so the position of local
+// offset o of page j is j * gps + base + o. The kernel then writes the
+// fp32 sum before rounding (`out` is fp32) and each row's fp32
+// log-sum-exp of its scaled scores, lse = m + log(l), which the cluster
+// already holds; a row with no valid position on this rank gets out 0
+// and lse -1e30, so the ranks' combine gives it no weight. The whole
+// form is the partial one with gps = ps and base 0.
+//
 // Bound: bytes at serving sizes. A span row's scores need the mapped K/V
 // pages of its slot (2 x L x Dh elements per kv head) against 4 x L x Dh
 // operations per query head; with G = 3 heads per kv head and S <= 32 that
@@ -178,8 +188,9 @@ template <typename T, bool MMA>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kpool,
     const T* __restrict__ vpool, const int32_t* __restrict__ pt,
-    const int32_t* __restrict__ pos, T* __restrict__ out, int S, int H,
-    int K, int Dh, int ps, int nP, int R, int ppb, int cpp, float qscale) {
+    const int32_t* __restrict__ pos, void* __restrict__ out,
+    float* __restrict__ lse, int S, int H, int K, int Dh, int ps, int gps,
+    int base, int nP, int R, int ppb, int cpp, float qscale) {
   constexpr int ECS = 16 / sizeof(T);        // elements per 16-byte chunk
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -237,8 +248,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   for (int i = t; i < nr * Dh; i += kThreads) op[i] = 0.f;
   __syncthreads();
 
-  auto live = [&](int j) {
-    return pts[j] >= 0 && (pbeg + j) * ps <= qmax;
+  auto live = [&](int j) {  // mapped, and its first position <= qmax
+    return pts[j] >= 0 && (pbeg + j) * gps + base <= qmax;
   };
   // cp.async of pages [cb, ce) of this block into kv: the live pages if
   // `take_live`; the others by `rest`: 0 skip, 1 copy (an unmapped page
@@ -292,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
             const int rr = rt * 16 + g + (i >> 1) * 8;
             const int li = ct * 16 + n * 8 + 2 * tq + (i & 1);
             if (rr < nr && li < nl) {
-              const int l = (pbeg + cb) * ps + li;
+              const int l = (pbeg + cb + li / ps) * gps + base + li % ps;
               const int qpos = p0 + (r0 + rr) / G;
               sc[rr * Lb + cb * ps + li] =
                   live(cb + li / ps) && l <= qpos ? acc[n][i] : kNegInf;
@@ -303,7 +314,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       for (int i = t; i < ngr * nl; i += kThreads) {
         const int li = i % nl, rg = i / nl;
         const int j = cb + li / ps;
-        const int l = (pbeg + cb) * ps + li;   // logical position
+        const int l = (pbeg + j) * gps + base + li % ps;  // position
         float acc[kRT];
 #pragma unroll
         for (int r = 0; r < kRT; ++r) acc[r] = 0.f;
@@ -477,18 +488,24 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     for (int r = 0; r < C; ++r) acc += cluster.map_shared_rank(op, r)[i];
     const int rr = i / Dh, d = i % Dh, gr = r0 + rr;
     const int s = gr / G, h = kh * G + gr % G;
-    out[((static_cast<size_t>(b) * S + s) * H + h) * Dh + d] =
-        from_f<T>(acc);
+    const size_t row = (static_cast<size_t>(b) * S + s) * H + h;
+    if (lse != nullptr) {  // partial form: fp32, a dead row weighs 0
+      const bool dead_row = gm[rr] <= kNegInf;
+      static_cast<float*>(out)[row * Dh + d] = dead_row ? 0.f : acc;
+      if (d == 0) lse[row] = dead_row ? kNegInf : gm[rr] + logf(gl[rr]);
+    } else {
+      static_cast<T*>(out)[row * Dh + d] = from_f<T>(acc);
+    }
   }
   cluster.sync();  // no block leaves while another reads its partials
 }
 
 template <typename T, bool MMA>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* pt, const void* pos, void* o, int B, int S,
-                   int H, int K, int Dh, int ps, int nP, int R, int C,
-                   int ppb, int cpp, int smem, float qscale,
-                   cudaStream_t st) {
+                   const void* pt, const void* pos, void* o, float* lse,
+                   int B, int S, int H, int K, int Dh, int ps, int gps,
+                   int base, int nP, int R, int C, int ppb, int cpp,
+                   int smem, float qscale, cudaStream_t st) {
   auto kern = paged_attention_kernel<T, MMA>;
   static bool configured = false;  // once per instantiation, at the most
   if (!configured) {               // any plan may ask for
@@ -513,7 +530,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t e = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(pt),
-      static_cast<const int32_t*>(pos), static_cast<T*>(o), S, H, K, Dh, ps,
+      static_cast<const int32_t*>(pos), o, lse, S, H, K, Dh, ps, gps, base,
       nP, R, ppb, cpp, qscale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -521,8 +538,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q [B,S,H,Dh]; pools [P,ps,K,Dh];
-// page table [B,nP] int32 (-1 = unmapped); pos [B] int32; out like q.
+// dtype: 0 = float32, 1 = bfloat16. q [B,S,H,Dh]; pools [P,ps,K,Dh]
+// holding offsets [base, base + ps) of pages of gps positions (the whole
+// form: gps = ps, base 0); page table [B,nP] int32 (-1 = unmapped); pos
+// [B] int32; out like q, or, with lse [B,S,H] given (the partial form),
+// fp32 [B,S,H,Dh].
 // The launch plan comes from the wrapper (kernels/paged_attention/ops.py::
 // launch_plan): R query rows per cluster, C blocks per cluster of ppb
 // pages each (C * ppb >= nP > (C - 1) * ppb), cpp pages per
@@ -532,15 +552,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // chunks of 16 bytes per row; the pools are 16-byte aligned.
 extern "C" int paged_attention_launch(const void* q, const void* k,
                                       const void* v, const void* pt,
-                                      const void* pos, void* o, int dtype,
-                                      int B, int S, int H, int K, int Dh,
-                                      int ps, int nP, int R, int C, int ppb,
-                                      int cpp, int mma, int smem,
-                                      float qscale, void* stream) {
+                                      const void* pos, void* o, void* lse,
+                                      int dtype, int B, int S, int H, int K,
+                                      int Dh, int ps, int gps, int base,
+                                      int nP, int R, int C, int ppb, int cpp,
+                                      int mma, int smem, float qscale,
+                                      void* stream) {
   if (B == 0 || S == 0) return 0;
   const int esz = dtype == 1 ? 2 : 4;
   const int nch = Dh * esz / 16;
   if (K < 1 || H % K || R < 1 || R > kThreads || nP < 1 || ps < 1 ||
+      base < 0 || base + ps > gps ||
       Dh * esz % 16 ||
       !(nch == 1 || nch == 2 || nch == 4 || nch % 8 == 0) || C < 1 ||
       C > kMaxCluster || ppb < 1 || C * ppb < nP || (C - 1) * ppb >= nP ||
@@ -549,16 +571,19 @@ extern "C" int paged_attention_launch(const void* q, const void* k,
       (size_t)smem < block_smem(R, ppb, cpp, ps, Dh, esz, mma != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float, false>(q, k, v, pt, pos, o, B, S, H, K, Dh, ps, nP, R,
-                             C, ppb, cpp, smem, qscale, st);
+    e = launch<float, false>(q, k, v, pt, pos, o, l, B, S, H, K, Dh, ps,
+                             gps, base, nP, R, C, ppb, cpp, smem, qscale,
+                             st);
   else if (mma)
-    e = launch<__nv_bfloat16, true>(q, k, v, pt, pos, o, B, S, H, K, Dh, ps,
-                                    nP, R, C, ppb, cpp, smem, qscale, st);
+    e = launch<__nv_bfloat16, true>(q, k, v, pt, pos, o, l, B, S, H, K, Dh,
+                                    ps, gps, base, nP, R, C, ppb, cpp, smem,
+                                    qscale, st);
   else
-    e = launch<__nv_bfloat16, false>(q, k, v, pt, pos, o, B, S, H, K, Dh,
-                                     ps, nP, R, C, ppb, cpp, smem, qscale,
-                                     st);
+    e = launch<__nv_bfloat16, false>(q, k, v, pt, pos, o, l, B, S, H, K,
+                                     Dh, ps, gps, base, nP, R, C, ppb, cpp,
+                                     smem, qscale, st);
   return static_cast<int>(e);
 }

@@ -24,6 +24,10 @@ The collectives of sharded serving, over the mesh's process group
     widest block for the collective and trimmed after: the masked
     logits before the selection, and under trunk_shard the MoE router's
     expert columns;
+  * `all_gather_stack` (trunk_shard, the sequence split): every rank's
+    equal-shaped tensor, stacked in rank order: the q/k/v column blocks
+    joined into whole heads, and the partial attention outputs with
+    their log-sum-exp before the combine;
   * `trunk_all_reduce` (trunk_shard): the SUM of the ranks' partial
     row-parallel products (attention out, FFN down, the experts'
     combine), not exact: the sum runs in another order than the
@@ -162,6 +166,19 @@ def all_gather_last(x: torch.Tensor, widths, mesh) -> torch.Tensor:
     dist.all_gather(outs, x, group=mesh.group)
     _note("all-gather", x.numel() * x.element_size() * len(widths), mesh)
     return torch.cat([o[..., :w] for o, w in zip(outs, widths)], dim=-1)
+
+
+def all_gather_stack(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's x (one shape on all ranks), stacked in rank order ->
+    [M, *x.shape]; values pass unchanged. Without a group: x[None]."""
+    import torch.distributed as dist
+    if mesh is None or mesh.group is None:
+        return x[None]
+    x = x.contiguous()
+    out = x.new_empty((mesh.size, *x.shape))
+    dist.all_gather(list(out.unbind(0)), x, group=mesh.group)
+    _note("all-gather", out.numel() * out.element_size(), mesh)
+    return out
 
 
 def broadcast_control(obj, mesh):

@@ -35,14 +35,28 @@ collectives by, as the reference's dry run does; no live trainer shards
 (the reference's has no mesh either). Under `trunk_shard=True` the
 serving engine cuts each trunk leaf by `serving_param_spec(...,
 trunk_shard=True)` and each cache and pool leaf by `serving_cache_specs`
-(`trunk_plan` says what that splits and refuses the splits the port does
-not serve; `trunk_slice` is one leaf's cut). All are held to the
+(`trunk_plan` says what that splits, by heads or by the cache's
+sequence dim, and refuses the splits the port does not serve;
+`trunk_slice` is one leaf's cut). All are held to the
 reference's specs by the tests.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axes and sizes, with no processes behind them: what the
+    rules read (`launch/mesh.py`'s meshes are these with ranks)."""
+    shape: dict
+    axis_names: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
 
 
 def data_axes(mesh):
@@ -463,13 +477,26 @@ TRUNK_KINDS = ("attn", "moe")
 class TrunkPlan:
     """What `trunk_shard=True` splits on a "model" axis of `size` ranks,
     seen from rank `rank`: the blocks `serving_param_spec(...,
-    trunk_shard=True)` and `serving_cache_specs` give it. q heads, kv
-    heads (cache and pool leaves too) and the QKV columns split whole
-    heads: rank r holds q heads [rH/M, (r+1)H/M) and kv heads [rK/M,
-    (r+1)K/M), so q head h still reads kv head h // (H/K). `d_ff` splits
-    when M divides it (`ff_split`, else every rank holds the whole FFN),
-    the experts likewise (`experts_split`). `heads`, `kv_heads`, `d_ff`
-    and `experts` are the counts one rank holds."""
+    trunk_shard=True)` and `serving_cache_specs` give it, read leaf by
+    leaf from those rules. `d_ff` splits when M divides it (`ff_split`,
+    else every rank holds the whole FFN), the experts likewise
+    (`experts_split`). `heads`, `kv_heads`, `d_ff` and `experts` are the
+    counts one rank's layers run over.
+
+    Two attention splits. Where M divides the kv heads (`seq` False), q
+    heads, kv heads (cache and pool leaves too) and the QKV columns split
+    whole heads: rank r holds q heads [rH/M, (r+1)H/M) and kv heads
+    [rK/M, (r+1)K/M), so q head h still reads kv head h // (H/K). Where
+    it does not (`seq` True), the rules put the cache's sequence dim on
+    "model" instead: rank r holds positions `positions` = [rL/M,
+    (r+1)L/M) of every dense cache of L positions and in-page offsets
+    `offsets` = [r ps/M, (r+1) ps/M) of every page of a pool, all kv
+    heads of each; wq/wk/wv keep their column blocks `q_cols`/`kv_cols`
+    (None: the leaf whole), which may cut inside a head, so the rank
+    gathers whole q/k/v heads (one all-gather), attends over its own
+    positions (a partial attention with its log-sum-exp) and joins the
+    partials (one all-gather); wo's rows `wo_rows` (None: whole) take
+    the rank's columns of the joined output."""
     size: int
     rank: int
     heads: int
@@ -478,6 +505,12 @@ class TrunkPlan:
     experts: int
     ff_split: bool
     experts_split: bool
+    seq: bool = False
+    q_cols: Optional[tuple] = None
+    kv_cols: Optional[tuple] = None
+    wo_rows: Optional[tuple] = None
+    positions: Optional[tuple] = None
+    offsets: Optional[tuple] = None
 
     @property
     def split(self) -> bool:
@@ -485,10 +518,10 @@ class TrunkPlan:
         return self.size > 1
 
     def local_config(self, cfg):
-        """The rank-local view of `cfg` its layers run over: H/M q heads,
-        K/M kv heads, its share of d_ff; head_dim, the expert count, the
-        expert width and the vocabulary stay whole (routing and capacity
-        read the global E)."""
+        """The rank-local view of `cfg` its layers run over: its q and kv
+        heads (all of them under the sequence split), its share of d_ff;
+        head_dim, the expert count, the expert width and the vocabulary
+        stay whole (routing and capacity read the global E)."""
         kw = dict(num_heads=self.heads, num_kv_heads=self.kv_heads,
                   head_dim=cfg.resolved_head_dim, d_ff=self.d_ff)
         if cfg.num_experts:
@@ -504,15 +537,26 @@ def _trunk_kinds(cfg) -> set:
     return kinds
 
 
-def trunk_plan(cfg, M: int, rank: int = 0) -> TrunkPlan:
+def _block(spec, shape, mesh, rank, dim):
+    """(start, stop) of dim `dim` of rank's block under `spec`, or None
+    when the spec leaves that dim whole."""
+    if spec[dim] is None:
+        return None
+    sl = shard_slice(spec, shape, mesh, rank)[dim]
+    return sl.start, sl.stop
+
+
+def trunk_plan(cfg, M: int, rank: int = 0, cache_len=None,
+               page_size=None) -> TrunkPlan:
     """The trunk split of `cfg` over M ranks. At M = 1 nothing is split.
-    Above, raises ValueError (naming the config, M and the dimension)
-    for a split the port does not serve: a layer kind other than attn
-    and moe (the ssm, hybrid, vlm and audio families), or q or kv heads
-    that M does not divide. There the reference's rule would cut inside
-    a head (wq's columns) and put the cache's sequence dim, or a pool's
-    in-page offset, on "model", which needs a partial attention per rank
-    and a log-sum-exp combine across them (`cache_spec`)."""
+    `cache_len` is the dense caches' length (max_len, or a smaller
+    window) and `page_size` the pools' page, each when the engine holds
+    such caches. Above M = 1, raises ValueError (naming the config, M
+    and the dimension) for a split the port does not serve: a layer kind
+    other than attn and moe (the ssm, hybrid, vlm and audio families),
+    or, when M does not divide the kv heads, a cache length or page size
+    that M does not divide either (the reference's rule then splits
+    head_dim or replicates the cache: `cache_spec`)."""
     M = int(M)
     if M < 1:
         raise ValueError(f"trunk_shard: M must be >= 1, got {M}")
@@ -525,15 +569,47 @@ def trunk_plan(cfg, M: int, rank: int = 0) -> TrunkPlan:
         raise ValueError(f"{where}: layer kinds {other} ({cfg.arch_type}) "
                          f"are not trunk-sharded; the port splits only "
                          f"{TRUNK_KINDS}")
-    for dim, n in (("num_heads", H), ("num_kv_heads", K)):
-        if n % M:
-            raise ValueError(
-                f"{where}: {dim} {n} does not split {M} ways on head "
-                f"boundaries (a sequence-sharded cache and a pool split on "
-                f"the in-page offset are not ported)")
+    mesh = MeshShape({"data": 1, "model": M}, ("data", "model"))
+    D, Dh = cfg.d_model, cfg.resolved_head_dim
+    col = lambda name, n: _block(param_spec(
+        f"['groups'][0][0]['attn']['{name}']", (1, D, n), mesh),
+        (1, D, n), mesh, rank, 2)
+    q_cols, kv_cols = col("wq", H * Dh), col("wk", K * Dh)
+    wo = (1, H * Dh, D)
+    wo_rows = _block(param_spec("['groups'][0][0]['attn']['wo']", wo, mesh),
+                     wo, mesh, rank, 1)
     ff, ex = F % M == 0, bool(E) and E % M == 0
-    return TrunkPlan(M, int(rank), H // M, K // M, F // M if ff else F,
-                     E // M if ex else E, ff, ex)
+    own = dict(d_ff=F // M if ff else F, experts=E // M if ex else E,
+               ff_split=ff, experts_split=ex, q_cols=q_cols,
+               kv_cols=kv_cols, wo_rows=wo_rows)
+    cache = lambda n: (1, 1, n, K, Dh)
+    if cache_spec("['k']", cache(1), mesh)[3] == "model":   # kv heads
+        return TrunkPlan(M, int(rank), H // M, K // M, **own)
+    spans = {}
+    for what, n in (("positions", cache_len), ("offsets", page_size)):
+        if n is None:
+            continue
+        span = _block(cache_spec("['k']", cache(n), mesh), cache(n), mesh,
+                      rank, 2)
+        if span is None:
+            dim = "cache length (max_len)" if what == "positions" else \
+                "page_size"
+            raise ValueError(
+                f"{where}: num_kv_heads {K} does not split {M} ways and "
+                f"the {dim} {n} does not either (the reference's rule then "
+                f"splits head_dim or replicates the cache; not served)")
+        spans[what] = span
+    return TrunkPlan(M, int(rank), H, K, seq=True, **own, **spans)
+
+
+def serving_trunk_plan(cfg, M: int, rank: int, max_len: int,
+                       page_size=None) -> TrunkPlan:
+    """`trunk_plan` for a serving engine of `max_len` positions: its
+    dense caches hold min(max_len, window) positions, its pools pages of
+    `page_size` (None: not paged)."""
+    w = cfg.sliding_window
+    return trunk_plan(cfg, M, rank, cache_len=min(max_len, w) if w else
+                      max_len, page_size=page_size)
 
 
 def trunk_slice(path_str: str, shape, mesh, rank: int,

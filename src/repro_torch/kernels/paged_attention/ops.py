@@ -9,6 +9,14 @@ dense decode attention there); a CUDA tensor launches the Hopper kernel
 (`csrc/paged_attention.cu`) or raises. There is no other routing and no
 fallback. `paged_attention.launches` counts kernel launches (never
 plain-version calls); the decode form launches through it.
+
+`paged_attention_partial` is the same kernel over one rank's share of a
+pool split on the in-page offset (a trunk-sharded engine's sequence
+split): pools [P, ps/M, K, Dh] holding offsets [base, base + ps/M) of
+pages of `ps` positions -> the rank's fp32 output, not rounded, and each
+row's fp32 log-sum-exp (`ref.paged_attention_partial_ref`; rows with no
+valid position on the rank: 0 and NEG_INF). Its launches count in
+`paged_attention_partial.launches`.
 """
 from __future__ import annotations
 
@@ -20,10 +28,10 @@ import torch
 
 from .. import _build
 from ..flash_attention.ops import aligned, qscale
-from .ref import paged_attention_ref
+from .ref import paged_attention_partial_ref, paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
              + [ctypes.c_float, ctypes.c_void_p])
 SMEM_MAX = 200 * 1024       # of the 227 KB a Hopper block may use
 MAX_CLUSTER = 8             # the portable thread-block cluster size
@@ -115,51 +123,84 @@ def _launcher():
     return _LAUNCH["lib"], fn
 
 
-def paged_attention(q, k_pool, v_pool, page_table, pos):
-    """q [B,S,H,Dh] (roped, unscaled); k_pool/v_pool [P,ps,K,Dh];
-    page_table [B,nP] int32 (-1 = unmapped); pos [B] int32 absolute
-    start positions -> [B,S,H,Dh] in q's dtype."""
+def _launch(q, k_pool, v_pool, page_table, pos, ps, base, partial):
+    """Check the inputs and launch the kernel -> out (q's dtype), or
+    (o fp32, lse fp32) when `partial`; the pools hold offsets [base,
+    base + k_pool.shape[1]) of pages of `ps` positions."""
     dev = q.device
-    if dev.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, page_table, pos)
-    if dev.type != "cuda":
-        raise ValueError(f"paged_attention: unsupported device {dev}")
+    name = "paged_attention_partial" if partial else "paged_attention"
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or \
             v_pool.dtype != q.dtype:
-        raise ValueError(f"paged_attention: dtypes {q.dtype}, "
-                         f"{k_pool.dtype}, {v_pool.dtype} (need one of "
-                         f"f32/bf16)")
+        raise ValueError(f"{name}: dtypes {q.dtype}, {k_pool.dtype}, "
+                         f"{v_pool.dtype} (need one of f32/bf16)")
     B, S, H, Dh = q.shape
-    P, ps, K, _ = k_pool.shape
+    P, psl, K, _ = k_pool.shape
     nP = page_table.shape[1]
     esz = q.element_size()
     nch = Dh * esz // 16
-    if tuple(k_pool.shape) != (P, ps, K, Dh) or \
-            tuple(v_pool.shape) != (P, ps, K, Dh) or H % K or Dh > 256 or \
+    if tuple(k_pool.shape) != (P, psl, K, Dh) or \
+            tuple(v_pool.shape) != (P, psl, K, Dh) or H % K or Dh > 256 or \
             Dh * esz % 16 or not (nch in (1, 2, 4) or nch % 8 == 0) or \
             tuple(page_table.shape) != (B, nP) or nP < 1 or \
-            page_table.dtype != torch.int32 or B > 65535:
-        raise ValueError(f"paged_attention: unsupported shapes q "
-                         f"{tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
-                         f"page table {tuple(page_table.shape)} "
-                         f"{page_table.dtype}")
-    plan = launch_plan(S, H, K, Dh, ps, nP, esz)
+            page_table.dtype != torch.int32 or B > 65535 or \
+            not 0 <= base <= ps - psl:
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, "
+                         f"pools {tuple(k_pool.shape)}, page table "
+                         f"{tuple(page_table.shape)} {page_table.dtype}, "
+                         f"offsets [{base}, {base + psl}) of {ps}")
+    plan = launch_plan(S, H, K, Dh, psl, nP, esz)
     if K * plan.tiles > 65535:
-        raise ValueError(f"paged_attention: {S} span rows x {K} kv heads "
-                         f"exceed the grid")
+        raise ValueError(f"{name}: {S} span rows x {K} kv heads exceed "
+                         f"the grid")
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
     q, page_table, pos = (t.contiguous() for t in (q, page_table, pos))
     k_pool, v_pool = aligned(k_pool), aligned(v_pool)
     lib, fn = _launcher()
-    out = torch.empty_like(q)
+    if partial:
+        out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+        lse = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    else:
+        out, lse = torch.empty_like(q), None
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, S, H, K, Dh, ps, nP, plan.R, plan.C,
-            plan.ppb, plan.cpp, int(plan.mma), plan.smem,
-            qscale(q.dtype, Dh), stream)
-    _build.check(lib, rc, "paged_attention launch")
+            None if lse is None else lse.data_ptr(), _DTYPES[q.dtype], B,
+            S, H, K, Dh, psl, ps, base, nP, plan.R, plan.C, plan.ppb,
+            plan.cpp, int(plan.mma), plan.smem, qscale(q.dtype, Dh), stream)
+    _build.check(lib, rc, f"{name} launch")
+    return (out, lse) if partial else out
+
+
+def _device(q, name):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return q.device.type
+
+
+def paged_attention(q, k_pool, v_pool, page_table, pos):
+    """q [B,S,H,Dh] (roped, unscaled); k_pool/v_pool [P,ps,K,Dh];
+    page_table [B,nP] int32 (-1 = unmapped); pos [B] int32 absolute
+    start positions -> [B,S,H,Dh] in q's dtype."""
+    if _device(q, "paged_attention") == "cpu":
+        return paged_attention_ref(q, k_pool, v_pool, page_table, pos)
+    out = _launch(q, k_pool, v_pool, page_table, pos, k_pool.shape[1], 0,
+                  False)
     paged_attention.launches += 1
+    return out
+
+
+def paged_attention_partial(q, k_pool, v_pool, page_table, pos, ps: int,
+                            base: int):
+    """One rank's partial attention over a pool split on the in-page
+    offset: k_pool/v_pool [P, psl, K, Dh] hold offsets [base, base + psl)
+    of pages of `ps` positions; the rest as `paged_attention` -> (o
+    [B,S,H,Dh] fp32, lse [B,S,H] fp32)."""
+    if _device(q, "paged_attention_partial") == "cpu":
+        return paged_attention_partial_ref(q, k_pool, v_pool, page_table,
+                                           pos, ps, base)
+    out = _launch(q, k_pool, v_pool, page_table, pos, int(ps), int(base),
+                  True)
+    paged_attention_partial.launches += 1
     return out
 
 
@@ -170,3 +211,4 @@ def paged_attention_decode(q, k_pool, v_pool, page_table, pos):
 
 
 paged_attention.launches = 0
+paged_attention_partial.launches = 0

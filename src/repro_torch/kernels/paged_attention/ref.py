@@ -14,6 +14,16 @@ absolute position j * ps + o of slot b's sequence. Entry l is attendable
 iff its page is mapped (page_table >= 0) and l <= q_pos; positions past
 the frontier hold stale or unwritten data and are masked, which is also
 what rolls back rejected speculative writes.
+
+The partial forms serve a cache split on its sequence dim over M ranks
+(a trunk-sharded engine whose kv heads M does not divide): each rank
+attends over the positions it holds only and returns its fp32 output
+unrounded with each row's log-sum-exp, and `combine_partials` joins the
+ranks' partials. A row with no valid position on a rank gets o = 0 and
+lse = NEG_INF there, so the combine gives that rank no weight (the plain
+softmax would spread it uniformly over masked garbage). A pool split on
+the in-page offset holds [P, ps/M, K, Dh] a rank: local offset o of page
+j is absolute position j * ps + base + o, base = rank * ps/M.
 """
 from __future__ import annotations
 
@@ -58,3 +68,54 @@ def paged_attention_ref(q, k_pool, v_pool, page_table, pos):
     mapped = (page_table >= 0).repeat_interleave(ps, dim=1)  # [B, L]
     valid = mapped[:, None, :] & (idx[None, None, :] <= qpos[:, :, None])
     return attend(q, kc, vc, valid)
+
+
+def attend_partial(q, kc, vc, valid):
+    """`attend` over one rank's share of the cache: q [B,S,H,Dh], kc/vc
+    [B,Lr,K,Dh], valid [B,S,Lr] -> (o [B,S,H,Dh] fp32, not rounded to
+    q's dtype; lse [B,S,H] fp32, the log-sum-exp of the scaled scores).
+    P is rounded to the value dtype before P.V, as in `attend`. Rows
+    with no valid position: o 0, lse NEG_INF."""
+    B, S, H, Dh = q.shape
+    K = kc.shape[2]
+    qg = (q * torch.tensor(1.0 / Dh ** 0.5, dtype=q.dtype)).reshape(
+        B, S, K, H // K, Dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kc.float())
+    s = torch.where(valid[:, None, None, :, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", pr.to(vc.dtype).float(),
+                     vc.float()).reshape(B, S, H, Dh)
+    lse = torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2).reshape(B, S, H)
+    live = valid.any(-1)[:, :, None]                          # [B,S,1]
+    return (torch.where(live[..., None], o, 0.0),
+            torch.where(live, lse, NEG_INF))
+
+
+def combine_partials(o, lse, dtype):
+    """Join M ranks' partials: o [M,...,Dh] fp32, lse [M,...] fp32 ->
+    sum_r w_r o_r in `dtype`, w_r = exp(lse_r - max) / sum exp(lse -
+    max) (a rank's NEG_INF row weighs 0). Added in rank order, so every
+    rank that holds the same partials gets the same bits."""
+    w = torch.exp(lse - lse.amax(0))
+    return ((w[..., None] * o).sum(0) / w.sum(0)[..., None]).to(dtype)
+
+
+def paged_attention_partial_ref(q, k_pool, v_pool, page_table, pos, ps,
+                                base):
+    """`paged_attention_ref` over one rank's offsets of every page:
+    k_pool/v_pool [P, psl, K, Dh] hold offsets [base, base + psl) of
+    pages of `ps` positions -> (o fp32, lse fp32) as `attend_partial`."""
+    P, psl, K, Dh = k_pool.shape
+    B, S = q.shape[:2]
+    nP = page_table.shape[1]
+    dev = q.device
+    safe = page_table.clamp(min=0).long()
+    kc = k_pool[safe].reshape(B, nP * psl, K, Dh)
+    vc = v_pool[safe].reshape(B, nP * psl, K, Dh)
+    qpos = pos.to(torch.int32)[:, None] + torch.arange(
+        S, dtype=torch.int32, device=dev)[None, :]
+    loc = torch.arange(nP * psl, dtype=torch.int32, device=dev)
+    idx = loc // psl * ps + base + loc % psl               # absolute
+    mapped = (page_table >= 0).repeat_interleave(psl, dim=1)
+    valid = mapped[:, None, :] & (idx[None, None, :] <= qpos[:, :, None])
+    return attend_partial(q, kc, vc, valid)

@@ -31,11 +31,14 @@ the same requests; rank 0 prints the summary and, with `--serve`, runs
 the HTTP front end while the others follow its step loop.
 `--trunk-shard` (with `--mesh N`) also splits the trunk, the KV caches
 and the page pools (Megatron column/row blocks, kv heads, experts): each
-rank draws only its blocks. It takes the dense and MoE configs whose q
-and kv heads N divides (syncode-demo, qwen1.5-0.5b, internlm2-1.8b,
+rank draws only its blocks. It takes the dense and MoE configs: by kv
+heads where N divides them (syncode-demo, qwen1.5-0.5b, internlm2-1.8b,
 deepseek-coder-33b, qwen3-moe-30b-a3b and kimi-k2-1t-a32b at N = 2 and
-4) and refuses the rest with a ValueError (smollm-360m's 15/5 heads, the
-ssm, hybrid, vlm and audio families).
+4), else by the caches' positions and each page's offsets (smollm-360m's
+5 kv heads at N = 2 and 4; syncode-demo's and qwen3-moe's 4 at N = 8),
+where N must divide `build_engine`'s max_len (512 here) and, paged,
+`--page-size`. It refuses the rest with a ValueError (such a length;
+the ssm, hybrid, vlm and audio families).
 
 Weights are random, drawn from `--seed` by a torch.Generator on the
 device, or loaded with `--checkpoint` from a msgpack checkpoint that
@@ -58,8 +61,8 @@ from ..core.mask_store import build_mask_store
 from ..core.parser import IncrementalParser
 from ..core.tokenizer import ByteTokenizer
 from ..device import resolve_device
-from ..distributed.sharding import (map_with_path, trunk_plan, trunk_slice,
-                                    vocab_shard)
+from ..distributed.sharding import (map_with_path, serving_trunk_plan,
+                                    trunk_slice, vocab_shard)
 from ..models.model import build_model
 from ..serving.engine import Engine, Request
 from ..spec import SpecConfig
@@ -94,8 +97,9 @@ def build_engine(arch="syncode-demo", grammars=BUILTIN, max_len=512,
     if num_layers:
         cfg = replace(cfg, num_layers=num_layers)
     cut = None
-    if trunk_shard and mesh is not None and \
-            trunk_plan(cfg, mesh.shape["model"], mesh.rank).split:
+    if trunk_shard and mesh is not None and serving_trunk_plan(
+            cfg, mesh.shape["model"], mesh.rank, max_len,
+            page_size if paged else None).split:
         vs = vocab_shard(cfg.vocab_size, mesh.shape["model"], mesh.rank)
         cut = lambda p, shape: trunk_slice(p, shape, mesh, mesh.rank, vs)
     tok = ByteTokenizer(cfg.vocab_size)
@@ -194,11 +198,10 @@ def main(argv=None):
     ap.add_argument("--trunk-shard", action="store_true",
                     help="with --mesh N: also split the trunk, KV caches "
                          "and page pools (Megatron column/row blocks with "
-                         "all-reduces, kv heads, experts); dense and MoE "
-                         "configs whose q and kv heads N divides "
-                         "(syncode-demo, qwen1.5-0.5b, internlm2-1.8b, "
-                         "deepseek-coder-33b, qwen3-moe-30b-a3b, "
-                         "kimi-k2-1t-a32b at N = 2, 4); others raise")
+                         "all-reduces, kv heads, experts; where N does not "
+                         "divide the kv heads, the caches' positions and "
+                         "each page's offsets, N dividing --page-size); "
+                         "dense and MoE configs, others raise")
     args = ap.parse_args(argv)
     if args.mesh is None:
         _serve(None, args)

@@ -11,7 +11,11 @@ Under a trunk-sharded engine (`distributed.api.current_trunk()`) a rank
 holds the column blocks of wq/wk/wv/w_gate/w_up and the row blocks of
 wo/w_down (Megatron), runs over the rank-local config (H/M, K/M heads):
 `attn_out` and `ffn` all-reduce their partial products, and `qkv_proj`
-takes the rank's columns of the whole 1-D QKV biases.
+takes the rank's columns of the whole 1-D QKV biases. Under the
+sequence split (`TrunkPlan.seq`: M does not divide the kv heads) the
+column blocks may cut inside a head: `qkv_proj` gathers them into whole
+heads (one all-gather), and `attn_out` takes the rank's columns of the
+whole attention output before its wo rows.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..distributed.api import (current_mesh, current_trunk, current_vocab,
+from ..distributed.api import (all_gather_stack, current_mesh,
+                               current_trunk, current_vocab,
                                trunk_all_reduce, vocab_all_reduce)
 
 NEG_INF = -1e30
@@ -163,35 +168,63 @@ def init_attention(gen, cfg, dtype, lead=()):
     return p
 
 
-def _rank_cols(b, n):
-    """A whole 1-D bias -> the n columns of this rank's heads under a
-    trunk split (the bias itself when it has n)."""
-    if b.shape[-1] == n:
-        return b
-    r = current_trunk().rank
-    return b[..., r * n:(r + 1) * n]
+def _cols(b, span):
+    """A whole 1-D bias -> its columns `span` (the rank's block of the
+    leaf it biases, under a trunk split), or all of it (span None)."""
+    return b if span is None else b[..., span[0]:span[1]]
+
+
+def _whole_cols(parts):
+    """The sequence split's [(y [B, S, n], span)] -> each y whole: the
+    column blocks (span not None) go in one all-gather, whose rank order
+    is the columns' order."""
+    out = [y for y, _ in parts]
+    cut = [i for i, (_, span) in enumerate(parts) if span is not None]
+    if not cut:
+        return out
+    got = all_gather_stack(torch.cat([out[i] for i in cut], -1),
+                           current_mesh())                # [M, B, S, sum]
+    off = 0
+    for i in cut:
+        n = out[i].shape[-1]
+        blk = got[..., off:off + n]                       # [M, B, S, n]
+        out[i] = blk.permute(1, 2, 0, 3).reshape(*blk.shape[1:3], -1)
+        off += n
+    return out
 
 
 def qkv_proj(p, x, cfg):
     B, S, D = x.shape
     H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    tp = current_trunk()
+    qc, kc = (None, None) if tp is None else (tp.q_cols, tp.kv_cols)
     q = matmul(x, p["wq"])
     k = matmul(x, p["wk"])
     v = matmul(x, p["wv"])
     if "bq" in p:
-        q = q + _rank_cols(p["bq"], H * Dh)
-        k = k + _rank_cols(p["bk"], K * Dh)
-        v = v + _rank_cols(p["bv"], K * Dh)
+        q = q + _cols(p["bq"], qc)
+        k = k + _cols(p["bk"], kc)
+        v = v + _cols(p["bv"], kc)
+    if tp is not None and tp.seq:
+        q, k, v = _whole_cols([(q, qc), (k, kc), (v, kc)])
     return (q.reshape(B, S, H, Dh), k.reshape(B, S, K, Dh),
             v.reshape(B, S, K, Dh))
 
 
 def attn_out(p, o):
-    """o [B,S,H,Dh] @ wo; under a trunk split the rank's heads give a
-    partial sum over H*Dh, all-reduced."""
+    """o [B,S,H,Dh] @ wo; under a trunk split of wo's rows (`wo_rows`)
+    the rank's rows give a partial sum over H*Dh, all-reduced: o holds
+    the rank's heads (head split), or every head, of which the rank
+    takes its rows' columns (sequence split; wo whole where M does not
+    divide H*Dh, and nothing to reduce)."""
     B, S, H, Dh = o.shape
-    y = matmul(o.reshape(B, S, H * Dh), p["wo"])
-    if current_trunk() is not None:
+    o = o.reshape(B, S, H * Dh)
+    tp = current_trunk()
+    rows = None if tp is None else tp.wo_rows
+    if rows is not None and tp.seq:
+        o = o[..., rows[0]:rows[1]]
+    y = matmul(o, p["wo"])
+    if rows is not None:
         y = trunk_all_reduce(y, current_mesh())
     return y
 

@@ -22,6 +22,16 @@ KV caches store rotated K plus a per-slot absolute-position array
 share one masking rule: valid <=> 0 <= kv_pos <= q_pos (and
 q_pos - kv_pos < window).
 
+Under a trunk-sharded engine's sequence split (`TrunkPlan.seq`: M does
+not divide the kv heads) a rank's dense cache holds its positions
+`positions` of the L (k/v [B, L/M, K, Dh]; kv_pos stays whole, as the
+reference's `cache_spec` keeps it) and its pools the in-page offsets
+`offsets` of every page ([P, ps/M, K, Dh]). q/k/v come whole from
+`qkv_proj`; prefill attends as one device does and writes the rank's
+slots only; decode writes the rank's slots, attends over them
+(`attend_partial`, `paged_attention_partial`) and joins the ranks'
+partials by their log-sum-exp (`_join`).
+
 Unlike the functional reference, decode writes the new K/V into the
 cache IN PLACE (the cache dict passed in is the one returned), which
 saves a full cache copy per layer per step. The same holds for the paged
@@ -37,10 +47,13 @@ from .common import (apply_rope, attn_out, ffn, init_attention, init_ffn,
 from .moe import init_moe, moe_ffn
 from .rglru import init_rglru, rglru_decode, rglru_prefill, rglru_train
 from .ssm import init_ssm, ssm_decode, ssm_prefill, ssm_train
+from ..distributed.api import all_gather_stack, current_mesh, current_trunk
 from ..kernels.flash_attention.ops import attention, qscale
 from ..kernels.flash_attention.ref import qscale_tensor
-from ..kernels.paged_attention.ops import paged_attention
-from ..kernels.paged_attention.ref import attend
+from ..kernels.paged_attention.ops import (paged_attention,
+                                          paged_attention_partial)
+from ..kernels.paged_attention.ref import (attend, attend_partial,
+                                           combine_partials)
 
 
 def _window_of(cfg, ctx):
@@ -53,17 +66,37 @@ def _cache_len(cfg, ctx, seq_len):
     return min(L, w) if w else L
 
 
+def _seq_split():
+    """This rank's TrunkPlan under a sequence split, else None."""
+    tp = current_trunk()
+    return tp if tp is not None and tp.seq else None
+
+
 def init_kv_cache(cfg, batch, length, dtype, device, lead=()):
+    """k/v [*lead, batch, n, K, Dh]: n the length, or under a
+    trunk-sharded engine's sequence split this rank's share of the
+    positions (`TrunkPlan.positions`, planned for this length); kv_pos
+    [*lead, batch, length] whole."""
     K = cfg.num_kv_heads
     Dh = cfg.resolved_head_dim
+    tp = _seq_split()
+    n = length if tp is None else tp.positions[1] - tp.positions[0]
     return {
-        "k": torch.zeros((*lead, batch, length, K, Dh), dtype=dtype,
+        "k": torch.zeros((*lead, batch, n, K, Dh), dtype=dtype,
                          device=device),
-        "v": torch.zeros((*lead, batch, length, K, Dh), dtype=dtype,
+        "v": torch.zeros((*lead, batch, n, K, Dh), dtype=dtype,
                          device=device),
         "kv_pos": torch.full((*lead, batch, length), -1, dtype=torch.int32,
                              device=device),
     }
+
+
+def _join(o, lse, dtype):
+    """The ranks' partial attentions (fp32 o [B,S,H,Dh], lse [B,S,H])
+    joined by their log-sum-exp: one all-gather of [o | lse]."""
+    got = all_gather_stack(torch.cat([o, lse[..., None]], -1),
+                           current_mesh())
+    return combine_partials(got[..., :-1], got[..., -1], dtype)
 
 
 def _self_attention_train(p, x, cfg, ctx):
@@ -100,9 +133,16 @@ def _self_attention_prefill(p, x, cfg, ctx):
     # gather does; kv_pos = -1 hides them too.
     limit = min(S, int(ctx["true_len"])) if "true_len" in ctx else S
     src = take.clamp(max=S - 1)
+    tp = _seq_split()
     cache = init_kv_cache(cfg, B, L, x.dtype, dev)
-    cache["k"][:, slot] = k[:, src]
-    cache["v"][:, slot] = v[:, src]
+    if tp is None:
+        cache["k"][:, slot] = k[:, src]
+        cache["v"][:, slot] = v[:, src]
+    else:               # the rank's positions [lo, hi) only
+        lo, hi = tp.positions
+        mine = (slot >= lo) & (slot < hi)
+        cache["k"][:, slot[mine] - lo] = k[:, src[mine]]
+        cache["v"][:, slot[mine] - lo] = v[:, src[mine]]
     cache["kv_pos"][:, slot] = torch.where(
         take < limit, take, -1).to(torch.int32)[None, :].expand(B, L)
     return attn_out(p, o), cache
@@ -119,11 +159,17 @@ def _paged_attention_decode(p, x, cache, cfg, ctx):
     Attention reads back through the page table
     (`kernels.paged_attention`). Rejected speculative writes roll back as
     in the dense path: positions past the commit frontier are masked
-    (idx <= q_pos) and overwritten on re-feed."""
+    (idx <= q_pos) and overwritten on re-feed. Under a sequence split
+    the pools hold the rank's offsets [o0, o1) of pages of ps = M (o1 -
+    o0) positions: the rank writes positions at those offsets only and
+    joins its partial attention with the other ranks'."""
     B, S, D = x.shape
     dev = x.device
-    kp, vp = cache["k"], cache["v"]                         # [P,ps,K,Dh]
-    P, ps, K, Dh = kp.shape
+    kp, vp = cache["k"], cache["v"]                     # [P,ps(/M),K,Dh]
+    P, psl, K, Dh = kp.shape
+    tp = _seq_split()
+    ps = psl if tp is None else psl * tp.size
+    o0 = 0 if tp is None else tp.offsets[0]
     pos = torch.as_tensor(ctx["pos"], dtype=torch.int32,
                           device=dev).expand(B)
     qpos = pos[:, None] + torch.arange(S, dtype=torch.int32,
@@ -141,10 +187,17 @@ def _paged_attention_decode(p, x, cache, cfg, ctx):
     feed = ctx.get("feed_mask")
     if feed is not None:
         ok &= feed
-    dest = (page.long() * ps + (qpos % ps).long())[ok]
-    kp.view(P * ps, K, Dh)[dest] = k[ok].to(kp.dtype)
-    vp.view(P * ps, K, Dh)[dest] = v[ok].to(vp.dtype)
-    o = paged_attention(q, kp, vp, pt, pos)
+    off = (qpos % ps).long() - o0
+    if tp is not None:
+        ok &= (off >= 0) & (off < psl)
+    dest = (page.long() * psl + off)[ok]
+    kp.view(P * psl, K, Dh)[dest] = k[ok].to(kp.dtype)
+    vp.view(P * psl, K, Dh)[dest] = v[ok].to(vp.dtype)
+    if tp is None:
+        o = paged_attention(q, kp, vp, pt, pos)
+    else:
+        o = _join(*paged_attention_partial(q, kp, vp, pt, pos, ps, o0),
+                  q.dtype)
     return attn_out(p, o), cache
 
 
@@ -169,24 +222,36 @@ def _self_attention_decode(p, x, cache, cfg, ctx):
     q = apply_rope(q, qpos, cfg.rope_theta)
     k = apply_rope(k, qpos, cfg.rope_theta)
     kc, vc, kvp = cache["k"], cache["v"], cache["kv_pos"]
-    L = kc.shape[1]
+    L = kvp.shape[1]            # kv_pos is whole under a sequence split
     slot = (qpos % L).long()                                    # [B,S]
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
-    kn, vn, pn = k.to(kc.dtype), v.to(vc.dtype), qpos
     feed = ctx.get("feed_mask")
-    if feed is not None:
-        kn = torch.where(feed[..., None, None], kn, kc[bidx, slot])
-        vn = torch.where(feed[..., None, None], vn, vc[bidx, slot])
-        pn = torch.where(feed, pn, kvp[bidx, slot])
-    kc[bidx, slot] = kn
-    vc[bidx, slot] = vn
+    pn = qpos if feed is None else torch.where(feed, qpos, kvp[bidx, slot])
+    tp = _seq_split()
+    if tp is None:
+        kn, vn = k.to(kc.dtype), v.to(vc.dtype)
+        if feed is not None:
+            kn = torch.where(feed[..., None, None], kn, kc[bidx, slot])
+            vn = torch.where(feed[..., None, None], vn, vc[bidx, slot])
+        kc[bidx, slot] = kn
+        vc[bidx, slot] = vn
+    else:               # the rank's positions [lo, hi) only
+        lo, hi = tp.positions
+        mine = (slot >= lo) & (slot < hi)
+        if feed is not None:
+            mine &= feed
+        kc[bidx[mine], slot[mine] - lo] = k[mine].to(kc.dtype)
+        vc[bidx[mine], slot[mine] - lo] = v[mine].to(vc.dtype)
     kvp[bidx, slot] = pn
 
     w = _window_of(cfg, ctx)
     valid = (kvp[:, None, :] >= 0) & (kvp[:, None, :] <= qpos[:, :, None])
     if w:
         valid &= kvp[:, None, :] > (qpos[:, :, None] - w)
-    return attn_out(p, attend(q, kc, vc, valid)), cache
+    if tp is None:
+        return attn_out(p, attend(q, kc, vc, valid)), cache
+    o = _join(*attend_partial(q, kc, vc, valid[..., lo:hi]), q.dtype)
+    return attn_out(p, o), cache
 
 
 # ---- "attn": self-attention + dense FFN (pre-norm residual) ----

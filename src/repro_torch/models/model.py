@@ -64,6 +64,7 @@ from .layers import (KIND_DECODE, KIND_INIT, KIND_PREFILL, KIND_TRAIN,
 from .rglru import init_rglru_cache
 from .ssm import init_ssm_cache
 from ..device import resolve_device
+from ..distributed.api import current_trunk
 from ..distributed.sharding import leaves_with_path, map_with_path
 
 LB_COEF = 0.01
@@ -356,7 +357,9 @@ class Model:
     # ------------------------- cache construction ------------------------
     def init_decode_caches(self, batch_size: int, cache_len: int):
         """Zero caches shaped for decode (the serving engine's slot pool);
-        attention rings hold min(cache_len, window) positions."""
+        attention rings hold min(cache_len, window) positions (a rank's
+        share of them under a trunk-sharded engine's sequence split, as
+        `init_kv_cache` reads it)."""
         cfg = self.cfg
         dtype, dev = dtype_of(cfg), self.device
         w = cfg.local_window if cfg.arch_type == "hybrid" else \
@@ -392,8 +395,10 @@ class Model:
         """Global paged KV pool for the engine's paged mode: every
         attention layer holds {"k","v": [count, num_pages, page_size, K,
         Dh]} shared across all decode slots; per-slot page tables ride in
-        via batch_ctx["page_table"] on each decode/span call. Requires
-        position-addressed, window-free attention throughout."""
+        via batch_ctx["page_table"] on each decode/span call. Under a
+        trunk-sharded engine's sequence split (the `use_sharding` context)
+        a rank holds its in-page offsets `TrunkPlan.offsets` of each page.
+        Requires position-addressed, window-free attention throughout."""
         cfg = self.cfg
         if not self.supports_span_decode:
             raise ValueError(
@@ -405,6 +410,9 @@ class Model:
                 "paged KV caches do not support sliding-window attention")
         dtype = dtype_of(cfg)
         K, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+        tp = current_trunk()
+        if tp is not None and tp.seq:
+            page_size = tp.offsets[1] - tp.offsets[0]
         shape = lambda count: (count, num_pages, page_size, K, Dh)
         return [tuple({"k": torch.zeros(shape(count), dtype=dtype,
                                         device=self.device),

@@ -78,9 +78,15 @@ split above is kept. This gives token identity up, as the reference
 says: each all-reduce adds partial sums in another order than the
 one-device product (in the CPU tests, fp32 at 1, 2 and 4 ranks: logits
 within atol 1e-4 of the JAX one-device model, and every serving path
-gives the unsharded engine's tokens). `trunk_plan` serves the dense and
-MoE families where M divides the q and the kv heads and refuses the
-rest with a ValueError (ROADMAP queue 1 item 2 lists what is left).
+gives the unsharded engine's tokens). Where M does not divide the kv
+heads the rules put the caches' sequence dim on "model" instead
+(`TrunkPlan.seq`): the rank gathers whole q/k/v heads from its column
+blocks, holds its share of each cache's positions and of each page's
+offsets, attends over them and joins the ranks' partial attentions by
+their log-sum-exp (`models/layers.py`); `max_len` and, paged,
+`page_size` must then divide M ways. `trunk_plan` serves the dense and
+MoE families and refuses the rest with a ValueError (ROADMAP queue 1
+item 2 lists what is left).
 """
 from __future__ import annotations
 
@@ -101,7 +107,8 @@ from ..bridge import shard_params
 from ..device import resolve_device
 from ..distributed import cost
 from ..distributed.api import all_gather_last, use_sharding
-from ..distributed.sharding import trunk_plan, trunk_slice, vocab_shard
+from ..distributed.sharding import (serving_trunk_plan, trunk_slice,
+                                    vocab_shard)
 from ..kernels.fused_select.ops import (fused_mask_select,
                                         fused_mask_select_sharded,
                                         gumbel_noise)
@@ -286,15 +293,17 @@ class Engine:
             M = mesh.shape["model"]
             self._vs = vocab_shard(model.cfg.vocab_size, M, mesh.rank)
             self.device = mesh.device
-            plan = trunk_plan(model.cfg, M, mesh.rank) if trunk_shard \
-                else None
+            plan = serving_trunk_plan(
+                model.cfg, M, mesh.rank, max_len,
+                max(1, int(page_size)) if paged else None) \
+                if trunk_shard else None
             if plan is not None and plan.split:
                 self._trunk, vs = plan, self._vs
                 params = shard_params(
                     params, lambda p, shape: trunk_slice(p, shape, mesh,
                                                          mesh.rank, vs),
                     whole=model.abstract_params())
-                model = type(model)(self._trunk.local_config(model.cfg),
+                model = type(model)(plan.local_config(model.cfg),
                                     self.device)
             else:
                 params = shard_params(params, self._vs)
@@ -338,8 +347,9 @@ class Engine:
         self.telemetry_enabled = bool(telemetry)
         self.devtime_enabled = bool(devtime)
         vocab = model.cfg.vocab_size
+        dev = self.device       # not `self`: no cycle through the engine
         self.noise_fn = noise_fn or (
-            lambda keys, V: gumbel_noise(keys, V, self.device))
+            lambda keys, V: gumbel_noise(keys, V, dev))
         self._vocab = vocab
         self._noise_cache = None    # (keys bytes, [B, V] device noise)
         self._row_offset: dict[str, int] = {}
@@ -879,8 +889,15 @@ class Engine:
         """Fresh allocator + zeroed page pools for one run."""
         alloc = PagedAllocator(self.num_pages, self.page_size, B,
                                self.max_pages)
-        return alloc, self.model.init_paged_caches(self.num_pages,
-                                                   self.page_size)
+        with self._sharding():      # a rank's share of a split pool
+            return alloc, self.model.init_paged_caches(self.num_pages,
+                                                       self.page_size)
+
+    def _decode_caches(self, B):
+        """Zeroed dense decode caches for B slots (a rank's share under a
+        trunk split)."""
+        with self._sharding():
+            return self.model.init_decode_caches(B, self.max_len)
 
     def _admit_paged(self, req: Request, b: int, alloc, ids=None):
         """Paged admission: no prefill call here. The prompt attaches

@@ -636,7 +636,7 @@ class DenseMode(_ModeBase):
 
     def setup(self, loop):
         eng = self.eng
-        self.caches = eng.model.init_decode_caches(eng.slots, eng.max_len)
+        self.caches = eng._decode_caches(eng.slots)
         self.cur_tok = np.zeros(eng.slots, np.int32)
 
     def admit(self, loop, b, req):
@@ -881,8 +881,7 @@ class SpecMode(_ModeBase):
             if loop.tele.enabled:
                 loop.tele.register_kv(self.alloc)
         else:
-            self.caches = eng.model.init_decode_caches(eng.slots,
-                                                       eng.max_len)
+            self.caches = eng._decode_caches(eng.slots)
 
     def can_admit_req(self, loop, req) -> bool:
         if not self.paged:

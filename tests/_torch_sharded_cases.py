@@ -100,6 +100,13 @@ def opportunistic_requests():
             _req(2, "calc", b"", 8, "sample", 1.0, None, 0.9)]
 
 
+def long_requests():
+    """Two unconstrained greedy requests that run up to a max_len of 48
+    (a sequence-split cache's last rank then holds live positions)."""
+    return [_req(i, None, p, 24) for i, p in
+            enumerate((b"the quick brown fox jumps over", b"a b c d e f"))]
+
+
 def async_requests(calc="calc"):
     """Three requests and a long one that rank 0 cancels mid-decode;
     `calc` names the grammar of request 1 (the async case hot-loads calc's
@@ -140,13 +147,15 @@ def _async_cancel(eng):
 
 
 def run_cases(mesh, vocab, params_np, tok, grammars, async_cancel=False,
-              cfg=None, device="cpu", **engine_kw):
+              cfg=None, device="cpu", max_len=MAX_LEN, long=False,
+              **engine_kw):
     """Every case on one engine set-up: the reference's weights as numpy
     leaves, the port's tokenizer and {name: bundle} of the six builtin
     grammars. `mesh` None is the unsharded port. `cfg` replaces the
     narrow syncode-demo at `vocab`; `device` is the unsharded engine's
-    (a mesh brings its own); `engine_kw` go to every Engine (e.g.
-    trunk_shard=True)."""
+    (a mesh brings its own); `max_len` is every engine's; `long` adds the
+    "long" case (`long_requests` through dense `generate()`); `engine_kw`
+    go to every Engine (e.g. trunk_shard=True)."""
     dev = mesh.device if mesh is not None else torch.device(device)
     model = build_model(cfg or config(vocab), device=dev)
     params = bridge.to_torch(params_np, dev)
@@ -154,7 +163,7 @@ def run_cases(mesh, vocab, params_np, tok, grammars, async_cancel=False,
     def engine(bs=None, **kw):
         kw.setdefault("slots", 4)
         return Engine(model, params, tok, grammars if bs is None else
-                      {k: grammars[k] for k in bs}, max_len=MAX_LEN,
+                      {k: grammars[k] for k in bs}, max_len=max_len,
                       device=dev, mesh=mesh, **engine_kw, **kw)
 
     out, stores = {}, {}
@@ -162,6 +171,8 @@ def run_cases(mesh, vocab, params_np, tok, grammars, async_cancel=False,
     stores["all"] = tuple(eng._store_cat.shape)
     out["greedy"] = tokens(eng.generate(greedy_requests())[0])
     out["sampled"] = tokens(eng.generate(sampled_requests())[0])
+    if long:
+        out["long"] = tokens(eng.generate(long_requests())[0])
     out["speculative"] = tokens(eng.generate_speculative(
         speculative_requests(), spec=SpecConfig(literal_jump=False))[0])
     out["sequential"] = tokens(eng.generate_sequential(
@@ -182,6 +193,18 @@ def run_cases(mesh, vocab, params_np, tok, grammars, async_cancel=False,
     out["stores"] = stores
     out["mesh_devices"] = stats.mesh_devices
     return out
+
+
+def engine_rank(rank, n):
+    """One rank of an n-rank gloo world: a one-layer syncode-demo engine
+    over the mesh (`build_engine(mesh=n)`; its step loop's gauges and
+    telemetry hold reference cycles, as every engine's do) serving two
+    json requests -> their tokens."""
+    from repro_torch.launch.serve import build_engine
+    eng, _, _ = build_engine(grammars=("json",), device="cpu", mesh=n,
+                             num_layers=1, max_len=32)
+    return tokens(eng.generate([_req(i, "json", b"", 4)
+                                for i in range(2)])[0])
 
 
 def world(rank, sizes_vocabs, payload):

@@ -795,6 +795,53 @@ def test_paged_attention_pages_in_chunks(dev, S):
     _paged_check(dev, q, kp, vp, pt, pos, torch.float32)
 
 
+
+@pytest.mark.parametrize("nP", [4, 32])
+@pytest.mark.parametrize("psl", [2, 4, 8])
+@pytest.mark.parametrize("S", [1, 8, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_partial_matches_plain(dev, nP, psl, S, dtype):
+    """The partial form over each rank's in-page offsets of a pool of
+    16-position pages split 16 / psl ways, nP pages a slot (smollm-360m's
+    shapes; psl 8 with nP 4 is its rank-local pool at M = 2 and max_len
+    64, as chip_smoke.py's phase 14 serves it), against the plain
+    partial: o (fp32)
+    within the paged tolerance, lse within 1e-5 in fp32 (1e-4 in bf16,
+    whose scores are sums of bf16 products in another order), and rows
+    with no valid position on a rank (a slot starting at 0, a slot with
+    no mapped page) exactly 0 and -1e30."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention_partial)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_partial_ref)
+    B, ps = 8, 16
+    rng, q, kp, vp, pt, pos = _paged_inputs(dev, psl * 10 + S + nP, B, S,
+                                            15, 5, 64, ps, nP, 256, dtype)
+    pt[:, 1:][rng.random((B, nP - 1)) < 0.15] = -1
+    pt[-1] = -1
+    pos[0] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -5
+    lse_tol = 1e-5 if dtype == torch.float32 else 1e-4
+    for r in range(ps // psl):
+        kr = kp[:, r * psl:(r + 1) * psl].contiguous()
+        vr = vp[:, r * psl:(r + 1) * psl].contiguous()
+        args = (q, kr, vr, t(pt), t(pos), ps, r * psl)
+        before = paged_attention_partial.launches
+        o, lse = paged_attention_partial(*args)
+        assert paged_attention_partial.launches == before + 1
+        wo, wl = paged_attention_partial_ref(*args)
+        torch.cuda.synchronize()
+        assert o.dtype == lse.dtype == torch.float32
+        assert o.shape == q.shape and lse.shape == q.shape[:3]
+        err = (o - wo).abs().max().item()
+        assert err <= atol, (r, err)
+        err = (lse - wl).abs().max().item()
+        assert err <= lse_tol, (r, err)
+        dead = wl <= -1e30
+        assert dead[-1].all() and (r == 0 or dead[0, 0].all())
+        assert (lse[dead] == wl[dead]).all() and (o[dead] == 0).all()
+
 # --------------------------------------------- attention backward (training)
 
 def _bwd_inputs(dev, B, Sq, Sk, H, K, Dh, dtype, seed):
@@ -954,17 +1001,20 @@ def test_smollm_width_train_step_matches_cpu(dev):
 def test_trunk_shard_world_of_two_on_the_card(dev):
     """`Engine(mesh=..., trunk_shard=True)` over a 2-rank gloo world on
     the one card (NCCL refuses two ranks on one device), the narrow fp32
-    dense and MoE configs of `tests/_torch_trunk_cases.py` with the port's
-    own seeded weights: every serving case of `_torch_sharded_cases`
-    (greedy and sampled over six grammars, speculative, paged with a
-    shared prefix, two-grammar store, sequential, opportunistic) gives
+    dense and MoE configs of `tests/_torch_trunk_cases.py` and its
+    6/3-head config, whose kv heads M = 2 does not divide (the sequence
+    split: the partial paged kernel over 4 of each page's 8 offsets),
+    with the port's own seeded weights: every serving case of
+    `_torch_sharded_cases` (greedy and sampled over six grammars,
+    speculative, paged with a shared prefix, two-grammar store,
+    sequential, opportunistic, and the sequence split's long run) gives
     the one-device engine's tokens on both ranks."""
     import _torch_trunk_cases as T
     from repro_torch.launch.mesh import spawn
     want = T.card_world(0, None)
     ranks = spawn(2, T.card_world, 2, backend="gloo", device="cuda")
     for rank, got in enumerate(ranks):
-        for name in T.CONFIGS:
+        for name in T.CARD_CONFIGS:
             assert got[name].keys() <= want[name].keys()
             for case, toks in got[name].items():
                 assert toks == want[name][case], (rank, name, case)

@@ -252,8 +252,9 @@ def _tiny_engine(**kw):
                   dtype="float32")
     model = tbuild(cfg, device="cpu")
     gen = torch.Generator().manual_seed(0)
+    kw.setdefault("max_len", 32)
     return Engine(model, model.init(gen), ByteTokenizer(320), {},
-                  max_len=32, device="cpu", **kw)
+                  device="cpu", **kw)
 
 
 def _one_rank_of(M):
@@ -266,8 +267,8 @@ def _one_rank_of(M):
 def test_engine_needs_a_model_axis_and_refuses_trunk_shard():
     """No 'model' axis: ValueError. trunk_shard at M = 1 (or without a
     mesh) splits nothing: the plain engine, the same tensors; a split the
-    trunk plan refuses raises ValueError naming it (here 2 q heads over
-    1 kv head at M = 2)."""
+    trunk plan refuses raises ValueError naming it (here 1 kv head and a
+    max_len of 31 at M = 2: neither divides)."""
     with pytest.raises(ValueError, match="'model' axis"):
         _tiny_engine(mesh=MeshShape({"data": 2}, ("data",)))
     plain = _tiny_engine()
@@ -277,8 +278,9 @@ def test_engine_needs_a_model_axis_and_refuses_trunk_shard():
         assert [tuple(t.shape) for _, t in port.leaves_with_path(
             eng.params)] == [tuple(t.shape) for _, t in
                              port.leaves_with_path(plain.params)]
-    with pytest.raises(ValueError, match="num_kv_heads 1 does not split"):
-        _tiny_engine(mesh=_one_rank_of(2), trunk_shard=True)
+    with pytest.raises(ValueError, match="num_kv_heads 1 does not split "
+                       "2 ways and the cache length"):
+        _tiny_engine(mesh=_one_rank_of(2), trunk_shard=True, max_len=31)
     eng = _tiny_engine(mesh=make_serving_mesh(1, device="cpu"))
     assert eng._vs.split and eng._vs.width == 320
     assert eng._store_cat.shape == (1, 10)
@@ -286,11 +288,13 @@ def test_engine_needs_a_model_axis_and_refuses_trunk_shard():
 
 def test_build_engine_passes_mesh_and_trunk_shard():
     """build_engine hands trunk_shard to the engine: at M = 1 the plain
-    engine; at M = 2 a refused config (smollm-360m's 15 heads) raises."""
+    engine; at M = 2 a refused split (smollm-360m's 5 kv heads and a
+    max_len of 511) raises."""
     from repro_torch.launch.serve import build_engine
     with pytest.raises(ValueError, match="smollm-360m at M = 2"):
         build_engine("smollm-360m", grammars=(), device="cpu",
-                     mesh=_one_rank_of(2), trunk_shard=True, num_layers=1)
+                     mesh=_one_rank_of(2), trunk_shard=True, num_layers=1,
+                     max_len=511)
     eng, _, _ = build_engine(grammars=("json",), device="cpu", mesh=1,
                              trunk_shard=True, num_layers=1)
     assert eng.mesh.size == 1 and eng._trunk is None

@@ -22,7 +22,8 @@ What is held, per config and world:
   * the decode step's collectives against `distributed/cost.py`'s count
     and the bytes a rank holds against the dry run's argument bytes
     under the trunk specs;
-and the splits `trunk_plan` refuses raise ValueError."""
+and the splits `trunk_plan` refuses raise ValueError. The sequence split
+(M does not divide the kv heads) is held by tests/test_torch_seq_shard.py."""
 import threading
 
 import jax
@@ -299,20 +300,25 @@ def test_resident_bytes_are_the_trunk_spec_argument_bytes(runs, name, M):
 
 # ------------------------------- refusals -------------------------------
 
-REFUSED = [("smollm-360m", 2, "num_heads 15"),
-           ("syncode-demo", 8, "num_kv_heads 4"),
-           ("qwen3-moe-30b-a3b", 8, "num_kv_heads 4"),
-           ("mamba2-370m", 2, "['ssm']"),
-           ("recurrentgemma-9b", 2, "['rec']"),
-           ("whisper-base", 2, "['dec', 'enc']"),
-           ("llama-3.2-vision-90b", 2, "['cross']")]
+# (config, M, the engine's cache lengths, the dimension named): the
+# layer kinds the port does not split, and where M divides neither the
+# kv heads nor a cache length (the reference then splits head_dim or
+# replicates the cache)
+REFUSED = [("smollm-360m", 2, dict(cache_len=511), "max_len) 511"),
+           ("syncode-demo", 8, dict(cache_len=100), "max_len) 100"),
+           ("qwen3-moe-30b-a3b", 8, dict(page_size=4), "page_size 4"),
+           ("mamba2-370m", 2, {}, "['ssm']"),
+           ("recurrentgemma-9b", 2, {}, "['rec']"),
+           ("whisper-base", 2, {}, "['dec', 'enc']"),
+           ("llama-3.2-vision-90b", 2, {}, "['cross']")]
 
 
-@pytest.mark.parametrize("arch,M,dim", REFUSED)
-def test_refused_splits_raise_naming_config_m_and_dimension(arch, M, dim):
+@pytest.mark.parametrize("arch,M,lens,dim", REFUSED)
+def test_refused_splits_raise_naming_config_m_and_dimension(arch, M, lens,
+                                                            dim):
     cfg = get_config(arch)
     with pytest.raises(ValueError) as e:
-        port.trunk_plan(cfg, M)
+        port.trunk_plan(cfg, M, **lens)
     msg = str(e.value)
     assert cfg.name in msg and f"M = {M}" in msg and dim in msg
     assert port.trunk_plan(cfg, 1).split is False     # M = 1 splits nothing
@@ -354,10 +360,18 @@ def _stand_in_mesh(M):
 
 
 def test_engine_and_launcher_refuse_what_the_plan_refuses():
+    """The launcher passes the engine's max_len and, when paged, its
+    page_size to the plan: smollm-360m's 5 kv heads at M = 2 are served
+    at max_len 512 but refused at 511, and at page_size 15."""
     from repro_torch.launch.serve import build_engine
-    with pytest.raises(ValueError, match="smollm-360m at M = 2"):
+    with pytest.raises(ValueError, match="smollm-360m at M = 2.*max_len"):
         build_engine("smollm-360m", grammars=(), device="cpu",
-                     mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=1)
+                     mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=1,
+                     max_len=511)
+    with pytest.raises(ValueError, match="smollm-360m at M = 2.*page_size"):
+        build_engine("smollm-360m", grammars=(), device="cpu",
+                     mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=1,
+                     paged=True, page_size=15)
     with pytest.raises(ValueError, match="mamba2-370m at M = 2"):
         build_engine("mamba2-370m", grammars=(), device="cpu",
                      mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=1)
@@ -366,11 +380,12 @@ def test_engine_and_launcher_refuse_what_the_plan_refuses():
 # --------------------------- the cut as drawn ---------------------------
 
 @pytest.mark.parametrize("M", (2, 4))
-@pytest.mark.parametrize("name", C.CONFIGS)
+@pytest.mark.parametrize("name", (*C.CONFIGS, *C.SEQ_CONFIGS))
 def test_init_cut_as_drawn_is_the_whole_init_cut(name, M):
     """`Model.init(gen, cut=...)` draws each leaf's block bit for bit as
-    the whole init's leaf cut after the fact, and the engine keeps such
-    blocks as they are."""
+    the whole init's leaf cut after the fact (column blocks that cut
+    inside a head too: SEQ_CONFIGS), and the engine keeps such blocks as
+    they are."""
     cfg = C.config(name)
     model = build_model(cfg, device="cpu")
     whole = model.init(torch.Generator().manual_seed(11))
