@@ -187,9 +187,15 @@ no result line):
    rank and the partials joined), a 2-rank gloo world on the one card,
    bf16 at full width: qwen1.5-0.5b (all 24 layers, 16/16 heads, QKV
    bias, d_ff 2816, V 151936), qwen3-moe-30b-a3b (phase 8's 4 layers,
-   32/4 heads, 128 experts top-8) and smollm-360m (all 32 layers, 15/5
+   32/4 heads, 128 experts top-8), smollm-360m (all 32 layers, 15/5
    heads: the sequence split, max_len 64 so that both ranks' shares hold
-   positions of the requests), each rank drawing only its blocks
+   positions of the requests), mamba2-370m (all 48 layers: w_in columns,
+   conv channels, SSD heads and w_out rows split, the projection and the
+   conv output gathered, the gated norm's statistic carried in the w_out
+   all-reduce) and recurrentgemma-9b (9 layers, three (rec, rec, attn)
+   periods: the RG-LRU width split, the conv output gathered for the
+   gates; its 16/1-head local attention on the sequence split of a
+   48-position ring), each rank drawing only its blocks
    (`build_engine(..., trunk_shard=True)`); one spawned world serves the
    models in turn. First the partial paged kernel
    (`paged_attention_partial`) at smollm's rank-local pool (phase 4's
@@ -199,14 +205,20 @@ no result line):
    same seeded weights (run first in this process): the first decode
    step's logits over 8 seeded prompts (16 tokens; smollm 32, so the
    step's own position is rank 1's first) within TRUNK_ULPS bf16 ulps at
-   the largest logit (MoE: rows whose token every layer routed alike);
-   phase 12's 8 requests x 32 new tokens (qwen1.5 and qwen3-moe 4 x 16)
-   dense, paged and speculative on both sides, each run counted on its
+   the largest logit (TRUNK_FAMILY_ULPS for mamba2 and recurrentgemma;
+   MoE: rows whose token every layer routed alike); phase 12's
+   requests, TRUNK_CUT's count x new tokens (smollm 8 x 4, the others
+   4 x 4), dense, paged and speculative on both sides (the recurrent
+   families: dense, and sequential on the sharded side, TRUNK_SEQ),
+   each run counted on its
    own (flash once per layer per admission at the local H/2 q and K/2 kv
    heads, or every head under the sequence split, paged attention once
    per layer per feed at them, the partial form under the sequence
    split, masked_logits once per constrained step, masked_logits_span
-   once per span step, fused_select at least once a step), every eos
+   once per span step, fused_select at least once a step; sequential:
+   flash once per attention layer per request, masked_logits once per
+   constrained step), every flash call's output (the last 16 of a run)
+   against the plain version on the same inputs, every eos
    output parsed and every output
    walked by the oracle (`is_valid_extension`), ms a step beside the
    one-device engine's and the share of requests identical printed, not
@@ -215,10 +227,12 @@ no result line):
    into it, each above 0; smollm's partial paged kernel on the paged
    run's own calls (each layer's of the last feed of each width) against
    its plain version, bf16 and fp32; one decode step's collective tally
-   beside `distributed/cost.py`'s wire count; each rank's param, dense
-   cache and page pool bytes equal to the trunk specs' argument bytes,
-   its peak while building below the whole tree's bytes, its peak
-   beside the specs' params + caches + pools; then an fp32 copy at 2 layers: 16 greedy steps of 8 rows
+   beside `distributed/cost.py`'s wire count; each rank's param bytes,
+   dense cache bytes by leaf (k, v, kv_pos; the recurrent state h and
+   the conv cache) and page pool bytes equal to the trunk specs'
+   argument bytes, its peak while building below the whole tree's
+   bytes, its peak beside the specs' params + caches + pools; then an
+   fp32 copy at 2 layers (recurrentgemma 3): 16 greedy steps of 8 rows
    through both sides, identical up to each row's first near-tie.
 
 The last lines are the card's name and power limit, the kernels JSON
@@ -3465,30 +3479,78 @@ def phase_cost(torch, counters, smollm_peak):
 # trunk_shard (NCCL refuses two ranks on one device). smollm-360m's 5 kv
 # heads do not split 2 ways: the sequence split, rank r holding positions
 # [32r, 32r + 32) of its 64 and offsets [8r, 8r + 8) of each 16-position
-# page; the 8 requests (about 23 prompt tokens, 32 new) cross position
-# 32, and the first step's 32 prompt tokens put its own position 32 on
-# rank 1
+# page; the requests' prompts (TRUNK_REACH) cross position 32, and the
+# first step's 32 prompt tokens put its own position 32 on rank 1
 TRUNK_ARCHS = (("qwen1.5-0.5b", None, 512, 16),
                ("qwen3-moe-30b-a3b", MOE_DEPTH, 512, 16),
-               ("smollm-360m", None, 64, 32))
-# for the script's time (their steps are the host oracle's at V 151936),
-# qwen1.5's and qwen3-moe's runs serve 4 of the requests at 16 new
-# tokens, smollm's all 8 at SHARD_NEW; each warm-up is one request at
-# TRUNK_WARM new tokens. (qwen1.5's depth stays whole: at 4 layers its
-# vocabulary tables outweigh the layers, and the peak of drawing them
-# passes the whole tree's bytes, which the memory check forbids)
-TRUNK_CUT = {"qwen1.5-0.5b": (4, 16), "qwen3-moe-30b-a3b": (4, 16)}
-TRUNK_WARM = 4
+               ("smollm-360m", None, 64, 32),
+               ("mamba2-370m", None, 512, 16),
+               ("recurrentgemma-9b", 9, 48, 32))
+# (requests, new tokens) of each model's runs, for the script's time: a
+# dense, paged or speculative run takes about as many steps as it has new
+# tokens, each step the host oracle's (V 151936, 256000) and 31-146
+# gloo collectives; qwen1.5, qwen3-moe 4 x 4 (4 x 16 until PR 28, 8 x 32
+# until PR 27), smollm 8 x 4 (8 x 32 until PR 28: its prompts now reach
+# the last rank's share themselves, TRUNK_REACH), mamba2 and
+# recurrentgemma 4 x 4; each warm-up is one request at TRUNK_WARM new
+# tokens (4 until PR 28). (qwen1.5's depth stays whole: at 4 layers its vocabulary tables
+# outweigh the layers, and the peak of drawing them passes the whole
+# tree's bytes, which the memory check forbids)
+TRUNK_CUT = {"qwen1.5-0.5b": (4, 4), "qwen3-moe-30b-a3b": (4, 4),
+             "smollm-360m": (8, 4), "mamba2-370m": (4, 4),
+             "recurrentgemma-9b": (4, 4)}
+TRUNK_WARM = 2
+# the recurrent families (mamba2-370m, recurrentgemma-9b) serve dense and
+# sequential, as on one device; their sequential run serves this many
+# requests x new tokens (one request a step: a step of the 2-rank world
+# waits on 31-146 gloo collectives)
+TRUNK_SEQ = (2, 2)
+# under the sequence split (smollm-360m: a ring of 64 positions, rank r
+# holding [32r, 32r + 32); recurrentgemma-9b's local attention, its one
+# kv head: a ring of 48, [24r, 24r + 24)) each prompt is padded to this
+# many ids, so that every request's prefill writes into the last rank's
+# share whatever its output's length (the tokenizers at V 49152 and
+# 256000 merge phase 12's 22-byte prompts into fewer ids); the first
+# step's 32 prompt tokens reach it too
+TRUNK_REACH = {"smollm-360m": 34, "recurrentgemma-9b": 26}
+# recurrentgemma-9b runs 9 of its 38 layers, three (rec, rec, attn)
+# periods: the fewest whole periods at which a rank's build peak (the
+# fp32 draw of the 256000 x 4096 tied embedding, 4.19 GB, beside its
+# 1.05 GB block) stays below the whole tree's bytes (6.04 GB at 9
+# layers, 4.73 at 6), for the script's time, and the depth at which
+# scripts/trunk_tolerance.py reads its bound on the CPU
 
 
-def trunk_requests(arch, warm=False):
-    """The requests phase 14 serves `arch` with (its warm-up's)."""
-    n, new = (1, TRUNK_WARM) if warm else \
+def trunk_requests(arch, engine, warm=False, sequential=False):
+    """The requests phase 14 serves `arch` with on `engine` (its
+    warm-up's, its sequential run's), prompts padded to TRUNK_REACH's
+    ids."""
+    n, new = (1, TRUNK_WARM) if warm else TRUNK_SEQ if sequential else \
         TRUNK_CUT.get(arch, (8, SHARD_NEW))
     reqs = sharded_requests()[:n]
     for r in reqs:
         r.max_new_tokens = new
+        while len(engine._request_ids(r)) < TRUNK_REACH.get(arch, 0):
+            r.prompt += b" ."
     return reqs
+
+
+def trunk_paths(cfg):
+    """The serving paths phase 14 runs `cfg` on through both engines:
+    dense, paged and speculative where every layer kind is
+    position-addressed, else (the recurrent families) dense and
+    sequential."""
+    from repro_torch.models.model import Model
+    if Model(cfg, device="meta").supports_span_decode:
+        return ("dense", "paged", "speculative")
+    return ("dense", "sequential")
+
+
+def n_attention(cfg):
+    """Layers of `cfg` with self-attention (attn, moe)."""
+    from repro_torch.models.model import layer_groups
+    return sum(count for pat, count in layer_groups(cfg) for kind in pat
+               if kind in ("attn", "moe"))
 TRUNK_M = 2
 TRUNK_B, TRUNK_P = 8, 16        # the checks' 8 prompts of 16 (fp32: 16)
 # the first decode step's logits against the one-device engine's: 16 bf16
@@ -3503,7 +3565,19 @@ TRUNK_B, TRUNK_P = 8, 16        # the checks' 8 prompts of 16 (fp32: 16)
 # instead of their log-sum-exp's, 2 layers) and 59.0 (a rank's prefill
 # writing the other rank's positions)
 TRUNK_ULPS = 16
+# the recurrent families' own bounds, where 16 does not separate the sets
+# (scripts/trunk_tolerance.py, CPU, 2 gloo ranks, bf16, full width):
+# mamba2-370m at its 48 layers reads 28.8 sound (0.28 at 2 layers, 11.4
+# at 24; the one-device bf16 model itself is 34.9 from its fp32 twin at
+# 48) and 157.5 with the gated norm's statistic over a rank's own
+# channels (143.75 at 24); recurrentgemma-9b, whose tied-embedding
+# logits reach ~2000 (an ulp of 8-16), at its 9 layers 0.69 sound (at
+# most 1.0 at 3-9) and 11.03 with the gates contracted over a rank's
+# own conv channels (3.31 at 3 layers, 4.58 at 6)
+TRUNK_FAMILY_ULPS = {"mamba2-370m": 64, "recurrentgemma-9b": 3}
 TRUNK_FP32_LAYERS, TRUNK_FP32_STEPS = 2, 16
+# recurrentgemma's fp32 copy takes its first (rec, rec, attn) period
+TRUNK_FP32_DEPTH = {"recurrentgemma-9b": 3}
 TRUNK_FP32_LEN = TRUNK_P + TRUNK_FP32_STEPS    # its max_len: smollm's
 #                                                rank 1 holds 16-31
 # an fp32 near-tie: a top-2 logit gap, or a gap between the k-th and
@@ -3623,6 +3697,61 @@ class _PartialSpy:
         return out
 
 
+class _FlashSpy:
+    """While active, keeps the flash_attention calls the model's layers
+    make (`layers.attention`: the prefill of every admission; under the
+    sequence split on q/k/v gathered into whole heads), the last
+    `keep` of them with their outputs. `check()` holds each kept output
+    against the plain version on the same inputs (bf16, the run's own
+    launch) and the kernel against the plain version on those inputs in
+    fp32 -> [calls, q shapes, max abs err bf16, fp32]; raises beyond
+    ATTN_TOL."""
+
+    def __init__(self, keep=16):
+        self.keep, self.n, self.calls = keep, 0, []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, orig = layers, layers.attention
+        self.orig = orig
+
+        def spy(q, k, v, **kw):
+            o = orig(q, k, v, **kw)
+            self.n += 1
+            self.calls = (self.calls + [((q.clone(), k.clone(), v.clone()),
+                                         kw, o.clone())])[-self.keep:]
+            return o
+        layers.attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.attention = self.orig
+
+    def check(self, who):
+        from repro_torch.kernels.flash_attention.ops import attention
+        from repro_torch.kernels.flash_attention.ref import chunked_attention
+        err = err32 = 0.0
+        for (q, k, v), kw, o in self.calls:
+            plain = lambda *a: chunked_attention(
+                *a, causal=kw.get("causal", True), q_offset=0,
+                window=kw.get("window", 0), chunk=kw.get("chunk", 1024))
+            err = max(err, (o.float() - plain(q, k, v).float()).abs()
+                      .max().item())
+            a32 = (q.float(), k.float(), v.float())
+            err32 = max(err32, (attention(*a32, **kw) - plain(*a32)).abs()
+                        .max().item())
+        shapes = sorted({(tuple(q.shape), tuple(k.shape))
+                         for (q, k, _), _, _ in self.calls})
+        if not (err <= ATTN_TOL["bfloat16"] and
+                err32 <= ATTN_TOL["float32"]):
+            raise AssertionError(
+                f"{who}: flash_attention on the main path ({self.n} calls, "
+                f"kept {len(self.calls)} at {shapes}): max abs err {err} "
+                f"(bf16; tol {ATTN_TOL['bfloat16']}), {err32} (fp32; tol "
+                f"{ATTN_TOL['float32']})")
+        return [self.n, shapes, err, err32]
+
+
 def _tree_bytes(tree) -> int:
     from repro_torch.training.tree import leaves
     return sum(t.numel() * t.element_size() for t in leaves(tree))
@@ -3673,56 +3802,79 @@ def trunk_first_step(torch, engine, routes, P):
         r.cpu() for r in routes.take()], (caches, toks[:, P], pos)
 
 
-def trunk_runs(torch, counters, engine, bundles, tok, P, arch,
-               names=("dense", "paged", "speculative")):
-    """The first-step check, then dense, paged (a twin on the engine's
-    params) and speculative runs of `trunk_requests(arch)` (phase 12's
-    8 requests x 32 new tokens; qwen1.5, qwen3-moe 4 x 16), each with
-    the launch counters zeroed just before and read just after, every
-    eos output parsed and every output walked by the oracle, the partial
-    paged kernel's calls held by `_PartialSpy` -> {"first", "routes",
-    "runs": {run: tokens, steps, ms a step, launches, attention heads,
-    ...}, "bytes": the dense caches' and the page pools' bytes as the
-    runs build them}."""
+def _leaf_bytes(tree, specs=None, mesh=None) -> dict:
+    """Bytes of a cache tree by leaf name (k, v, kv_pos, h, conv), held
+    or, given the specs and the mesh, a rank's block under them."""
+    from repro_torch.distributed import cost
+    from repro_torch.distributed.sharding import _leaf_name
+    out = {}
+    for path, n in cost._leaf_bytes(tree, specs, mesh):
+        out[_leaf_name(path)] = out.get(_leaf_name(path), 0) + n
+    return out
+
+
+def trunk_runs(torch, counters, engine, bundles, tok, P, arch, names=None):
+    """The first-step check, then the runs of `names` (default
+    `trunk_paths`): dense, paged (a twin on the engine's params) and
+    speculative runs of `trunk_requests(arch)` (phase 12's 8 requests x
+    32 new tokens, cut to TRUNK_CUT's), or for the recurrent
+    families dense and sequential (TRUNK_SEQ), each with the
+    launch counters zeroed just before and read just after, every eos
+    output parsed and every output walked by the oracle, the partial
+    paged kernel's calls held by `_PartialSpy` and the flash calls by
+    `_FlashSpy` -> {"first", "routes", "runs": {run: tokens, steps, ms a
+    step, launches, attention heads, ...}, "bytes": the dense caches'
+    bytes by leaf name and the page pools' bytes, as the runs build
+    them}."""
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
+    names = names or trunk_paths(engine._cfg)
     moe = engine._cfg.arch_type == "moe"
     with _Routes() as routes:
         first, first_routes, _ = trunk_first_step(
             torch, engine, routes if moe else None, P)
-    engine.generate(trunk_requests(arch, warm=True))
-    paged = Engine(build_model(engine._cfg, device=engine.device),
-                   engine.params,
-                   tok, bundles, max_len=engine.max_len, slots=8, paged=True,
-                   page_size=16, device="cuda", mesh=engine.mesh,
-                   trunk_shard=engine.mesh is not None)
+    engine.generate(trunk_requests(arch, engine, warm=True))
     # the bytes a rank's dense caches and page pools hold, as the runs
     # build them
-    held = {"caches": _tree_bytes(engine._decode_caches(8)),
-            "pools": _tree_bytes(paged._paged_setup(8)[1]),
-            "pages": (paged.num_pages, paged.page_size)}
+    held = {"caches": _leaf_bytes(engine._decode_caches(8))}
+    paged = None
+    if "paged" in names:
+        paged = Engine(build_model(engine._cfg, device=engine.device),
+                       engine.params, tok, bundles, max_len=engine.max_len,
+                       slots=8, paged=True, page_size=16, device="cuda",
+                       mesh=engine.mesh, trunk_shard=engine.mesh is not None)
+        held.update(pools=_tree_bytes(paged._paged_setup(8)[1]),
+                    pages=(paged.num_pages, paged.page_size))
     runs = {}
     for name, eng, fn in (
-            ("dense", engine, lambda: engine.generate(trunk_requests(arch))),
-            ("paged", paged, lambda: paged.generate(trunk_requests(arch))),
+            ("dense", engine, lambda: engine.generate(
+                trunk_requests(arch, engine))),
+            ("paged", paged, lambda: paged.generate(
+                trunk_requests(arch, engine))),
             ("speculative", engine, lambda: engine.generate_speculative(
-                trunk_requests(arch)))):
+                trunk_requests(arch, engine))),
+            ("sequential", engine, lambda: engine.generate_sequential(
+                trunk_requests(arch, engine, sequential=True)))):
         if name not in names:
             continue
-        spy = _PartialSpy(engine._cfg.num_layers)
-        with _Heads() as heads, spy:
+        spy = _PartialSpy(max(1, n_attention(engine._cfg)))
+        with _Heads() as heads, spy, _FlashSpy() as flash:
             states, stats, lc = run_counted(torch, counters, fn)
         checked = spy.check(f"phase 14 {engine._cfg.name} {name}") \
             if spy.feeds else None
+        flash_checked = flash.check(f"phase 14 {engine._cfg.name} {name}") \
+            if flash.calls else None
         check_outputs(states, bundles)
         cut = valid_prefixes(engine, states)
         runs[name] = {"tokens": tokens_of(states),
                       "steps": stats.decode_steps,
                       "admitted": len(states),
+                      "masked": stats.mask_computations,
                       "ms": 1e3 * stats.wall / max(stats.decode_steps, 1),
                       "launches": lc, "flash": sorted(heads.flash),
                       "paged_heads": sorted(heads.paged), "cut": cut,
                       "plan": eng._trunk, "partial_checked": checked,
+                      "flash_checked": flash_checked,
                       "eos": sum(s.finish_reason == "eos" for s in states)}
     del paged
     return {"first": first, "routes": first_routes, "runs": runs,
@@ -3731,23 +3883,25 @@ def trunk_runs(torch, counters, engine, bundles, tok, P, arch,
 
 def trunk_launch_check(who, cfg, res, M):
     """The kernels' launches against each run's steps, at the local
-    heads: flash once per layer per admission at (H/M, K/M), paged once
-    per layer per feed at (H/M, K/M), masked_logits once per constrained
-    step (vocab split) or none, fused_select at least once a dense step;
-    masked_logits_span once per speculative step. Under the sequence
-    split (M does not divide K) flash runs at every head (H, K) and the
-    paged feeds launch the partial kernel instead, at (H, K) over the
-    rank's offsets."""
-    L = cfg.num_layers
+    heads: flash once per attention layer per admission at (H/M, K/M),
+    paged once per layer per feed at (H/M, K/M), masked_logits once per
+    constrained step (vocab split) or none, fused_select at least once a
+    dense step; masked_logits_span once per speculative step;
+    sequential: flash once per attention layer per request, masked_logits
+    once per constrained step. Under the sequence split (M does not
+    divide K) flash runs at every head (H, K) and the paged feeds launch
+    the partial kernel instead, at (H, K) over the rank's offsets."""
+    L = n_attention(cfg)
     seq = cfg.num_kv_heads % M != 0
     heads = (cfg.num_heads, cfg.num_kv_heads) if seq else \
         (cfg.num_heads // M, cfg.num_kv_heads // M)
+    flash = [heads] if L else []
     kind, other = ("paged_attention_partial", "paged_attention") if seq \
         else ("paged_attention", "paged_attention_partial")
     runs, bad = res["runs"], []
     d = runs["dense"]
     lc = d["launches"]
-    if lc["attention"] != d["admitted"] * L or d["flash"] != [heads]:
+    if lc["attention"] != d["admitted"] * L or d["flash"] != flash:
         bad.append(f"dense flash {lc['attention']} at {d['flash']}")
     if lc["fused_mask_select"] < d["steps"]:
         bad.append(f"dense fused_select {lc['fused_mask_select']}")
@@ -3764,6 +3918,14 @@ def trunk_launch_check(who, cfg, res, M):
         bad.append(f"speculative masked_logits_span "
                    f"{s['launches']['apply_grammar_mask_span']} in "
                    f"{s['steps']} steps")
+    q = runs.get("sequential")
+    if q and (q["launches"]["attention"] != q["admitted"] * L or
+              q["flash"] != flash or q["masked"] == 0 or
+              q["launches"]["apply_grammar_mask"] != q["masked"]):
+        bad.append(f"sequential flash {q['launches']['attention']} at "
+                   f"{q['flash']}, masked_logits "
+                   f"{q['launches']['apply_grammar_mask']} in "
+                   f"{q['masked']} constrained steps")
     if bad:
         raise AssertionError(f"phase 14 {who}: launches {bad} (dense "
                              f"steps {d['steps']})")
@@ -3802,8 +3964,10 @@ def trunk_rank(rank, n, arch, depth, max_len, P):
     from repro_torch.distributed import cost
     from repro_torch.distributed.api import (collective_tally,
                                              reset_collective_tally)
-    from repro_torch.distributed.sharding import (serving_cache_specs,
-                                                  serving_param_specs)
+    from repro_torch.distributed.sharding import (leaves_with_path,
+                                                  serving_cache_specs,
+                                                  serving_param_specs,
+                                                  trunk_slice)
     from repro_torch.launch.dryrun import tree_shard_bytes
     from repro_torch.launch.serve import build_engine
     from repro_torch.models.model import build_model
@@ -3829,25 +3993,34 @@ def trunk_rank(rank, n, arch, depth, max_len, P):
     res["tally"] = collective_tally()
     plan = engine._trunk
     if plan is not None and plan.seq:
+        kv = next(c for g in caches for c in g if "kv_pos" in c)
         lo, hi = plan.positions
-        res["first_live"] = int((caches[0][0]["kv_pos"][0, :, lo:hi]
-                                 >= 0).sum())
+        res["first_live"] = int((kv["kv_pos"][0, :, lo:hi] >= 0).sum())
         res["positions"] = plan.positions
-        res["offsets"] = res["runs"]["paged"]["plan"].offsets
+        if "paged" in res["runs"]:
+            res["offsets"] = res["runs"]["paged"]["plan"].offsets
     res["reach"] = _share_reach(res["runs"], max_len)
     cfg, mesh = engine._cfg, engine.mesh
     res["cost"] = cost.decode_step(cfg, TRUNK_B, engine.max_len, mesh=mesh)
     meta = build_model(cfg, device="meta")
     params = meta.abstract_params()
     caches = meta.init_decode_caches(8, engine.max_len)
-    pools = meta.init_paged_caches(*res["bytes"].pop("pages"))
+    # the params at the engine's word-aligned vocabulary split (embed and
+    # lm_head; `trunk_slice`), which V % M = 0 does not imply (V 50280:
+    # 12 rows more on rank 0 than the specs' V / M); the specs' bytes beside
+    blocks = sum(math.prod(sl.stop - sl.start for sl in trunk_slice(
+        p, t.shape, mesh, mesh.rank, engine._vs)) * t.element_size()
+        for p, t in leaves_with_path(params))
     res["est"] = {
-        "params": tree_shard_bytes(params, serving_param_specs(
-            params, mesh, cfg, trunk_shard=True), mesh),
-        "caches": tree_shard_bytes(caches, serving_cache_specs(
-            caches, mesh, cfg, trunk_shard=True), mesh),
-        "pools": tree_shard_bytes(pools, serving_cache_specs(
-            pools, mesh, cfg, trunk_shard=True), mesh)}
+        "params": blocks,
+        "caches": _leaf_bytes(caches, serving_cache_specs(
+            caches, mesh, cfg, trunk_shard=True), mesh)}
+    if "pages" in res["bytes"]:
+        pools = meta.init_paged_caches(*res["bytes"].pop("pages"))
+        res["est"]["pools"] = tree_shard_bytes(pools, serving_cache_specs(
+            pools, mesh, cfg, trunk_shard=True), mesh)
+    res["spec_params"] = tree_shard_bytes(params, serving_param_specs(
+        params, mesh, cfg, trunk_shard=True), mesh)
     res["whole_params"] = sum(t.numel() * t.element_size()
                               for t in leaves(params))
     res["block_params"] = sum(t.numel() * t.element_size()
@@ -3881,7 +4054,8 @@ def trunk_one_device(torch, arch, depth, max_len, P):
 
 
 def trunk_fp32_greedy(rank, n, arch):
-    """fp32 copy at TRUNK_FP32_LAYERS layers: TRUNK_B seeded prompts
+    """fp32 copy at TRUNK_FP32_LAYERS layers (TRUNK_FP32_DEPTH's where it
+    names `arch`): TRUNK_B seeded prompts
     prefilled, then TRUNK_FP32_STEPS unconstrained greedy steps through
     the engine's own calls (one device when n is None, else rank `rank`
     of n under trunk_shard) -> (tokens [B, steps]; at each step the
@@ -3896,7 +4070,8 @@ def trunk_fp32_greedy(rank, n, arch):
     from repro_torch.models import layers
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
-    cfg = replace(get_config(arch), num_layers=TRUNK_FP32_LAYERS,
+    cfg = replace(get_config(arch),
+                  num_layers=TRUNK_FP32_DEPTH.get(arch, TRUNK_FP32_LAYERS),
                   dtype="float32")
     mesh = None if n is None else make_serving_mesh(n, device="cuda")
     model = build_model(cfg, device=mesh.device if mesh else "cuda")
@@ -3968,7 +4143,8 @@ def trunk_fp32_check(arch, one, ranks):
                     f"step {first[b]}")
     held = sum(f == TRUNK_FP32_STEPS for f in first)
     same = sum(torch.equal(g, want) for g in ranks)
-    log(f"phase 14 fp32 {arch} ({TRUNK_FP32_LAYERS} layers, {TRUNK_B} rows "
+    depth = TRUNK_FP32_DEPTH.get(arch, TRUNK_FP32_LAYERS)
+    log(f"phase 14 fp32 {arch} ({depth} layers, {TRUNK_B} rows "
         f"x {TRUNK_FP32_STEPS} greedy steps, world {TRUNK_M} over gloo): "
         f"tokens identical to the one-device engine up to each row's first "
         f"near-tie (logit gap < {TRUNK_GAP} or router margin < "
@@ -3987,12 +4163,14 @@ def trunk_world(rank, n):
     import torch
     out = {}
     for arch, depth, max_len, P in TRUNK_ARCHS:
+        t0 = time.perf_counter()
         out[arch] = trunk_rank(rank, n, arch, depth, max_len, P)
         gc.collect()
         torch.cuda.empty_cache()
         out[arch]["fp32"] = trunk_fp32_greedy(rank, n, arch)[0]
         gc.collect()
         torch.cuda.empty_cache()
+        out[arch]["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -4111,21 +4289,26 @@ def paged_partial_rows(torch, np, H=15, K=5, Dh=64, sizes=(1, 8, 32)):
 def phase_trunk(torch, np):
     """Phase 14: trunk-sharded serving (`Engine(mesh, trunk_shard=True)`)
     of qwen1.5-0.5b (all 24 layers), qwen3-moe-30b-a3b (MOE_DEPTH
-    layers) and smollm-360m (all 32 layers; the sequence split) at full
-    width in bf16 over a 2-rank gloo world on the one card, against the
-    one-device engine on the same seeded weights; first the partial
-    paged kernel at smollm's rank-local pool. -> kernel rows."""
+    layers), smollm-360m (all 32 layers; the sequence split),
+    mamba2-370m (all 48 layers: w_in columns, conv channels, SSD heads)
+    and recurrentgemma-9b (the RG-LRU width; its local attention on the
+    sequence split) at full width in bf16 over a 2-rank gloo world on
+    the one card, against the one-device engine on the same seeded
+    weights; first the partial paged kernel at smollm's rank-local
+    pool. -> kernel rows."""
     from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
     partial = paged_partial_rows(torch, np)
     ones = {}
     for arch, depth, max_len, P in TRUNK_ARCHS:
+        t1 = time.perf_counter()
         ones[arch] = trunk_one_device(torch, arch, depth, max_len, P)
         trunk_launch_check(f"{arch} one device", ones[arch]["cfg"],
                            ones[arch], 1)
         ones[arch]["fp32"] = trunk_fp32_greedy(0, None, arch)
         gc.collect()
         torch.cuda.empty_cache()
+        ones[arch]["seconds"] = time.perf_counter() - t1
     log(f"[phase 14 one-device runs done at {time.perf_counter() - t0:.1f} "
         f"s]")
     worlds = spawn(TRUNK_M, trunk_world, TRUNK_M, backend="gloo",
@@ -4135,7 +4318,8 @@ def phase_trunk(torch, np):
         cfg = one["cfg"]
         want = one["first"]
         top = float(want.abs().max())
-        tol = TRUNK_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+        ulps = TRUNK_FAMILY_ULPS.get(arch, TRUNK_ULPS)
+        tol = ulps * 2.0 ** (math.floor(math.log2(top)) - 7)
         for r, res in enumerate(ranks):
             trunk_launch_check(f"{arch} rank {r}", cfg, res, TRUNK_M)
             rows = torch.ones(TRUNK_B, dtype=torch.bool)
@@ -4149,7 +4333,7 @@ def phase_trunk(torch, np):
                 raise AssertionError(
                     f"phase 14 {arch} rank {r}: first decode step's logits "
                     f"max abs err {err:.4e} over {held} rows, tolerance "
-                    f"{tol:.4e} ({TRUNK_ULPS} bf16 ulps at {top:.4f})")
+                    f"{tol:.4e} ({ulps} bf16 ulps at {top:.4f})")
             base = one["runs"]["dense"]
             ar = res["tally"].get("all-reduce", {})
             ag = res["tally"].get("all-gather", {})
@@ -4157,9 +4341,11 @@ def phase_trunk(torch, np):
             log(f"phase 14 {arch} ({depth or cfg.num_layers} layers) rank "
                 f"{r} ({res['backend']}, {res['device']}; local heads "
                 f"{res['local'][0]}/{res['local'][1]}, d_ff "
-                f"{res['local'][2]}): built in {res['build_s']:.1f} s; "
+                f"{res['local'][2]}): {res['seconds']:.1f} s in the world "
+                f"({one['seconds']:.1f} s one device), built in "
+                f"{res['build_s']:.1f} s; "
                 f"first decode step logits max abs err {err:.4e} over "
-                f"{held}/{TRUNK_B} rows (tolerance {tol:.4e}: {TRUNK_ULPS} "
+                f"{held}/{TRUNK_B} rows (tolerance {tol:.4e}: {ulps} "
                 f"bf16 ulps at {top:.4f}"
                 + ("; rows routed alike" if one["routes"] is not None
                    else "") + ")")
@@ -4171,7 +4357,19 @@ def phase_trunk(torch, np):
                     f"step{vs}; eos {run['eos']}, cut {run['cut']} (valid "
                     f"prefixes); launches {run['launches']}; flash heads "
                     f"{run['flash']}, paged heads {run['paged_heads']}")
-            got = res["runs"]["paged"]["partial_checked"]
+            for k, run in res["runs"].items():
+                if run["flash_checked"] is not None:
+                    n, shapes, e, e32 = run["flash_checked"]
+                    log(f"  flash_attention on the main path ({k}), held "
+                        f"against its plain version on the same inputs (the "
+                        f"last {len(shapes) and min(n, 16)} of {n} calls; "
+                        f"q, k shapes {shapes}): max abs err {e:.3e} bf16, "
+                        f"{e32:.3e} fp32")
+                elif run["launches"]["attention"]:
+                    raise AssertionError(f"phase 14 {arch} rank {r}: no "
+                                         f"flash_attention call kept in "
+                                         f"the {k} run")
+            got = res["runs"].get("paged", {}).get("partial_checked")
             if got is not None:
                 log(f"  paged_attention_partial on the main path, held "
                     f"against its plain version on the same inputs (one "
@@ -4182,14 +4380,15 @@ def phase_trunk(torch, np):
                         f"{eo32:.3e} lse {el32:.3e} fp32"
                         for S, (n, eo, el, eo32, el32, lv) in sorted(
                             got.items())))
-            if (got is not None) != (res["reach"] is not None):
+            if "paged" in res["runs"] and \
+                    (got is not None) != (res["reach"] is not None):
                 raise AssertionError(
                     f"phase 14 {arch} rank {r}: the paged run's partial "
                     f"kernel calls checked {got} against the sequence "
                     f"split {res['reach']}")
             if res["reach"] is not None:
                 log(f"  sequence split: positions {res['positions']} of "
-                    f"{max_len}, in-page offsets {res['offsets']}; live "
+                    f"{max_len}, in-page offsets {res.get('offsets')}; live "
                     f"positions of the first step's cache in the rank's "
                     f"share {res['first_live']} ({TRUNK_B} rows x {P + 1} "
                     f"positions fed); positions the runs fed into it "
@@ -4208,14 +4407,16 @@ def phase_trunk(torch, np):
                 f" B {dict(res['cost']['collectives'])}")
             log(f"  memory: params held {res['block_params']} B; held "
                 f"after build {res['held']} B (peak "
-                f"{res['built_peak']} B), run peak {res['peak']} B; trunk "
-                f"spec argument bytes params {est['params']}, decode caches "
-                f"{est['caches']}, page pools {est['pools']} (sum "
-                f"{sum(est.values())}); whole params {res['whole_params']}; "
-                f"one-device run peak {one['peak']} B")
+                f"{res['built_peak']} B), run peak {res['peak']} B; its "
+                f"blocks' params {est['params']} (the trunk specs' "
+                f"{res['spec_params']}: V / M vocab rows), decode caches "
+                f"by leaf {est['caches']}, page pools {est.get('pools')}; "
+                f"whole params {res['whole_params']}; one-device run peak "
+                f"{one['peak']} B")
             log(f"  the rank's dense caches of 8 slots hold "
-                f"{res['bytes']['caches']} B, its page pools "
-                f"{res['bytes']['pools']} B (as the runs build them)")
+                f"{res['bytes']['caches']} B by leaf (h: the recurrent "
+                f"state, conv: the conv cache), its page pools "
+                f"{res['bytes'].get('pools')} B (as the runs build them)")
             if res["block_params"] != est["params"] or \
                     not res["built_peak"] < res["whole_params"]:
                 raise AssertionError(
@@ -4224,7 +4425,7 @@ def phase_trunk(torch, np):
                     f"peak while building ({res['built_peak']} B) reaches "
                     f"the whole tree's {res['whole_params']} B")
             for k in ("caches", "pools"):
-                if res["bytes"][k] != est[k]:
+                if res["bytes"].get(k) != est.get(k):
                     raise AssertionError(
                         f"phase 14 {arch} rank {r}: its {k} hold "
                         f"{res['bytes'][k]} B, not the trunk specs' "

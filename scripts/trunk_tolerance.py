@@ -3,7 +3,7 @@ bf16, measured on the CPU (gloo ranks): the bound `chip_smoke.py` phase 14
 holds the card's first decode step to.
 
     PYTHONPATH=src python scripts/trunk_tolerance.py [--json out.json]
-        [--arch ARCH]
+        [--arch ARCH] [--own-noise DEPTH]
 
 For each case (a config, a depth, a width) it draws seeded weights,
 prefills 8 prompts of 16 tokens (32 where M = 2 does not divide the kv
@@ -15,7 +15,9 @@ the logits gathered), and prints the largest |difference| of the decode
 logits in bf16 ulps at the largest |logit| (the unit of the phase 11
 checks), over the rows whose last token every MoE layer routed to the
 same experts in both runs. The widths are `cfg.reduced()`'s (the CPU may
-not run a full-size config) and the full ones at two layers. The QKV
+not run a full-size config) and the full ones at a few layers (mamba2-370m
+at all 48; recurrentgemma-9b at 3, 6 and 9, whose ranks draw only their
+blocks, `Model.init(gen, cut=...)`, to bound the memory). The QKV
 biases (zeros in `Model.init`) are drawn at random, so that their columns
 matter.
 
@@ -27,10 +29,17 @@ rank's process: `ffn-no-all-reduce` drops the FFN's all-reduce,
 under the sequence split, `combine-no-lse` joins the ranks' partial
 attentions with equal weights instead of their log-sum-exp weights, and
 `other-rank-slots` has each rank's prefill write the positions of the
-other rank's share into its cache. Each
-line says whether phase 14's rule catches the case at BOUND ulps (fewer
-than half the rows routed alike, or more ulps than the bound): a sound
-case must not be caught, a faulty one must.
+other rank's share into its cache; in the recurrent layers,
+`norm-own-channels` takes the SSM's gated-norm statistic over the rank's
+own channels only, and `gates-own-channels` contracts the RG-LRU's gates
+over the rank's own conv channels only (the other ranks' as zeros).
+`two-reduces` is no fault: the SSM's norm in the reference's rounding
+order (its statistic all-reduced first, then the normalized w_out
+partial), against the port's one all-reduce. Each
+line says whether phase 14's rule catches the case at BOUND ulps
+(FAMILY_BOUND for mamba2 and recurrentgemma; fewer than half the rows
+routed alike, or more ulps than the bound): a sound case must not be
+caught, a faulty one must.
 """
 import argparse
 import json
@@ -40,6 +49,7 @@ import sys
 from dataclasses import replace
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
@@ -64,9 +74,22 @@ CASES = (("qwen1.5-0.5b", "reduced", 2, None),
          ("smollm-360m", "full", 2, "combine-no-lse"),
          ("smollm-360m", "full", 32, "combine-no-lse"),
          ("smollm-360m", "full", 2, "other-rank-slots"),
-         ("smollm-360m", "full", 32, "other-rank-slots"))
+         ("smollm-360m", "full", 32, "other-rank-slots"),
+         ("mamba2-370m", "full", 2, None),
+         ("mamba2-370m", "full", 8, None),
+         ("mamba2-370m", "full", 48, None),
+         ("mamba2-370m", "full", 48, "two-reduces"),
+         ("mamba2-370m", "full", 2, "norm-own-channels"),
+         ("mamba2-370m", "full", 48, "norm-own-channels"),
+         ("recurrentgemma-9b", "full", 3, None),
+         ("recurrentgemma-9b", "full", 6, None),
+         ("recurrentgemma-9b", "full", 9, None),
+         ("recurrentgemma-9b", "full", 3, "gates-own-channels"),
+         ("recurrentgemma-9b", "full", 6, "gates-own-channels"),
+         ("recurrentgemma-9b", "full", 9, "gates-own-channels"))
 BIAS_SCALE = 0.5
 BOUND = 16              # chip_smoke.py's TRUNK_ULPS
+FAMILY_BOUND = {"mamba2-370m": 64, "recurrentgemma-9b": 3}  # its own
 
 
 def config(arch, width, depth):
@@ -86,7 +109,7 @@ def routes_of(calls):
 
 def plant(fault):
     """Break this process's trunk split as `fault` says."""
-    from repro_torch.models import common, layers, moe
+    from repro_torch.models import common, layers, moe, rglru, ssm
     if fault == "ffn-no-all-reduce":
         ffn, reduce = layers.ffn, common.trunk_all_reduce
 
@@ -130,19 +153,52 @@ def plant(fault):
             finally:
                 layers._seq_split = split
         layers._self_attention_prefill = shifted
+    elif fault == "two-reduces":        # not a fault: another order
+        def two(params, y, z, dtype, tp):
+            r0, r1 = tp.ssm_rows
+            g = y * F.silu(z.float())
+            ss = ssm.trunk_all_reduce(torch.sum(torch.square(g), -1,
+                                                keepdim=True),
+                                      ssm.current_mesh())
+            var = ss / params["norm_w"].shape[-1]
+            yn = g * torch.rsqrt(var + ssm._NORM_EPS) * \
+                params["norm_w"][r0:r1].float()
+            return ssm.trunk_all_reduce(yn.to(dtype) @ params["w_out"],
+                                        ssm.current_mesh())
+        ssm._out = two
+    elif fault == "norm-own-channels":
+        def own_norm(params, y, z, dtype, tp):
+            r0, r1 = tp.ssm_rows
+            y = ssm._gated_norm(y, z, params["norm_w"][r0:r1]).to(dtype)
+            return ssm.trunk_all_reduce(y @ params["w_out"],
+                                        ssm.current_mesh())
+        ssm._out = own_norm
+    elif fault == "gates-own-channels":
+        def own_channels(x, widths, mesh):
+            r = common.current_trunk().rank
+            pad = [torch.zeros_like(x)] * len(widths)
+            pad[r] = x
+            return torch.cat(pad, -1)
+        rglru.all_gather_last = own_channels
     elif fault is not None:
         raise ValueError(f"unknown fault {fault!r}")
 
 
-def with_biases(params):
-    """The tree with seeded random QKV biases in place of the zeros."""
-    from repro_torch.distributed.sharding import map_with_path
+def with_biases(params, cut=None, whole=None):
+    """The tree with seeded random QKV biases in place of the zeros; a
+    rank's blocks (`cut` of each leaf of the `whole` tree) get their cut
+    of the whole tree's draws."""
+    from repro_torch.distributed.sharding import (leaves_with_path,
+                                                  map_with_path)
     g = torch.Generator().manual_seed(2)
+    shapes = {p: tuple(t.shape) for p, t in leaves_with_path(whole)} \
+        if whole is not None else None
 
     def draw(path, t):
         if path.endswith(("['bq']", "['bk']", "['bv']")):
-            return (BIAS_SCALE * torch.randn(t.shape, generator=g)).to(
-                t.dtype)
+            shape = tuple(t.shape) if shapes is None else shapes[path]
+            b = (BIAS_SCALE * torch.randn(shape, generator=g)).to(t.dtype)
+            return b if cut is None else b[cut(path, shape)]
         return t
     return map_with_path(draw, params)
 
@@ -162,14 +218,22 @@ def run(rank, n, arch, width, depth, fault=None):
     from repro_torch.core.tokenizer import ByteTokenizer
     from repro_torch.distributed.api import (all_gather_last, current_mesh,
                                              current_trunk)
+    from repro_torch.distributed.sharding import trunk_slice, vocab_shard
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import layers
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
     cfg = config(arch, width, depth)
     model = build_model(cfg, device="cpu")
-    params = with_biases(model.init(torch.Generator().manual_seed(0)))
+    gen = torch.Generator().manual_seed(0)
     mesh = None if n is None else make_serving_mesh(n, device="cpu")
+    if mesh is None:
+        params = with_biases(model.init(gen))
+    else:               # the rank's blocks only
+        vs = vocab_shard(cfg.vocab_size, n, mesh.rank)
+        cut = lambda p, shape: trunk_slice(p, shape, mesh, mesh.rank, vs)
+        params = with_biases(model.init(gen, cut=cut), cut,
+                             model.abstract_params())
     eng = Engine(model, params, ByteTokenizer(cfg.vocab_size), {},
                  max_len=64, slots=B, device="cpu", mesh=mesh,
                  trunk_shard=True)
@@ -213,14 +277,51 @@ def measure(arch, width, depth, fault):
     return {"arch": arch, "width": width, "depth": depth, "fault": fault,
             "max_abs_err": worst, "largest_logit": top,
             "ulps": worst / ulp, "rows_held": held, "rows": B,
-            "caught": held < B // 2 or worst / ulp > BOUND}
+            "caught": held < B // 2 or
+            worst / ulp > FAMILY_BOUND.get(arch, BOUND)}
+
+
+def own_noise(arch, depth):
+    """The one-device bf16 model's own distance from its fp32 twin (the
+    same weights upcast; no split), in the same unit: what bf16 alone
+    does at this depth."""
+    from repro_torch.distributed.sharding import map_with_path
+    from repro_torch.models.model import build_model
+    torch.set_num_threads(4)
+    cfg = config(arch, "full", depth)
+    model = build_model(cfg, device="cpu")
+    params = with_biases(model.init(torch.Generator().manual_seed(0)))
+    g = torch.Generator().manual_seed(1)
+    n_p = prompt_len(cfg)
+    toks = torch.randint(3, cfg.vocab_size, (B, n_p + 1), generator=g,
+                         dtype=torch.int32)
+    out = []
+    for m, p in ((model, params), (build_model(replace(
+            cfg, dtype="float32"), device="cpu"),
+            map_with_path(lambda _, t: t.float(), params))):
+        with torch.no_grad():
+            _, c = m.prefill(p, {"tokens": toks[:, :n_p]}, cache_len=64,
+                             true_len=n_p)
+            out.append(m.decode_step(p, c, toks[:, n_p], torch.full(
+                (B,), n_p, dtype=torch.int32))[0].float())
+    top = float(out[0].abs().max())
+    err = float((out[0] - out[1]).abs().max())
+    return {"arch": arch, "depth": depth, "own_noise_vs_fp32": err,
+            "largest_logit": top,
+            "ulps": err / 2.0 ** (math.floor(math.log2(top)) - 7)}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None)
     ap.add_argument("--arch", default=None, help="only this config's cases")
+    ap.add_argument("--own-noise", type=int, default=None, metavar="DEPTH",
+                    help="print --arch's one-device bf16 distance from its "
+                         "fp32 twin at DEPTH layers and stop")
     args = ap.parse_args()
+    if args.own_noise:
+        print(json.dumps(own_noise(args.arch, args.own_noise)), flush=True)
+        return
     out = []
     for arch, width, depth, fault in CASES:
         if args.arch not in (None, arch):

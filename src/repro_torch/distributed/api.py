@@ -7,7 +7,8 @@ is split (the embedding lookup's combine, `models/common.py::
 embed_tokens`) and `current_trunk()` what of the trunk this rank holds
 (`distributed/sharding.py::TrunkPlan`: the row-parallel all-reduces in
 `common.attn_out`/`common.ffn`, the QKV bias columns, the expert block in
-`models/moe.py`). The context is per thread, as the reference's is: an
+`models/moe.py`, the channel blocks in `models/ssm.py` and
+`models/rglru.py`). The context is per thread, as the reference's is: an
 engine enters it around each device call, on whatever thread runs the
 step loop. The reference's context also carries the logical-name rules
 that `shard_hint` reads; here `shard_hint(x, name)` is the identity, so
@@ -23,14 +24,16 @@ The collectives of sharded serving, over the mesh's process group
   * `all_gather_last`: blocks joined on the last dim, each padded to the
     widest block for the collective and trimmed after: the masked
     logits before the selection, and under trunk_shard the MoE router's
-    expert columns;
+    expert columns, the SSM's in-projection and conv output channels
+    and the RG-LRU's conv output (the gates contract over all of R);
   * `all_gather_stack` (trunk_shard, the sequence split): every rank's
     equal-shaped tensor, stacked in rank order: the q/k/v column blocks
     joined into whole heads, and the partial attention outputs with
     their log-sum-exp before the combine;
   * `trunk_all_reduce` (trunk_shard): the SUM of the ranks' partial
     row-parallel products (attention out, FFN down, the experts'
-    combine), not exact: the sum runs in another order than the
+    combine, the recurrent layers' w_out; the SSM's carries its gated
+    norm's sum of squares beside the partial), not exact: the sum runs in another order than the
     one-device product's;
   * `broadcast_control`: the step loop's per-iteration record of what
     rank 0 decided (admissions, cancellations, deadlines, hot loads),

@@ -104,6 +104,13 @@ after its all-gather. The collectives counted, each where it falls:
   * in decode against a cache whose sequence dim is on "model", the
     all-reduce that joins the partial attention outputs, and the argmax
     combine of the served token over the vocab shards.
+The recurrent kinds split as their leaves do: the SSM's w_in columns,
+conv channels, state heads and w_out rows, the RG-LRU's R (its
+projections, conv, gates, state and w_out), each by its own rule; their
+row-parallel w_out ends in the all-reduce above. The port's trunk-sharded
+engine issues more than that count: it joins the column blocks a rank
+needs from the others by all-gathers (`models/ssm.py`, `models/rglru.py`;
+the tests pin the difference).
 These per-device figures are estimates: nobody can compile the 256-device
 program the reference counts (its own 8-device test fails for 4 archs).
 The tests hold them to hand-worked cases.
@@ -120,7 +127,7 @@ from collections import defaultdict
 from dataclasses import dataclass
 
 from .sharding import (_div, _dp, cache_specs, data_axes, leaves_with_path,
-                       needs_fsdp, opt_state_specs, param_specs)
+                       needs_fsdp, opt_state_specs, param_specs, ring_len)
 
 # ------------------------------- ring factors -------------------------------
 
@@ -198,7 +205,11 @@ class _Tally:
                               self.remat, dead, norm, bwd, grads))
 
     def collective(self, kind, result_bytes, n, count=1):
-        if n <= 1 or count == 0:
+        """`count` collectives of `kind` over n devices, each with a
+        result of `result_bytes` (none when nothing is split: n 1 or 0
+        bytes, e.g. the all-reduce after a product whose contraction no
+        rule splits)."""
+        if n <= 1 or count == 0 or result_bytes == 0:
             return
         d = self.coll[kind]
         d["count"] += count
@@ -405,7 +416,7 @@ class _Walk:
         hw = self.dw * self.t.split(Hs)
         if self.mode == "decode":
             self.t.dot("ssm.conv", B * (Din + 2 * N), cfg.conv_kernel,
-                       ways=self.dw)
+                       ways=self.dw * self.t.split(Din + 2 * N))
             self.t.dot("ssm.y", B * Hs * P, N, ways=hw)
         else:
             Q = min(cfg.ssm_chunk, S)
@@ -547,13 +558,6 @@ def _tree_bytes(tree, specs=None, mesh=None):
 
 # ------------------------------- the calls ---------------------------------
 
-def _ring_len(cfg, cache_len: int) -> int:
-    """Positions an attention ring holds (`Model.init_decode_caches`)."""
-    w = cfg.local_window if cfg.arch_type == "hybrid" else \
-        cfg.sliding_window
-    return min(cache_len, w) if w else cache_len
-
-
 def _n_self_attn(cfg) -> int:
     """Layers with a self-attention KV cache (attn, moe, dec)."""
     from ..models.model import layer_groups
@@ -601,7 +605,7 @@ def span_decode(cfg, B: int, K: int, cache_len: int, mesh=None,
                 vocab=None):
     """One `Model.decode_span` of K tokens a row against dense caches
     (the speculative verify and the dense prefill chunks)."""
-    L = _ring_len(cfg, cache_len)
+    L = ring_len(cfg, cache_len)
     from ..models.model import Model
     caches = Model(cfg, device="meta").init_decode_caches(B, cache_len)
     t, w = _forward(cfg, "decode", B, K, mesh, vocab, cache=L)

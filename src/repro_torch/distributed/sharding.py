@@ -467,10 +467,19 @@ def vocab_slice(path_str: str, shape, shard: VocabShard) -> tuple:
 
 # ------------------------------ the trunk split -----------------------------
 
-# the layer kinds a rank runs over its block of the trunk; the others
-# refuse trunk_shard (their leaves split on state or channel dims that
-# need collectives the port does not issue)
-TRUNK_KINDS = ("attn", "moe")
+# the layer kinds a rank runs over its block of the trunk; the others (the
+# vlm's cross, the audio family's enc and dec) refuse trunk_shard
+TRUNK_KINDS = ("attn", "moe", "ssm", "rec")
+
+
+def ring_len(cfg, cache_len: int) -> int:
+    """Positions an attention layer's dense cache holds in an engine of
+    `cache_len` positions: min(cache_len, window), where the window is
+    the hybrid's `local_window` (its attention layers are local) or else
+    `sliding_window` (0: none)."""
+    w = cfg.local_window if cfg.arch_type == "hybrid" else \
+        cfg.sliding_window
+    return min(cache_len, w) if w else cache_len
 
 
 @dataclass(frozen=True)
@@ -496,7 +505,16 @@ class TrunkPlan:
     gathers whole q/k/v heads (one all-gather), attends over its own
     positions (a partial attention with its log-sum-exp) and joins the
     partials (one all-gather); wo's rows `wo_rows` (None: whole) take
-    the rank's columns of the joined output."""
+    the rank's columns of the joined output.
+
+    The recurrent kinds keep their widths in `local_config` and run over
+    blocks (start, stop), each None where the rule leaves its leaves
+    whole. ssm (Mamba2): `ssm_in`, w_in's columns of [z | xBC | dt];
+    `ssm_conv`, the xBC channels of conv_w and of the conv cache;
+    `ssm_heads`, the state's heads; `ssm_rows`, w_out's rows (the heads'
+    channels whenever the heads split). rec (RG-LRU): `rec_width`, the
+    block of R that w_gelu, w_rec, conv_w, w_a and w_i (columns), the
+    state and the conv cache (channels) and w_out (rows) all take."""
     size: int
     rank: int
     heads: int
@@ -511,6 +529,11 @@ class TrunkPlan:
     wo_rows: Optional[tuple] = None
     positions: Optional[tuple] = None
     offsets: Optional[tuple] = None
+    ssm_in: Optional[tuple] = None
+    ssm_conv: Optional[tuple] = None
+    ssm_heads: Optional[tuple] = None
+    ssm_rows: Optional[tuple] = None
+    rec_width: Optional[tuple] = None
 
     @property
     def split(self) -> bool:
@@ -520,8 +543,9 @@ class TrunkPlan:
     def local_config(self, cfg):
         """The rank-local view of `cfg` its layers run over: its q and kv
         heads (all of them under the sequence split), its share of d_ff;
-        head_dim, the expert count, the expert width and the vocabulary
-        stay whole (routing and capacity read the global E)."""
+        head_dim, the expert count, the expert width, the vocabulary and
+        the recurrent widths stay whole (routing and capacity read the
+        global E; the recurrent layers read their blocks from the plan)."""
         kw = dict(num_heads=self.heads, num_kv_heads=self.kv_heads,
                   head_dim=cfg.resolved_head_dim, d_ff=self.d_ff)
         if cfg.num_experts:
@@ -546,16 +570,64 @@ def _block(spec, shape, mesh, rank, dim):
     return sl.start, sl.stop
 
 
+def _recurrent_blocks(cfg, kinds, mesh, rank, where) -> dict:
+    """The ssm and rec blocks of `TrunkPlan`, each read from its leaf's
+    rule (a one-layer stacked param, a one-layer one-row cache)."""
+    D, Kc = cfg.d_model, cfg.conv_kernel
+
+    def param(kind, name, shape, dim):
+        shape = (1, *shape)
+        return _block(param_spec(f"['groups'][0][0]['{kind}']['{name}']",
+                                 shape, mesh), shape, mesh, rank, dim + 1)
+
+    def cache(name, shape, dim):
+        shape = (1, 1, *shape)
+        return _block(cache_spec(f"['{name}']", shape, mesh), shape, mesh,
+                      rank, dim + 2)
+    out = {}
+    if "ssm" in kinds:
+        Din, N, Hs, P = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
+                         cfg.ssm_head_dim)
+        C = Din + 2 * N
+        conv = param("ssm", "conv_w", (Kc, C), 1)
+        heads = cache("h", (Hs, N, P), 0)
+        rows = param("ssm", "w_out", (Din, D), 0)
+        if cache("conv", (Kc - 1, C), 1) != conv or heads is not None and \
+                rows != (heads[0] * P, heads[1] * P):
+            raise ValueError(f"{where}: the ssm's conv_w and conv cache, or "
+                             f"its state heads and w_out rows, split "
+                             f"unlike each other (not served)")
+        out.update(ssm_in=param("ssm", "w_in", (D, 2 * Din + 2 * N + Hs),
+                                1), ssm_conv=conv, ssm_heads=heads,
+                   ssm_rows=rows)
+    if "rec" in kinds:
+        R = cfg.lru_dim
+        blocks = {"w_gelu": param("rec", "w_gelu", (D, R), 1),
+                  "w_rec": param("rec", "w_rec", (D, R), 1),
+                  "conv_w": param("rec", "conv_w", (Kc, R), 1),
+                  "w_a": param("rec", "w_a", (R, R), 1),
+                  "w_i": param("rec", "w_i", (R, R), 1),
+                  "w_out": param("rec", "w_out", (R, D), 0),
+                  "h": cache("h", (R,), 0),
+                  "conv": cache("conv", (Kc - 1, R), 1)}
+        if len(set(blocks.values())) > 1:
+            raise ValueError(f"{where}: the rec leaves split R unlike each "
+                             f"other {blocks} (not served)")
+        out["rec_width"] = blocks["w_out"]
+    return out
+
+
 def trunk_plan(cfg, M: int, rank: int = 0, cache_len=None,
                page_size=None) -> TrunkPlan:
     """The trunk split of `cfg` over M ranks. At M = 1 nothing is split.
-    `cache_len` is the dense caches' length (max_len, or a smaller
-    window) and `page_size` the pools' page, each when the engine holds
-    such caches. Above M = 1, raises ValueError (naming the config, M
-    and the dimension) for a split the port does not serve: a layer kind
-    other than attn and moe (the ssm, hybrid, vlm and audio families),
-    or, when M does not divide the kv heads, a cache length or page size
-    that M does not divide either (the reference's rule then splits
+    `cache_len` is the attention layers' dense caches' length (max_len,
+    or a smaller window: `serving_trunk_plan`) and `page_size` the
+    pools' page, each when the engine holds such caches. Above M = 1,
+    raises ValueError (naming the config, M and the dimension) for a
+    split the port does not serve: a layer kind other than attn, moe, ssm
+    and rec (the vlm and audio families), or, where attention layers are
+    present and M does not divide the kv heads, a cache length or page
+    size that M does not divide either (the reference's rule then splits
     head_dim or replicates the cache: `cache_spec`)."""
     M = int(M)
     if M < 1:
@@ -564,24 +636,27 @@ def trunk_plan(cfg, M: int, rank: int = 0, cache_len=None,
     if M == 1:
         return TrunkPlan(1, 0, H, K, F, E, False, False)
     where = f"trunk_shard: {cfg.name} at M = {M}"
-    other = sorted(_trunk_kinds(cfg) - set(TRUNK_KINDS))
+    kinds = _trunk_kinds(cfg)
+    other = sorted(kinds - set(TRUNK_KINDS))
     if other:
         raise ValueError(f"{where}: layer kinds {other} ({cfg.arch_type}) "
                          f"are not trunk-sharded; the port splits only "
                          f"{TRUNK_KINDS}")
     mesh = MeshShape({"data": 1, "model": M}, ("data", "model"))
+    ff, ex = F % M == 0, bool(E) and E % M == 0
+    own = dict(d_ff=F // M if ff else F, experts=E // M if ex else E,
+               ff_split=ff, experts_split=ex,
+               **_recurrent_blocks(cfg, kinds, mesh, rank, where))
+    if not kinds & {"attn", "moe"}:
+        return TrunkPlan(M, int(rank), H, K, **own)
     D, Dh = cfg.d_model, cfg.resolved_head_dim
     col = lambda name, n: _block(param_spec(
         f"['groups'][0][0]['attn']['{name}']", (1, D, n), mesh),
         (1, D, n), mesh, rank, 2)
-    q_cols, kv_cols = col("wq", H * Dh), col("wk", K * Dh)
     wo = (1, H * Dh, D)
-    wo_rows = _block(param_spec("['groups'][0][0]['attn']['wo']", wo, mesh),
-                     wo, mesh, rank, 1)
-    ff, ex = F % M == 0, bool(E) and E % M == 0
-    own = dict(d_ff=F // M if ff else F, experts=E // M if ex else E,
-               ff_split=ff, experts_split=ex, q_cols=q_cols,
-               kv_cols=kv_cols, wo_rows=wo_rows)
+    own.update(q_cols=col("wq", H * Dh), kv_cols=col("wk", K * Dh),
+               wo_rows=_block(param_spec("['groups'][0][0]['attn']['wo']",
+                                         wo, mesh), wo, mesh, rank, 1))
     cache = lambda n: (1, 1, n, K, Dh)
     if cache_spec("['k']", cache(1), mesh)[3] == "model":   # kv heads
         return TrunkPlan(M, int(rank), H // M, K // M, **own)
@@ -605,11 +680,11 @@ def trunk_plan(cfg, M: int, rank: int = 0, cache_len=None,
 def serving_trunk_plan(cfg, M: int, rank: int, max_len: int,
                        page_size=None) -> TrunkPlan:
     """`trunk_plan` for a serving engine of `max_len` positions: its
-    dense caches hold min(max_len, window) positions, its pools pages of
-    `page_size` (None: not paged)."""
-    w = cfg.sliding_window
-    return trunk_plan(cfg, M, rank, cache_len=min(max_len, w) if w else
-                      max_len, page_size=page_size)
+    dense attention caches hold `ring_len(cfg, max_len)` positions (the
+    hybrid's local window, as `Model.init_decode_caches` sizes them),
+    its pools pages of `page_size` (None: not paged)."""
+    return trunk_plan(cfg, M, rank, cache_len=ring_len(cfg, max_len),
+                      page_size=page_size)
 
 
 def trunk_slice(path_str: str, shape, mesh, rank: int,

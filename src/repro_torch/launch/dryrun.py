@@ -82,7 +82,8 @@ from ..configs import all_configs, get_config
 from ..distributed import cost
 from ..distributed.sharding import (_div, _dp, batch_specs, cache_specs,
                                     leaves_with_path, needs_fsdp,
-                                    opt_state_specs, param_specs, shard_slice)
+                                    opt_state_specs, param_specs, ring_len,
+                                    shard_slice)
 from ..models.model import Model
 from .mesh import (HBM_BW, HBM_BYTES, NVLINK_BW, PEAK_FLOPS_BF16,
                    make_production_mesh)
@@ -181,7 +182,7 @@ def temp_bytes(cfg, mode, B, S, mesh, microbatch=1,
     V = cfg.vocab_size
     mv = t.split(V)
     if mode == "decode":
-        L = cost._ring_len(cfg, S)
+        L = ring_len(cfg, S)
         return B / dw * (2 * V / mv * 4 + (H / mh * L * 4 if H else 0))
     Bd = B / dw / max(1, microbatch)
     T = Bd * S

@@ -36,9 +36,13 @@ heads where N divides them (syncode-demo, qwen1.5-0.5b, internlm2-1.8b,
 deepseek-coder-33b, qwen3-moe-30b-a3b and kimi-k2-1t-a32b at N = 2 and
 4), else by the caches' positions and each page's offsets (smollm-360m's
 5 kv heads at N = 2 and 4; syncode-demo's and qwen3-moe's 4 at N = 8),
-where N must divide `build_engine`'s max_len (512 here) and, paged,
-`--page-size`. It refuses the rest with a ValueError (such a length;
-the ssm, hybrid, vlm and audio families).
+where N must divide `build_engine`'s max_len (512 here; the attention
+ring, min(max_len, local_window), for recurrentgemma) and, paged,
+`--page-size`. It takes the ssm and hybrid configs too (mamba2-370m,
+recurrentgemma-9b: w_in columns, conv channels, SSD heads, the RG-LRU
+width, with the gathers `models/ssm.py` and `models/rglru.py` name),
+dense and `--sequential`. It refuses the rest with a ValueError (such a
+length; the vlm and audio families).
 
 Weights are random, drawn from `--seed` by a torch.Generator on the
 device, or loaded with `--checkpoint` from a msgpack checkpoint that
@@ -200,8 +204,9 @@ def main(argv=None):
                          "and page pools (Megatron column/row blocks with "
                          "all-reduces, kv heads, experts; where N does not "
                          "divide the kv heads, the caches' positions and "
-                         "each page's offsets, N dividing --page-size); "
-                         "dense and MoE configs, others raise")
+                         "each page's offsets, N dividing --page-size; "
+                         "the ssm's and RG-LRU's channel blocks); dense, "
+                         "MoE, ssm and hybrid configs, others raise")
     args = ap.parse_args(argv)
     if args.mesh is None:
         _serve(None, args)

@@ -65,7 +65,8 @@ from .rglru import init_rglru_cache
 from .ssm import init_ssm_cache
 from ..device import resolve_device
 from ..distributed.api import current_trunk
-from ..distributed.sharding import leaves_with_path, map_with_path
+from ..distributed.sharding import (leaves_with_path, map_with_path,
+                                    ring_len)
 
 LB_COEF = 0.01
 Z_COEF = 0.001
@@ -357,14 +358,14 @@ class Model:
     # ------------------------- cache construction ------------------------
     def init_decode_caches(self, batch_size: int, cache_len: int):
         """Zero caches shaped for decode (the serving engine's slot pool);
-        attention rings hold min(cache_len, window) positions (a rank's
-        share of them under a trunk-sharded engine's sequence split, as
-        `init_kv_cache` reads it)."""
+        attention rings hold `ring_len(cfg, cache_len)` positions (a
+        rank's share of them under a trunk-sharded engine's sequence
+        split, as `init_kv_cache` reads it), and under a trunk split the
+        recurrent caches hold the rank's SSD heads or RG-LRU width and
+        its conv channels (`init_ssm_cache`, `init_rglru_cache`)."""
         cfg = self.cfg
         dtype, dev = dtype_of(cfg), self.device
-        w = cfg.local_window if cfg.arch_type == "hybrid" else \
-            cfg.sliding_window
-        L = min(cache_len, w) if w else cache_len
+        L = ring_len(cfg, cache_len)
 
         def one(kind, lead):
             if kind in ("attn", "moe"):

@@ -20,12 +20,24 @@ positions, on an NVIDIA H100 80GB HBM3 at 700.00 W (`chip_smoke.py`
 phase 8; PERF.md §5).
 Decode is the O(1) update; it writes `h` and `conv` into the cache dict
 it is given IN PLACE and returns the same dict.
+
+Under a trunk-sharded engine (`distributed.api.current_trunk()`) a rank
+holds the block `rec_width` of R of every leaf the reference's rules
+split on it: w_gelu's, w_rec's, conv_w's, w_a's and w_i's columns, w_out's
+rows, the state's and the conv cache's channels (b_a, b_i and lam stay
+whole). u, v and the conv run on the rank's width; the gates contract
+over the whole of R, so one all-gather joins the ranks' conv outputs;
+the scan and the state run on the rank's width, and one all-reduce sums
+the w_out partials: two collectives a layer (the `rec` layer's FFN adds
+its own all-reduce, `common.ffn`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.api import (all_gather_last, current_mesh, current_trunk,
+                               trunk_all_reduce)
 from .common import dense_init
 
 _C = 8.0
@@ -56,12 +68,29 @@ def _causal_conv(x, w, b):
     return out + b
 
 
-def _gates(params, x):
-    """x [.., R] -> (a, b) in fp32."""
+def _width(cfg):
+    """(plan, this rank's block [r0, r1) of R) under a trunk split of R;
+    (None, the whole R) otherwise."""
+    tp = current_trunk()
+    if tp is None or tp.rec_width is None:
+        return None, (0, cfg.lru_dim)
+    return tp, tp.rec_width
+
+
+def _gates(params, x, tp, cols):
+    """x [.., R] -> (a, b) in fp32 at the channels `cols` of R (all of
+    them unsplit). Under a trunk split of R (`tp`) x holds the rank's
+    channels: they are joined into the whole row for the w_a and w_i
+    contractions (one all-gather)."""
     xf = x.float()
-    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"])
-    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"])
-    log_a = -_C * F.softplus(params["lam"]) * r
+    xw = xf
+    if tp is not None:
+        xw = all_gather_last(x, (cols[1] - cols[0],) * tp.size,
+                             current_mesh()).float()
+    c = slice(*cols)
+    r = torch.sigmoid(xw @ params["w_a"].float() + params["b_a"][..., c])
+    i = torch.sigmoid(xw @ params["w_i"].float() + params["b_i"][..., c])
+    log_a = -_C * F.softplus(params["lam"][..., c]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) * \
         (i * xf)
@@ -91,13 +120,20 @@ def rglru_prefill(params, x, cfg):
     return _rglru_forward(params, x, cfg, return_state=True)
 
 
+def _out(y, params, tp):
+    """y @ w_out, its partials all-reduced under a trunk split of R."""
+    y = y @ params["w_out"]
+    return y if tp is None else trunk_all_reduce(y, current_mesh())
+
+
 def _rglru_forward(params, x, cfg, return_state: bool):
+    tp, (r0, r1) = _width(cfg)
     u = F.gelu(x @ params["w_gelu"], approximate="tanh")
     v_raw = x @ params["w_rec"]
-    v = _causal_conv(v_raw, params["conv_w"], params["conv_b"])
-    a, b = _gates(params, v)
+    v = _causal_conv(v_raw, params["conv_w"], params["conv_b"][..., r0:r1])
+    a, b = _gates(params, v, tp, (r0, r1))
     h = linear_scan(a, b)                            # [B,S,R] fp32
-    y = (u.float() * h).to(x.dtype) @ params["w_out"]
+    y = _out((u.float() * h).to(x.dtype), params, tp)
     if not return_state:
         return y, None
     K = cfg.conv_kernel - 1
@@ -108,7 +144,10 @@ def _rglru_forward(params, x, cfg, return_state: bool):
 
 
 def init_rglru_cache(cfg, batch, dtype, device, lead=()):
-    R = cfg.lru_dim
+    """{"h": [*lead, batch, R] fp32, "conv": [*lead, batch, K-1, R]}: R the
+    rank's width under a trunk split."""
+    _, (r0, r1) = _width(cfg)
+    R = r1 - r0
     return {
         "h": torch.zeros((*lead, batch, R), dtype=torch.float32,
                          device=device),
@@ -119,15 +158,17 @@ def init_rglru_cache(cfg, batch, dtype, device, lead=()):
 
 def rglru_decode(params, x, cache, cfg):
     """x [B,1,D] -> ([B,1,D], cache written in place)."""
+    tp, (r0, r1) = _width(cfg)
     u = F.gelu(x[:, 0] @ params["w_gelu"], approximate="tanh")
     v_raw = x[:, 0] @ params["w_rec"]
     hist = torch.cat([cache["conv"],
                       v_raw[:, None, :].to(cache["conv"].dtype)], dim=1)
     v = torch.einsum("bkc,kc->bc", hist.float(),
-                     params["conv_w"].float()) + params["conv_b"].float()
-    a, b = _gates(params, v)
+                     params["conv_w"].float()) + \
+        params["conv_b"][r0:r1].float()
+    a, b = _gates(params, v, tp, (r0, r1))
     h = a * cache["h"] + b
-    y = ((u.float() * h).to(x.dtype) @ params["w_out"])[:, None, :]
+    y = _out((u.float() * h).to(x.dtype), params, tp)[:, None, :]
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:])
     return y, cache

@@ -16,13 +16,35 @@ Layout: d_inner = expand * d_model, heads Hs = d_inner / ssm_head_dim
 (P), state N = cfg.ssm_state, one B/C group. Decode writes the new `h`
 and `conv` into the cache dict it is given IN PLACE (the model's decode
 loop hands in views of the stacked cache) and returns the same dict.
+
+Under a trunk-sharded engine (`distributed.api.current_trunk()`, the
+plan's `ssm_*` blocks, each None where the reference's rule leaves the
+leaf whole) a rank holds w_in's columns `ssm_in` of [z | xBC | dt],
+conv_w's and the conv cache's xBC channels `ssm_conv`, the state's heads
+`ssm_heads` and w_out's rows `ssm_rows`; norm_w, conv_b, A_log, D and
+dt_bias stay whole. A layer then issues three collectives when every
+block splits (mamba2-370m at M = 2, 4, 8): one all-gather joins the
+ranks' projection columns into the whole [z | xBC | dt] (a rank's conv
+channels and heads need columns other ranks project), one joins the
+conv outputs into the whole xBC (a rank's heads read every B and C
+channel), and one all-reduce carries [the unscaled w_out partial | the
+gated norm's fp32 sum of squares]: the norm's scale is one number a row,
+so it multiplies the summed partials after the reduce, and the norm over
+the whole d_inner costs no collective of its own. A whole leaf drops its
+gather; with the heads whole the rank normalizes the whole y itself and
+the all-reduce carries the partial alone (none when w_out is whole).
+The rank's cache holds its heads' state and its conv channels.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.api import (all_gather_last, current_mesh, current_trunk,
+                               trunk_all_reduce)
 from .common import dense_init
+
+_NORM_EPS = 1e-6        # the gated norm's, as the reference's
 
 
 def init_ssm(gen, cfg, dtype, lead=()):
@@ -54,6 +76,54 @@ def _split_proj(cfg, proj):
     return z, xBC, dt
 
 
+def _blocks(cfg):
+    """(this rank's plan under a trunk split, else None; its conv
+    channels [c0, c1); its heads [h0, h1)), the ranges whole where the
+    plan leaves them so."""
+    tp = current_trunk()
+    conv, heads = (0, cfg.ssm_inner + 2 * cfg.ssm_state), (0, cfg.ssm_heads)
+    if tp is None:
+        return None, conv, heads
+    return tp, tp.ssm_conv or conv, tp.ssm_heads or heads
+
+
+def _whole(y, tp, block):
+    """y holding the rank's columns of the plan's `block` (ssm_in or
+    ssm_conv) joined with the other ranks' into the whole last dim (one
+    all-gather of equal blocks); y itself when the leaf is whole."""
+    span = None if tp is None else getattr(tp, block)
+    if span is None:
+        return y
+    return all_gather_last(y, (span[1] - span[0],) * tp.size,
+                           current_mesh())
+
+
+def _out(params, y, z, dtype, tp):
+    """The gated norm over the whole d_inner, then w_out. y [.., n] holds
+    the SSD output of the rank's heads (all of them unsplit), z [.., n]
+    the gate of the same channels. Under a trunk split of the heads (so
+    of w_out's rows, the same channels) one all-reduce sums [the w_out
+    partial of the unscaled (y silu(z)) norm_w | its sum of squares]
+    and the norm's scale multiplies the sum; else y is whole, normalized
+    as one device does, and w_out's rows, when split, give a partial
+    sum, all-reduced."""
+    if tp is None or tp.ssm_heads is None:
+        y = _gated_norm(y, z, params["norm_w"]).to(dtype)
+        rows = None if tp is None else tp.ssm_rows
+        if rows is None:
+            return y @ params["w_out"]
+        return trunk_all_reduce(y[..., rows[0]:rows[1]] @ params["w_out"],
+                                current_mesh())
+    r0, r1 = tp.ssm_rows
+    g = y * F.silu(z.float())
+    part = (g * params["norm_w"][r0:r1].float()).to(dtype) @ params["w_out"]
+    red = trunk_all_reduce(torch.cat(
+        [part.float(), torch.sum(torch.square(g), dim=-1, keepdim=True)],
+        -1), current_mesh())
+    var = red[..., -1:] / params["norm_w"].shape[-1]
+    return (red[..., :-1] * torch.rsqrt(var + _NORM_EPS)).to(dtype)
+
+
 def _causal_conv_train(xBC, w, b):
     """Depthwise causal conv over seq. xBC [B,S,C], w [K,C]."""
     K, S = w.shape[0], xBC.shape[1]
@@ -62,7 +132,7 @@ def _causal_conv_train(xBC, w, b):
     return F.silu(out + b)
 
 
-def _gated_norm(y, z, w, eps=1e-6):
+def _gated_norm(y, z, w, eps=_NORM_EPS):
     y = y * F.silu(z.float())
     var = torch.mean(torch.square(y), dim=-1, keepdim=True)
     return y * torch.rsqrt(var + eps) * w.float()
@@ -81,20 +151,25 @@ def ssm_prefill(params, x, cfg):
 
 def _ssd_forward(params, x, cfg, return_state: bool):
     B, S, D = x.shape
-    Din, N, Hs, P = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
-                     cfg.ssm_head_dim)
+    Din, N, P = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim
     Q = min(cfg.ssm_chunk, S)
     assert S % Q == 0, (S, Q)
     nch = S // Q
+    tp, (c0, c1), (h0, h1) = _blocks(cfg)
+    Hs = h1 - h0                                            # the rank's
 
-    proj = x @ params["w_in"]
+    proj = _whole(x @ params["w_in"], tp, "ssm_in")
     z, xBC_raw, dt_raw = _split_proj(cfg, proj)
-    xBC = _causal_conv_train(xBC_raw, params["conv_w"], params["conv_b"])
-    xs = xBC[..., :Din].reshape(B, S, Hs, P).float()
+    xBC_raw = xBC_raw[..., c0:c1]
+    xBC = _whole(_causal_conv_train(xBC_raw, params["conv_w"],
+                                    params["conv_b"][..., c0:c1]),
+                 tp, "ssm_conv")
+    xs = xBC[..., h0 * P:h1 * P].reshape(B, S, Hs, P).float()
     Bmat = xBC[..., Din:Din + N].float()                    # [B,S,N]
     Cmat = xBC[..., Din + N:].float()                       # [B,S,N]
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])     # [B,S,Hs]
-    A = -torch.exp(params["A_log"])                         # [Hs]
+    dt = F.softplus(dt_raw[..., h0:h1].float() +
+                    params["dt_bias"][h0:h1])               # [B,S,Hs]
+    A = -torch.exp(params["A_log"][h0:h1])                  # [Hs]
     a = dt * A                                              # log-decay
 
     xs_c = xs.reshape(B, nch, Q, Hs, P)
@@ -137,9 +212,9 @@ def _ssd_forward(params, x, cfg, return_state: bool):
                            torch.exp(acs))
 
     y = (y_intra + y_inter).reshape(B, S, Hs, P)
-    y = y + params["D"][None, None, :, None] * xs
-    y = _gated_norm(y.reshape(B, S, Din), z, params["norm_w"])
-    out = y.to(x.dtype) @ params["w_out"]
+    y = y + params["D"][None, None, h0:h1, None] * xs
+    out = _out(params, y.reshape(B, S, Hs * P), z[..., h0 * P:h1 * P],
+               x.dtype, tp)
     if not return_state:
         return out, None
     K = cfg.conv_kernel - 1
@@ -149,12 +224,14 @@ def _ssd_forward(params, x, cfg, return_state: bool):
 
 
 def init_ssm_cache(cfg, batch, dtype, device, lead=()):
-    Hs, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
-    conv_dim = cfg.ssm_inner + 2 * N
+    """{"h": [*lead, batch, Hs, N, P] fp32, "conv": [*lead, batch, K-1,
+    C]}: under a trunk split the rank's heads and conv channels."""
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    _, (c0, c1), (h0, h1) = _blocks(cfg)
     return {
-        "h": torch.zeros((*lead, batch, Hs, N, P), dtype=torch.float32,
+        "h": torch.zeros((*lead, batch, h1 - h0, N, P), dtype=torch.float32,
                          device=device),
-        "conv": torch.zeros((*lead, batch, cfg.conv_kernel - 1, conv_dim),
+        "conv": torch.zeros((*lead, batch, cfg.conv_kernel - 1, c1 - c0),
                             dtype=dtype, device=device),
     }
 
@@ -162,29 +239,30 @@ def init_ssm_cache(cfg, batch, dtype, device, lead=()):
 def ssm_decode(params, x, cache, cfg):
     """x [B,1,D], one step -> ([B,1,D], cache written in place)."""
     B = x.shape[0]
-    Din, N, Hs, P = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
-                     cfg.ssm_head_dim)
-    proj = x[:, 0] @ params["w_in"]
+    Din, N, P = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim
+    tp, (c0, c1), (h0, h1) = _blocks(cfg)
+    Hs = h1 - h0                                            # the rank's
+    proj = _whole(x[:, 0] @ params["w_in"], tp, "ssm_in")
     z, xBC, dt_raw = _split_proj(cfg, proj)
     hist = torch.cat([cache["conv"],
-                      xBC[:, None, :].to(cache["conv"].dtype)], dim=1)
+                      xBC[:, None, c0:c1].to(cache["conv"].dtype)], dim=1)
     conv_out = torch.einsum("bkc,kc->bc", hist.float(),
                             params["conv_w"].float()) + \
-        params["conv_b"].float()
-    xBC = F.silu(conv_out)
+        params["conv_b"][c0:c1].float()
+    xBC = _whole(F.silu(conv_out), tp, "ssm_conv")
 
-    xs = xBC[:, :Din].reshape(B, Hs, P)
+    xs = xBC[:, h0 * P:h1 * P].reshape(B, Hs, P)
     Bv = xBC[:, Din:Din + N]
     Cv = xBC[:, Din + N:]
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
+    dt = F.softplus(dt_raw[:, h0:h1].float() + params["dt_bias"][h0:h1])
+    A = -torch.exp(params["A_log"][h0:h1])
     dec = torch.exp(dt * A)                                 # [B,Hs]
     h = cache["h"] * dec[..., None, None] + torch.einsum(
         "bn,bh,bhp->bhnp", Bv, dt, xs)
     y = torch.einsum("bn,bhnp->bhp", Cv, h)
-    y = y + params["D"][None, :, None] * xs
-    y = _gated_norm(y.reshape(B, Din), z, params["norm_w"])
-    out = (y.to(x.dtype) @ params["w_out"])[:, None, :]
+    y = y + params["D"][None, h0:h1, None] * xs
+    out = _out(params, y.reshape(B, Hs * P), z[:, h0 * P:h1 * P], x.dtype,
+               tp)[:, None, :]
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:])
     return out, cache

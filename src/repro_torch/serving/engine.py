@@ -83,10 +83,15 @@ heads the rules put the caches' sequence dim on "model" instead
 (`TrunkPlan.seq`): the rank gathers whole q/k/v heads from its column
 blocks, holds its share of each cache's positions and of each page's
 offsets, attends over them and joins the ranks' partial attentions by
-their log-sum-exp (`models/layers.py`); `max_len` and, paged,
-`page_size` must then divide M ways. `trunk_plan` serves the dense and
-MoE families and refuses the rest with a ValueError (ROADMAP queue 1
-item 2 lists what is left).
+their log-sum-exp (`models/layers.py`); the attention ring (`max_len`,
+or the hybrid's local window) and, paged, `page_size` must then divide
+M ways. The recurrent families (mamba2's ssm, recurrentgemma's rec)
+split their channels by the same rules (`TrunkPlan`'s ssm and rec
+blocks) and serve dense and sequential, as on one device: each rank's
+recurrent caches hold its heads' or its width's state and its conv
+channels (`models/ssm.py`, `models/rglru.py` name the gathers). The vlm
+and audio families are refused with a ValueError (ROADMAP queue 1 item
+2 lists what is left).
 """
 from __future__ import annotations
 

@@ -1008,13 +1008,19 @@ def test_trunk_shard_world_of_two_on_the_card(dev):
     `_torch_sharded_cases` (greedy and sampled over six grammars,
     speculative, paged with a shared prefix, two-grammar store,
     sequential, opportunistic, and the sequence split's long run) gives
-    the one-device engine's tokens on both ranks."""
+    the one-device engine's tokens on both ranks; so do the narrow ssm
+    and hybrid configs of `tests/_torch_recurrent_cases.py` (w_in
+    columns, conv channels and SSD heads; the RG-LRU width beside local
+    attention on the sequence split) over greedy and sampled `generate()`,
+    a long run and `generate_sequential`."""
+    import _torch_recurrent_cases as R
     import _torch_trunk_cases as T
     from repro_torch.launch.mesh import spawn
-    want = T.card_world(0, None)
-    ranks = spawn(2, T.card_world, 2, backend="gloo", device="cuda")
-    for rank, got in enumerate(ranks):
-        for name in T.CARD_CONFIGS:
-            assert got[name].keys() <= want[name].keys()
-            for case, toks in got[name].items():
-                assert toks == want[name][case], (rank, name, case)
+    for mod, names in ((T, T.CARD_CONFIGS), (R, tuple(R.CONFIGS))):
+        want = mod.card_world(0, None)
+        ranks = spawn(2, mod.card_world, 2, backend="gloo", device="cuda")
+        for rank, got in enumerate(ranks):
+            for name in names:
+                assert got[name].keys() <= want[name].keys()
+                for case, toks in got[name].items():
+                    assert toks == want[name][case], (rank, name, case)

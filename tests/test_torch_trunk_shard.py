@@ -23,7 +23,8 @@ What is held, per config and world:
     and the bytes a rank holds against the dry run's argument bytes
     under the trunk specs;
 and the splits `trunk_plan` refuses raise ValueError. The sequence split
-(M does not divide the kv heads) is held by tests/test_torch_seq_shard.py."""
+(M does not divide the kv heads) is held by tests/test_torch_seq_shard.py,
+the recurrent families by tests/test_torch_recurrent_shard.py."""
 import threading
 
 import jax
@@ -303,12 +304,11 @@ def test_resident_bytes_are_the_trunk_spec_argument_bytes(runs, name, M):
 # (config, M, the engine's cache lengths, the dimension named): the
 # layer kinds the port does not split, and where M divides neither the
 # kv heads nor a cache length (the reference then splits head_dim or
-# replicates the cache)
+# replicates the cache; recurrentgemma's one kv head included)
 REFUSED = [("smollm-360m", 2, dict(cache_len=511), "max_len) 511"),
            ("syncode-demo", 8, dict(cache_len=100), "max_len) 100"),
            ("qwen3-moe-30b-a3b", 8, dict(page_size=4), "page_size 4"),
-           ("mamba2-370m", 2, {}, "['ssm']"),
-           ("recurrentgemma-9b", 2, {}, "['rec']"),
+           ("recurrentgemma-9b", 2, dict(cache_len=511), "max_len) 511"),
            ("whisper-base", 2, {}, "['dec', 'enc']"),
            ("llama-3.2-vision-90b", 2, {}, "['cross']")]
 
@@ -362,7 +362,9 @@ def _stand_in_mesh(M):
 def test_engine_and_launcher_refuse_what_the_plan_refuses():
     """The launcher passes the engine's max_len and, when paged, its
     page_size to the plan: smollm-360m's 5 kv heads at M = 2 are served
-    at max_len 512 but refused at 511, and at page_size 15."""
+    at max_len 512 but refused at 511, and at page_size 15;
+    recurrentgemma-9b's one kv head (its first three layers: rec, rec,
+    attn) at a ring of 511 positions."""
     from repro_torch.launch.serve import build_engine
     with pytest.raises(ValueError, match="smollm-360m at M = 2.*max_len"):
         build_engine("smollm-360m", grammars=(), device="cpu",
@@ -372,9 +374,11 @@ def test_engine_and_launcher_refuse_what_the_plan_refuses():
         build_engine("smollm-360m", grammars=(), device="cpu",
                      mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=1,
                      paged=True, page_size=15)
-    with pytest.raises(ValueError, match="mamba2-370m at M = 2"):
-        build_engine("mamba2-370m", grammars=(), device="cpu",
-                     mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=1)
+    with pytest.raises(ValueError,
+                       match="recurrentgemma-9b at M = 2.*max_len"):
+        build_engine("recurrentgemma-9b", grammars=(), device="cpu",
+                     mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=3,
+                     max_len=511)
 
 
 # --------------------------- the cut as drawn ---------------------------
