@@ -234,6 +234,21 @@ no result line):
    bytes, its peak beside the specs' params + caches + pools; then an
    fp32 copy at 2 layers (recurrentgemma 3): 16 greedy steps of 8 rows
    through both sides, identical up to each row's first near-tie.
+   Then the head_dim and replicated cache branches (TRUNK_SPLITS):
+   smollm-360m at 8 of 32 layers, served 4 x 4 by the 2-rank world at
+   max_len 63 with pages of 9 (M divides neither them nor the 5 kv heads,
+   but head_dim: each rank holds 32 of its 64 channels; dense, paged,
+   speculative) and by a 3-rank world at max_len 64 with pages of 16
+   (every rank holds the whole cache; dense, paged), held to the same
+   checks against a one-device twin at 8 layers (fp32 at 2 layers, max_len
+   33 and 32), each rank's plan holding the expected branch; the paged
+   kernel's head_dim form (`paged_attention_scores`,
+   `paged_attention_values`) timed first at the head_dim world's pool
+   beside its bound, plain version and the einsums on the gathered view,
+   then on the paged run's own calls against its plain version; the
+   build-peak check is not applied to these 8-layer runs (the vocabulary
+   draw outweighs 8 layers). The ranks reuse the parent's mask stores
+   (`share_mask_stores`).
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -3472,6 +3487,33 @@ def phase_cost(torch, counters, smollm_peak):
     cost_dry_run(torch, smollm_peak)
 
 
+# (grammar name, vocabulary size) -> the mask store `launch.serve.
+# build_engine` built for it in this process, or a rank's parent handed in
+_STORES: dict = {}
+
+
+def share_mask_stores(stores=None):
+    """Make `launch.serve.build_engine` build each (grammar, vocabulary)
+    mask store once in this process and reuse it for every later engine
+    (a store is a pure function of the grammar and the tokenizer, and
+    engines only read it); `stores` adds ones built elsewhere (a spawned
+    rank gets its parent's). For the script's time: phase 14 builds the
+    engines of phases 5 and 8 again, once per rank, and the stores at V
+    151936-256000 took most of its time."""
+    from repro_torch.launch import serve
+    _STORES.update(stores or {})
+    build = getattr(serve.build_mask_store, "__wrapped__",
+                    serve.build_mask_store)
+
+    def shared(g, tok, *a, **kw):
+        key = (g.name, tok.vocab_size)
+        if key not in _STORES:
+            _STORES[key] = build(g, tok, *a, **kw)
+        return _STORES[key]
+    shared.__wrapped__ = build
+    serve.build_mask_store = shared
+
+
 # ------------------------------------------ phase 14: trunk-sharded serving
 
 # (arch, depth or None for all layers, max_len, the first-step check's
@@ -3498,7 +3540,8 @@ TRUNK_ARCHS = (("qwen1.5-0.5b", None, 512, 16),
 # tree's bytes, which the memory check forbids)
 TRUNK_CUT = {"qwen1.5-0.5b": (4, 4), "qwen3-moe-30b-a3b": (4, 4),
              "smollm-360m": (8, 4), "mamba2-370m": (4, 4),
-             "recurrentgemma-9b": (4, 4)}
+             "recurrentgemma-9b": (4, 4), "smollm-360m/dh": (4, 4),
+             "smollm-360m/whole": (4, 4)}
 TRUNK_WARM = 2
 # the recurrent families (mamba2-370m, recurrentgemma-9b) serve dense and
 # sequential, as on one device; their sequential run serves this many
@@ -3521,26 +3564,46 @@ TRUNK_REACH = {"smollm-360m": 34, "recurrentgemma-9b": 26}
 # scripts/trunk_tolerance.py reads its bound on the CPU
 
 
-def trunk_requests(arch, engine, warm=False, sequential=False):
-    """The requests phase 14 serves `arch` with on `engine` (its
-    warm-up's, its sequential run's), prompts padded to TRUNK_REACH's
-    ids."""
+# the head_dim and replicated cache branches (PR 29): smollm-360m at full
+# width and TRUNK_SPLIT_DEPTH of its 32 layers (for the script's time)
+# over worlds of M gloo ranks on the one card, M dividing neither its 5 kv
+# heads nor the cache lengths: (key, M, max_len, page_size, the branch both
+# kinds of cache take). At M = 2, 63 and 9 are odd and head_dim 64 splits
+# (32 channels a rank); at M = 3 neither 64, 16 nor head_dim 64 splits, so
+# every rank holds the whole cache and pool. Prompts of TRUNK_SPLIT_P for
+# the first-step check; 4 requests x 4 new tokens a run (TRUNK_CUT)
+TRUNK_SPLITS = (("smollm-360m/dh", 2, 63, 9, "dh"),
+                ("smollm-360m/whole", 3, 64, 16, "whole"))
+TRUNK_SPLIT_DEPTH, TRUNK_SPLIT_P = 8, 32
+# the runs of the M = 3 world: dense and paged (the script's time)
+TRUNK_SPLIT_PATHS = {"smollm-360m/whole": ("dense", "paged")}
+# the fp32 copy's max_len under the head_dim split: odd, so that M = 2
+# divides neither it nor the kv heads (TRUNK_FP32_LEN is even)
+TRUNK_FP32_SPLIT_LEN = {"smollm-360m/dh": 33}
+
+
+def trunk_requests(key, engine, warm=False, sequential=False):
+    """The requests phase 14 serves run `key` (an arch, or a key of
+    TRUNK_SPLITS) with on `engine` (its warm-up's, its sequential
+    run's), prompts padded to TRUNK_REACH's ids."""
     n, new = (1, TRUNK_WARM) if warm else TRUNK_SEQ if sequential else \
-        TRUNK_CUT.get(arch, (8, SHARD_NEW))
+        TRUNK_CUT.get(key, (8, SHARD_NEW))
     reqs = sharded_requests()[:n]
     for r in reqs:
         r.max_new_tokens = new
-        while len(engine._request_ids(r)) < TRUNK_REACH.get(arch, 0):
+        while len(engine._request_ids(r)) < TRUNK_REACH.get(key, 0):
             r.prompt += b" ."
     return reqs
 
 
-def trunk_paths(cfg):
-    """The serving paths phase 14 runs `cfg` on through both engines:
-    dense, paged and speculative where every layer kind is
-    position-addressed, else (the recurrent families) dense and
-    sequential."""
+def trunk_paths(cfg, key=None):
+    """The serving paths phase 14 runs `cfg` (run `key`) on through both
+    engines: dense, paged and speculative where every layer kind is
+    position-addressed (TRUNK_SPLIT_PATHS' where it names `key`), else
+    (the recurrent families) dense and sequential."""
     from repro_torch.models.model import Model
+    if key in TRUNK_SPLIT_PATHS:
+        return TRUNK_SPLIT_PATHS[key]
     if Model(cfg, device="meta").supports_span_decode:
         return ("dense", "paged", "speculative")
     return ("dense", "sequential")
@@ -3574,7 +3637,8 @@ TRUNK_ULPS = 16
 # logits reach ~2000 (an ulp of 8-16), at its 9 layers 0.69 sound (at
 # most 1.0 at 3-9) and 11.03 with the gates contracted over a rank's
 # own conv channels (3.31 at 3 layers, 4.58 at 6)
-TRUNK_FAMILY_ULPS = {"mamba2-370m": 64, "recurrentgemma-9b": 3}
+TRUNK_FAMILY_ULPS = {"mamba2-370m": 64, "recurrentgemma-9b": 3,
+                     "smollm-360m/dh": 16, "smollm-360m/whole": 16}
 TRUNK_FP32_LAYERS, TRUNK_FP32_STEPS = 2, 16
 # recurrentgemma's fp32 copy takes its first (rec, rec, attn) period
 TRUNK_FP32_DEPTH = {"recurrentgemma-9b": 3}
@@ -3592,41 +3656,48 @@ def _trunk_counters():
     from repro_torch.kernels.masked_logits.ops import (
         apply_grammar_mask, apply_grammar_mask_span)
     from repro_torch.kernels.paged_attention.ops import (
-        paged_attention, paged_attention_partial)
+        paged_attention, paged_attention_partial, paged_attention_scores,
+        paged_attention_values)
     return (fused_mask_select, attention, apply_grammar_mask,
-            apply_grammar_mask_span, paged_attention, paged_attention_partial)
+            apply_grammar_mask_span, paged_attention, paged_attention_partial,
+            paged_attention_scores, paged_attention_values)
+
+
+# the paged kernels, by the pool split that launches each
+PAGED_KINDS = {"seq": ("paged_attention_partial",),
+               "dh": ("paged_attention_scores", "paged_attention_values")}
+PAGED_ALL = ("paged_attention", "paged_attention_partial",
+             "paged_attention_scores", "paged_attention_values")
 
 
 class _Heads:
     """While active, records the (q heads, kv heads) of every flash and
-    paged attention call (whole or partial) the model's layers make."""
+    paged attention call (whole, partial or the head_dim form) the
+    model's layers make."""
+
+    NAMES = ("attention",) + PAGED_ALL
 
     def __enter__(self):
         from repro_torch.models import layers
         self.layers = layers
-        self.orig = (layers.attention, layers.paged_attention,
-                     layers.paged_attention_partial)
+        self.orig = {n: getattr(layers, n) for n in self.NAMES}
         self.flash, self.paged = set(), set()
-        attn, paged, partial = self.orig
 
-        def flash(q, k, v, **kw):
-            self.flash.add((q.shape[2], k.shape[2]))
-            return attn(q, k, v, **kw)
+        def spy(name):
+            fn = self.orig[name]
+            seen = self.flash if name == "attention" else self.paged
 
-        def paged_(q, kp, vp, *a):
-            self.paged.add((q.shape[2], kp.shape[2]))
-            return paged(q, kp, vp, *a)
-
-        def partial_(q, kp, vp, *a):
-            self.paged.add((q.shape[2], kp.shape[2]))
-            return partial(q, kp, vp, *a)
-        layers.attention, layers.paged_attention = flash, paged_
-        layers.paged_attention_partial = partial_
+            def call(q, kp, *a, **kw):
+                seen.add((q.shape[2], kp.shape[2]))
+                return fn(q, kp, *a, **kw)
+            return call
+        for n in self.NAMES:
+            setattr(self.layers, n, spy(n))
         return self
 
     def __exit__(self, *exc):
-        (self.layers.attention, self.layers.paged_attention,
-         self.layers.paged_attention_partial) = self.orig
+        for n, fn in self.orig.items():
+            setattr(self.layers, n, fn)
 
 
 class _PartialSpy:
@@ -3693,6 +3764,89 @@ class _PartialSpy:
                     f"({n} calls, rows with a live key {live:.3f}): max abs "
                     f"err o {eo}, lse {el} (bf16; tol {2.0 ** -5}, 1e-4), o "
                     f"{eo32}, lse {el32} (fp32; tol 1e-5, 1e-5)")
+        self.feeds.clear()
+        return out
+
+
+# the head_dim form against its plain version: max abs error within
+# DH_TOL of max(1, the plain output's largest magnitude). Both sum fp32
+# products (exact for bf16 operands) in another order over dw channels
+# (scores) or nP * ps positions (values): a few fp32 ulps of the sum
+DH_TOL = 1e-5
+
+
+class _DhSpy:
+    """While active, keeps what the head_dim form's two kernels took and
+    gave on the main path (`layers.paged_attention_scores`,
+    `layers.paged_attention_values`, one call each a layer a feed): every
+    layer's calls of the last feed of each feed width S, copied as the
+    calls made them. `check()`, after the run, holds each kept output
+    against the plain version on the same inputs (bf16, the run's own
+    launch), then the kernel against the plain version on those inputs
+    in fp32 -> {S: [calls, scores err bf16, values err bf16, scores err
+    fp32, values err fp32]} (each relative to max(1, the plain output's
+    largest magnitude)); raises beyond DH_TOL."""
+
+    def __init__(self, num_layers):
+        self.L, self.n, self.feeds, self.cur = num_layers, 0, {}, None
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers = layers
+        self.orig = (layers.paged_attention_scores,
+                     layers.paged_attention_values)
+        scores, values = self.orig
+
+        def scores_spy(q, kp, pt, d0):
+            if self.n % self.L == 0:            # a feed's first layer
+                self.cur = self.feeds[q.shape[1]] = []
+            self.n += 1
+            s = scores(q, kp, pt, d0)
+            self.cur.append([(q.clone(), kp.clone(), pt.clone(), d0),
+                             s.clone()])
+            return s
+
+        def values_spy(pr, vp, pt):
+            o = values(pr, vp, pt)
+            self.cur[-1] += [(pr.clone(), vp.clone(), pt.clone()), o.clone()]
+            return o
+        layers.paged_attention_scores = scores_spy
+        layers.paged_attention_values = values_spy
+        return self
+
+    def __exit__(self, *exc):
+        (self.layers.paged_attention_scores,
+         self.layers.paged_attention_values) = self.orig
+
+    def check(self, who):
+        from repro_torch.kernels.paged_attention.ops import (
+            paged_attention_scores, paged_attention_values)
+        from repro_torch.kernels.paged_attention.ref import (
+            paged_scores_ref, paged_values_ref)
+
+        def err(got, want):
+            return ((got.float() - want.float()).abs().max().item() /
+                    max(1.0, want.float().abs().max().item()))
+        out = {}
+        for S, calls in self.feeds.items():
+            row = out[S] = [len(calls), 0.0, 0.0, 0.0, 0.0]
+            for sa, s, va, o in calls:
+                q, kp, pt, d0 = sa
+                pr, vp, _ = va
+                q32, k32, p32, v32 = (t.float() for t in (q, kp, pr, vp))
+                errs = [err(s, paged_scores_ref(*sa)),
+                        err(o, paged_values_ref(*va)),
+                        err(paged_attention_scores(q32, k32, pt, d0),
+                            paged_scores_ref(q32, k32, pt, d0)),
+                        err(paged_attention_values(p32, v32, pt),
+                            paged_values_ref(p32, v32, pt))]
+                row[1:] = [max(a, b) for a, b in zip(row[1:], errs)]
+            if not max(row[1:]) <= DH_TOL:
+                raise AssertionError(
+                    f"{who}: the head_dim form on the main path, S={S} "
+                    f"({len(calls)} calls): relative max abs err scores "
+                    f"{row[1]}, values {row[2]} (bf16), {row[3]}, {row[4]} "
+                    f"(fp32); tol {DH_TOL}")
         self.feeds.clear()
         return out
 
@@ -3813,27 +3967,28 @@ def _leaf_bytes(tree, specs=None, mesh=None) -> dict:
     return out
 
 
-def trunk_runs(torch, counters, engine, bundles, tok, P, arch, names=None):
+def trunk_runs(torch, counters, engine, bundles, tok, P, key, names=None,
+               page=16):
     """The first-step check, then the runs of `names` (default
-    `trunk_paths`): dense, paged (a twin on the engine's params) and
-    speculative runs of `trunk_requests(arch)` (phase 12's 8 requests x
-    32 new tokens, cut to TRUNK_CUT's), or for the recurrent
-    families dense and sequential (TRUNK_SEQ), each with the
-    launch counters zeroed just before and read just after, every eos
-    output parsed and every output walked by the oracle, the partial
-    paged kernel's calls held by `_PartialSpy` and the flash calls by
-    `_FlashSpy` -> {"first", "routes", "runs": {run: tokens, steps, ms a
-    step, launches, attention heads, ...}, "bytes": the dense caches'
-    bytes by leaf name and the page pools' bytes, as the runs build
-    them}."""
+    `trunk_paths`): dense, paged (a twin on the engine's params, pages of
+    `page` positions) and speculative runs of `trunk_requests(key)`
+    (phase 12's 8 requests x 32 new tokens, cut to TRUNK_CUT's), or for
+    the recurrent families dense and sequential (TRUNK_SEQ), each with
+    the launch counters zeroed just before and read just after, every
+    eos output parsed and every output walked by the oracle, the partial
+    paged kernel's calls held by `_PartialSpy`, the head_dim form's by
+    `_DhSpy` and the flash calls by `_FlashSpy` -> {"first", "routes",
+    "runs": {run: tokens, steps, ms a step, launches, attention heads,
+    ...}, "bytes": the dense caches' bytes by leaf name and the page
+    pools' bytes, as the runs build them}."""
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
-    names = names or trunk_paths(engine._cfg)
+    names = names or trunk_paths(engine._cfg, key)
     moe = engine._cfg.arch_type == "moe"
     with _Routes() as routes:
         first, first_routes, _ = trunk_first_step(
             torch, engine, routes if moe else None, P)
-    engine.generate(trunk_requests(arch, engine, warm=True))
+    engine.generate(trunk_requests(key, engine, warm=True))
     # the bytes a rank's dense caches and page pools hold, as the runs
     # build them
     held = {"caches": _leaf_bytes(engine._decode_caches(8))}
@@ -3841,29 +3996,30 @@ def trunk_runs(torch, counters, engine, bundles, tok, P, arch, names=None):
     if "paged" in names:
         paged = Engine(build_model(engine._cfg, device=engine.device),
                        engine.params, tok, bundles, max_len=engine.max_len,
-                       slots=8, paged=True, page_size=16, device="cuda",
+                       slots=8, paged=True, page_size=page, device="cuda",
                        mesh=engine.mesh, trunk_shard=engine.mesh is not None)
         held.update(pools=_tree_bytes(paged._paged_setup(8)[1]),
                     pages=(paged.num_pages, paged.page_size))
     runs = {}
     for name, eng, fn in (
             ("dense", engine, lambda: engine.generate(
-                trunk_requests(arch, engine))),
+                trunk_requests(key, engine))),
             ("paged", paged, lambda: paged.generate(
-                trunk_requests(arch, engine))),
+                trunk_requests(key, engine))),
             ("speculative", engine, lambda: engine.generate_speculative(
-                trunk_requests(arch, engine))),
+                trunk_requests(key, engine))),
             ("sequential", engine, lambda: engine.generate_sequential(
-                trunk_requests(arch, engine, sequential=True)))):
+                trunk_requests(key, engine, sequential=True)))):
         if name not in names:
             continue
-        spy = _PartialSpy(max(1, n_attention(engine._cfg)))
-        with _Heads() as heads, spy, _FlashSpy() as flash:
+        layers = max(1, n_attention(engine._cfg))
+        spy, dh = _PartialSpy(layers), _DhSpy(layers)
+        with _Heads() as heads, spy, dh, _FlashSpy() as flash:
             states, stats, lc = run_counted(torch, counters, fn)
-        checked = spy.check(f"phase 14 {engine._cfg.name} {name}") \
-            if spy.feeds else None
-        flash_checked = flash.check(f"phase 14 {engine._cfg.name} {name}") \
-            if flash.calls else None
+        who = f"phase 14 {key} {name}"
+        checked = spy.check(who) if spy.feeds else None
+        dh_checked = dh.check(who) if dh.feeds else None
+        flash_checked = flash.check(who) if flash.calls else None
         check_outputs(states, bundles)
         cut = valid_prefixes(engine, states)
         runs[name] = {"tokens": tokens_of(states),
@@ -3874,6 +4030,7 @@ def trunk_runs(torch, counters, engine, bundles, tok, P, arch, names=None):
                       "launches": lc, "flash": sorted(heads.flash),
                       "paged_heads": sorted(heads.paged), "cut": cut,
                       "plan": eng._trunk, "partial_checked": checked,
+                      "dh_checked": dh_checked,
                       "flash_checked": flash_checked,
                       "eos": sum(s.finish_reason == "eos" for s in states)}
     del paged
@@ -3888,16 +4045,16 @@ def trunk_launch_check(who, cfg, res, M):
     constrained step (vocab split) or none, fused_select at least once a
     dense step; masked_logits_span once per speculative step;
     sequential: flash once per attention layer per request, masked_logits
-    once per constrained step. Under the sequence split (M does not
-    divide K) flash runs at every head (H, K) and the paged feeds launch
-    the partial kernel instead, at (H, K) over the rank's offsets."""
+    once per constrained step. Where M does not divide K flash runs at
+    every head (H, K) and the paged feeds launch, by the pool's split,
+    the partial kernel (sequence), the head_dim form's two kernels
+    (head_dim) or the whole kernel (whole), at (H, K), and no other
+    paged kernel."""
     L = n_attention(cfg)
-    seq = cfg.num_kv_heads % M != 0
-    heads = (cfg.num_heads, cfg.num_kv_heads) if seq else \
+    gathers = cfg.num_kv_heads % M != 0
+    heads = (cfg.num_heads, cfg.num_kv_heads) if gathers else \
         (cfg.num_heads // M, cfg.num_kv_heads // M)
     flash = [heads] if L else []
-    kind, other = ("paged_attention_partial", "paged_attention") if seq \
-        else ("paged_attention", "paged_attention_partial")
     runs, bad = res["runs"], []
     d = runs["dense"]
     lc = d["launches"]
@@ -3908,11 +4065,14 @@ def trunk_launch_check(who, cfg, res, M):
     if lc["apply_grammar_mask"] != (d["steps"] if M > 1 else 0):
         bad.append(f"dense masked_logits {lc['apply_grammar_mask']}")
     p = runs.get("paged")
-    if p and (p["launches"][kind] != p["steps"] * L or
-              p["launches"][other] or p["paged_heads"] != [heads]):
-        bad.append(f"paged {p['launches'][kind]} ({kind}; {other} "
-                   f"{p['launches'][other]}) at {p['paged_heads']} in "
-                   f"{p['steps']} steps")
+    if p:
+        pool = p["plan"].pool if p["plan"] is not None else None
+        kinds = PAGED_KINDS.get(pool, ("paged_attention",))
+        got = {k: p["launches"][k] for k in PAGED_ALL}
+        if any(got[k] != (p["steps"] * L if k in kinds else 0)
+               for k in PAGED_ALL) or p["paged_heads"] != [heads]:
+            bad.append(f"paged {got} (the pool's split {pool}) at "
+                       f"{p['paged_heads']} in {p['steps']} steps")
     s = runs.get("speculative")
     if s and s["launches"]["apply_grammar_mask_span"] != s["steps"]:
         bad.append(f"speculative masked_logits_span "
@@ -3935,12 +4095,14 @@ def _share_reach(runs, max_len):
     """Positions each run fed into this rank's share of the cache under
     the sequence split (summed over the requests: a request fed
     positions 0 .. len(ids) - 2): the dense runs' [lo, hi), the paged
-    run's in-page offsets [o0, o1). -> {run: count}, or None without the
-    split."""
+    run's in-page offsets [o0, o1). -> {run: count}, or None where a
+    run's cache is not split on its sequence."""
     out = {}
     for name, run in runs.items():
         plan = run["plan"]
-        if plan is None or not plan.seq:
+        split = None if plan is None else \
+            plan.pool if name == "paged" else plan.cache
+        if split != "seq":
             return None
         fed = [range(len(ids) - 1) for ids, _ in run["tokens"].values()]
         if name == "paged":
@@ -3953,13 +4115,14 @@ def _share_reach(runs, max_len):
     return out
 
 
-def trunk_rank(rank, n, arch, depth, max_len, P):
-    """One rank of the 2-rank gloo world on the card: `arch` built under
+def trunk_rank(rank, n, arch, depth, max_len, P, key=None, page=16):
+    """One rank of an n-rank gloo world on the card: `arch` built under
     trunk_shard (each rank draws only its blocks), the first-step check,
-    the three runs, the decode step's collective tally against cost.py,
-    the positions its share of the caches held (sequence split), and
-    the bytes of its params, dense caches and page pools against the
-    trunk specs' argument bytes."""
+    the runs of `key` (default `arch`; paged: pages of `page`), the
+    decode step's collective tally against cost.py, the positions its
+    share of the caches held (sequence split), and the bytes of its
+    params, dense caches and page pools against the trunk specs'
+    argument bytes."""
     import torch
     from repro_torch.distributed import cost
     from repro_torch.distributed.api import (collective_tally,
@@ -3982,7 +4145,8 @@ def trunk_rank(rank, n, arch, depth, max_len, P):
     build_s = time.perf_counter() - t0
     built_peak = torch.cuda.max_memory_allocated()
     held = torch.cuda.memory_allocated()
-    res = trunk_runs(torch, counters, engine, bundles, tok, P, arch)
+    res = trunk_runs(torch, counters, engine, bundles, tok, P, key or arch,
+                     page=page)
     # one decode step again (it rewrites the same positions) with the
     # tally on and no route spy
     _, _, (caches, t, pos) = trunk_first_step(torch, engine, None, P)
@@ -3992,13 +4156,16 @@ def trunk_rank(rank, n, arch, depth, max_len, P):
     torch.cuda.synchronize()
     res["tally"] = collective_tally()
     plan = engine._trunk
-    if plan is not None and plan.seq:
+    if plan is not None and plan.cache == "seq":
         kv = next(c for g in caches for c in g if "kv_pos" in c)
         lo, hi = plan.positions
         res["first_live"] = int((kv["kv_pos"][0, :, lo:hi] >= 0).sum())
         res["positions"] = plan.positions
         if "paged" in res["runs"]:
             res["offsets"] = res["runs"]["paged"]["plan"].offsets
+    res["splits"] = None if plan is None else (
+        plan.cache, res["runs"]["paged"]["plan"].pool
+        if "paged" in res["runs"] else None, plan.head_dims)
     res["reach"] = _share_reach(res["runs"], max_len)
     cfg, mesh = engine._cfg, engine.mesh
     res["cost"] = cost.decode_step(cfg, TRUNK_B, engine.max_len, mesh=mesh)
@@ -4033,17 +4200,18 @@ def trunk_rank(rank, n, arch, depth, max_len, P):
     return res
 
 
-def trunk_one_device(torch, arch, depth, max_len, P):
+def trunk_one_device(torch, arch, depth, max_len, P, key=None):
     """The one-device engine on the same seeded weights, in this process:
-    the same first-step check and the dense run (the script's time
-    leaves out its paged and speculative twins)."""
+    the same first-step check and the dense run of `key` (default
+    `arch`; the script's time leaves out its paged and speculative
+    twins)."""
     from repro_torch.launch.serve import build_engine
     counters = _trunk_counters()
     torch.cuda.reset_peak_memory_stats()
     engine, bundles, tok = build_engine(
         arch, grammars=("json", "jsonmsg"), max_len=max_len, slots=8,
         device="cuda", num_layers=depth)
-    res = trunk_runs(torch, counters, engine, bundles, tok, P, arch,
+    res = trunk_runs(torch, counters, engine, bundles, tok, P, key or arch,
                      names=("dense",))
     res["peak"] = torch.cuda.max_memory_allocated()
     res["cfg"] = engine._cfg
@@ -4053,9 +4221,9 @@ def trunk_one_device(torch, arch, depth, max_len, P):
     return res
 
 
-def trunk_fp32_greedy(rank, n, arch):
+def trunk_fp32_greedy(rank, n, arch, max_len=TRUNK_FP32_LEN):
     """fp32 copy at TRUNK_FP32_LAYERS layers (TRUNK_FP32_DEPTH's where it
-    names `arch`): TRUNK_B seeded prompts
+    names `arch`), caches of `max_len`: TRUNK_B seeded prompts
     prefilled, then TRUNK_FP32_STEPS unconstrained greedy steps through
     the engine's own calls (one device when n is None, else rank `rank`
     of n under trunk_shard) -> (tokens [B, steps]; at each step the
@@ -4082,7 +4250,7 @@ def trunk_fp32_greedy(rank, n, arch):
     params = model.init(torch.Generator(device=model.device).manual_seed(0),
                         cut=cut)
     engine = Engine(model, params, ByteTokenizer(cfg.vocab_size), {},
-                    max_len=TRUNK_FP32_LEN, slots=TRUNK_B, device="cuda",
+                    max_len=max_len, slots=TRUNK_B, device="cuda",
                     mesh=mesh, trunk_shard=mesh is not None)
     margins, orig = [], layers.moe_ffn
     if n is None and cfg.arch_type == "moe":
@@ -4125,10 +4293,10 @@ def trunk_fp32_greedy(rank, n, arch):
     return tok, tie
 
 
-def trunk_fp32_check(arch, one, ranks):
+def trunk_fp32_check(arch, one, ranks, key=None):
     """The fp32 2-layer copy: every rank's greedy tokens equal the
     one-device engine's (`one`: tokens, near-ties) on every row up to
-    its first near-tie."""
+    its first near-tie (`key` names the run in the log)."""
     import torch
     want, tie = one
     first = [int(tie[b].nonzero()[0]) if tie[b].any() else TRUNK_FP32_STEPS
@@ -4137,40 +4305,55 @@ def trunk_fp32_check(arch, one, ranks):
         for b in range(TRUNK_B):
             if not torch.equal(got[b, :first[b]], want[b, :first[b]]):
                 raise AssertionError(
-                    f"phase 14 fp32 {arch}: rank {r} row {b} greedy tokens "
+                    f"phase 14 fp32 {key or arch}: rank {r} row {b} greedy "
+                    f"tokens "
                     f"{got[b].tolist()} differ from the one-device "
                     f"{want[b].tolist()} before the first near-tie at "
                     f"step {first[b]}")
     held = sum(f == TRUNK_FP32_STEPS for f in first)
     same = sum(torch.equal(g, want) for g in ranks)
     depth = TRUNK_FP32_DEPTH.get(arch, TRUNK_FP32_LAYERS)
-    log(f"phase 14 fp32 {arch} ({depth} layers, {TRUNK_B} rows "
-        f"x {TRUNK_FP32_STEPS} greedy steps, world {TRUNK_M} over gloo): "
+    log(f"phase 14 fp32 {key or arch} ({depth} layers, {TRUNK_B} rows "
+        f"x {TRUNK_FP32_STEPS} greedy steps, world {len(ranks)} over gloo): "
         f"tokens identical to the one-device engine up to each row's first "
         f"near-tie (logit gap < {TRUNK_GAP} or router margin < "
         f"{TRUNK_MARGIN}); rows with no near-tie {held}/{TRUNK_B}; ranks "
         f"identical on every row {same}/{len(ranks)}")
     if held < TRUNK_B // 2:
-        raise AssertionError(f"phase 14 fp32 {arch}: only {held} rows "
-                             f"free of near-ties")
+        raise AssertionError(f"phase 14 fp32 {key or arch}: only {held} "
+                             f"rows free of near-ties")
 
 
-def trunk_world(rank, n):
-    """One rank of the 2-rank gloo world, both archs in turn (one world
-    for the phase: each spawn costs the ranks' start-up): the bf16 runs
-    (`trunk_rank`), then the fp32 2-layer greedy tokens. -> {arch:
-    results}."""
+def trunk_jobs(n):
+    """The runs of a phase-14 world of n ranks: (key, arch, depth,
+    max_len, P, page_size, the fp32 copy's max_len) of every TRUNK_ARCHS
+    arch at TRUNK_M, then the TRUNK_SPLITS of M = n."""
+    jobs = [(arch, arch, depth, max_len, P, 16, TRUNK_FP32_LEN)
+            for arch, depth, max_len, P in TRUNK_ARCHS] if n == TRUNK_M \
+        else []
+    return jobs + [(key, key.split("/")[0], TRUNK_SPLIT_DEPTH, max_len,
+                    TRUNK_SPLIT_P, page,
+                    TRUNK_FP32_SPLIT_LEN.get(key, TRUNK_FP32_LEN))
+                   for key, M, max_len, page, _ in TRUNK_SPLITS if M == n]
+
+
+def trunk_world(rank, n, stores):
+    """One rank of a gloo world of n ranks, its jobs (`trunk_jobs`) in
+    turn (one world for the phase's jobs of n: each spawn costs the
+    ranks' start-up), reusing the parent's mask `stores`: the bf16 runs
+    (`trunk_rank`), then the fp32 greedy tokens. -> {key: results}."""
     import torch
+    share_mask_stores(stores)
     out = {}
-    for arch, depth, max_len, P in TRUNK_ARCHS:
+    for key, arch, depth, max_len, P, page, fp32_len in trunk_jobs(n):
         t0 = time.perf_counter()
-        out[arch] = trunk_rank(rank, n, arch, depth, max_len, P)
+        out[key] = trunk_rank(rank, n, arch, depth, max_len, P, key, page)
         gc.collect()
         torch.cuda.empty_cache()
-        out[arch]["fp32"] = trunk_fp32_greedy(rank, n, arch)[0]
+        out[key]["fp32"] = trunk_fp32_greedy(rank, n, arch, fp32_len)[0]
         gc.collect()
         torch.cuda.empty_cache()
-        out[arch]["seconds"] = time.perf_counter() - t0
+        out[key]["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -4286,6 +4469,128 @@ def paged_partial_rows(torch, np, H=15, K=5, Dh=64, sizes=(1, 8, 32)):
     return rows
 
 
+def paged_dh_rows(torch, np, H=15, K=5, Dh=64, sizes=(1, 8)):
+    """The head_dim form of paged_attention_span at the head_dim world's
+    pool (smollm-360m's heads, 2 ranks: 32 of the 64 channels, pages of
+    9, 7 pages a slot of the 56 a pool of 8 slots holds, holes), timed:
+    `paged_attention_scores` and `paged_attention_values` of rank 1's
+    channels against their plain versions (bf16 and fp32, within DH_TOL
+    of the plain output's largest magnitude), each beside its bound and
+    its einsum on the gathered view of the rank's pages (the
+    scores' with the scaled q block formed beforehand), timed in bf16
+    (fp32 is checked only). -> [scores row, values row] at S = 1 in
+    bf16."""
+    from repro_torch.kernels.flash_attention.ref import qscale_tensor
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention_scores, paged_attention_values)
+    from repro_torch.kernels.paged_attention.ref import (
+        dh_probs, paged_scores_ref, paged_values_ref)
+    dev = torch.device("cuda")
+    B, ps, nP, M = 8, 9, 7, 2
+    P, dw = B * nP, Dh // M
+    d0 = dw                             # rank 1's channels
+    L, G = nP * ps, H // K
+    rng = np.random.default_rng(29)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    pt = rng.permutation(P)[:B * nP].reshape(B, nP).astype(np.int32)
+    pt[:, 1:][rng.random((B, nP - 1)) < 0.15] = -1
+    pt[1:4, :2] = pt[0, :2]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        kp = t(rng.normal(size=(P, ps, K, dw)).astype(np.float32)).to(dtype)
+        vp = t(rng.normal(size=(P, ps, K, dw)).astype(np.float32)).to(dtype)
+        for S in sizes:
+            q = t(rng.normal(size=(B, S, H, Dh)).astype(np.float32)).to(
+                dtype)
+            pos = rng.integers(S, L - S, size=B).astype(np.int32)
+            qpos = t(pos)[:, None] + torch.arange(S, device=dev)[None, :]
+            mapped = (t(pt) >= 0).repeat_interleave(ps, dim=1)
+            valid = mapped[:, None, :] & (torch.arange(L, device=dev)[
+                None, None, :] <= qpos[:, :, None])
+            sargs = (q, kp, t(pt), d0)
+            sc = paged_attention_scores(*sargs)
+            want = paged_scores_ref(*sargs)
+            pr = dh_probs(want, valid, dtype)
+            vargs = (pr, vp, t(pt))
+            o = paged_attention_values(*vargs)
+            wo = paged_values_ref(*vargs)
+            errs = [(sc - want).abs().max().item() /
+                    max(1.0, want.abs().max().item()),
+                    (o - wo).abs().max().item() /
+                    max(1.0, wo.abs().max().item())]
+            if not max(errs) <= DH_TOL:
+                raise AssertionError(
+                    f"the head_dim form S={S} {dtype}: relative max abs "
+                    f"err scores {errs[0]}, values {errs[1]} (tol {DH_TOL})")
+            # the rank's pages gathered (once, outside the timing)
+            safe = t(pt).clamp(min=0).long()
+            kc = kp[safe].reshape(B, L, K, dw)
+            vc = vp[safe].reshape(B, L, K, dw)
+            qs = (q * qscale_tensor(dtype, Dh))[..., d0:d0 + dw].reshape(
+                B, S, K, G, dw)
+            pg = pr.reshape(B, S, K, G, L)
+            libs = (lambda: torch.einsum("bqkgd,blkd->bqkgl", qs, kc),
+                    lambda: torch.einsum("bqkgl,blkd->bqkgd", pg, vc))
+            # this run's work: the mapped pages a slot reads up to its
+            # last query (each page's K or V block once), q's block or P
+            # read, the fp32 output written; 2 operations per (query
+            # head, valid position, channel)
+            last = pos + S - 1
+            pages = {int(pt[b, j]) for b in range(B) for j in range(nP)
+                     if pt[b, j] >= 0 and j * ps <= last[b]}
+            esz = q.element_size()
+            page_bytes = len(pages) * ps * K * dw * esz + B * nP * 4
+            flops = 2 * int(valid.sum().item()) * H * dw
+            peak = PEAK_FLOPS[str(dtype)[6:]]
+            if dtype != torch.bfloat16:
+                log(f"the head_dim form H={H} K={K} Dh={Dh} S={S} fp32: "
+                    f"relative max abs err scores {errs[0]:.3e}, values "
+                    f"{errs[1]:.3e}")
+                continue
+            for name, fn, plain, lib, nbytes, err in (
+                    ("paged_attention_scores",
+                     lambda: paged_attention_scores(*sargs),
+                     lambda: paged_scores_ref(*sargs), libs[0],
+                     page_bytes + B * S * H * dw * esz + B * S * H * L * 4,
+                     errs[0]),
+                    ("paged_attention_values",
+                     lambda: paged_attention_values(*vargs),
+                     lambda: paged_values_ref(*vargs), libs[1],
+                     page_bytes + B * S * H * L * esz + B * S * H * dw * 4,
+                     errs[1])):
+                ms = cuda_ms(torch, fn)
+                dev_ms = device_ms(torch, fn)
+                plain_ms = cuda_ms(torch, plain)
+                lib_ms, lib_dev = cuda_ms(torch, lib), device_ms(torch, lib)
+                t_ops = flops / peak * 1e3
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                bound = max(t_ops, t_bytes)
+                by = "operations" if t_ops >= t_bytes else "bytes"
+                log(f"{name} H={H} K={K} Dh={Dh} channels {d0}-"
+                    f"{d0 + dw - 1} S={S} {str(dtype)[6:]} (pool [{P},{ps},"
+                    f"{K},{dw}], {nP} pages a slot): relative max abs err "
+                    f"{err:.3e}; {ms:.4f} ms, device {dev_ms:.4f} ms; plain "
+                    f"{plain_ms:.4f} ms; einsum on the gathered view "
+                    f"{lib_ms:.4f} ms, device {lib_dev:.4f} ms; bound "
+                    f"{bound:.6f} ms ({by})")
+                if S == 1:
+                    rows.append({
+                        "name": name, "route": "cuda",
+                        "source": "src/repro_torch/csrc/paged_attention.cu",
+                        "replaces": "src/repro/kernels/paged_attention/"
+                                    "kernel.py:83",
+                        "shape": f"B={B} S={S} H={H} K={K} Dh={Dh} bf16, "
+                                 f"channels {d0}-{d0 + dw - 1}, {nP} pages "
+                                 f"of {ps}",
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": by,
+                        "library_ms": lib_ms, "library_device_ms": lib_dev})
+    log("  (the einsums read the already gathered view of the rank's "
+        "channels; max_abs_err is relative to max(1, |plain|))")
+    return rows
+
+
 def phase_trunk(torch, np):
     """Phase 14: trunk-sharded serving (`Engine(mesh, trunk_shard=True)`)
     of qwen1.5-0.5b (all 24 layers), qwen3-moe-30b-a3b (MOE_DEPTH
@@ -4293,35 +4598,56 @@ def phase_trunk(torch, np):
     mamba2-370m (all 48 layers: w_in columns, conv channels, SSD heads)
     and recurrentgemma-9b (the RG-LRU width; its local attention on the
     sequence split) at full width in bf16 over a 2-rank gloo world on
-    the one card, against the one-device engine on the same seeded
-    weights; first the partial paged kernel at smollm's rank-local
-    pool. -> kernel rows."""
+    the one card, and smollm-360m at TRUNK_SPLIT_DEPTH layers on the
+    head_dim branch (the same world) and the replicated branch (a world
+    of 3), each against the one-device engine on the same seeded
+    weights; first the partial paged kernel at smollm's rank-local pool
+    and the head_dim form at the head_dim world's. -> kernel rows."""
     from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
     partial = paged_partial_rows(torch, np)
+    dh_rows = paged_dh_rows(torch, np)
+    split_one = TRUNK_SPLITS[0][0]      # the splits' one-device run
     ones = {}
-    for arch, depth, max_len, P in TRUNK_ARCHS:
+    for key, arch, depth, max_len, P in (
+            *((a, a, d, m, p) for a, d, m, p in TRUNK_ARCHS),
+            (split_one, "smollm-360m", TRUNK_SPLIT_DEPTH, 64,
+             TRUNK_SPLIT_P)):
         t1 = time.perf_counter()
-        ones[arch] = trunk_one_device(torch, arch, depth, max_len, P)
-        trunk_launch_check(f"{arch} one device", ones[arch]["cfg"],
-                           ones[arch], 1)
-        ones[arch]["fp32"] = trunk_fp32_greedy(0, None, arch)
+        ones[key] = trunk_one_device(torch, arch, depth, max_len, P, key)
+        trunk_launch_check(f"{key} one device", ones[key]["cfg"], ones[key],
+                           1)
+        if key == arch:
+            ones[key]["fp32"] = trunk_fp32_greedy(0, None, arch)
         gc.collect()
         torch.cuda.empty_cache()
-        ones[arch]["seconds"] = time.perf_counter() - t1
+        ones[key]["seconds"] = time.perf_counter() - t1
     log(f"[phase 14 one-device runs done at {time.perf_counter() - t0:.1f} "
         f"s]")
-    worlds = spawn(TRUNK_M, trunk_world, TRUNK_M, backend="gloo",
-                   device="cuda")
-    for arch, depth, max_len, P in TRUNK_ARCHS:
-        one, ranks = ones[arch], [w[arch] for w in worlds]
+    # the ranks reuse the one-device engines' mask stores
+    vocabs = {ones[k]["cfg"].vocab_size for k in ones}
+    stores = {k: v for k, v in _STORES.items() if k[1] in vocabs}
+    results = {}
+    for n in (TRUNK_M, *sorted({M for _, M, *_ in TRUNK_SPLITS} -
+                               {TRUNK_M})):
+        t1 = time.perf_counter()
+        worlds = spawn(n, trunk_world, n, stores, backend="gloo",
+                       device="cuda")
+        log(f"[phase 14 world of {n}: {time.perf_counter() - t1:.1f} s]")
+        for job in trunk_jobs(n):
+            results[job[0]] = (job, [w[job[0]] for w in worlds])
+    branch = {key: b for key, _, _, _, b in TRUNK_SPLITS}
+    for key, ((_, arch, depth, max_len, P, page, _), ranks) in \
+            results.items():
+        one = ones[split_one if key in branch else key]
+        M = len(ranks)
         cfg = one["cfg"]
         want = one["first"]
         top = float(want.abs().max())
-        ulps = TRUNK_FAMILY_ULPS.get(arch, TRUNK_ULPS)
+        ulps = TRUNK_FAMILY_ULPS.get(key, TRUNK_ULPS)
         tol = ulps * 2.0 ** (math.floor(math.log2(top)) - 7)
         for r, res in enumerate(ranks):
-            trunk_launch_check(f"{arch} rank {r}", cfg, res, TRUNK_M)
+            trunk_launch_check(f"{key} rank {r}", cfg, res, M)
             rows = torch.ones(TRUNK_B, dtype=torch.bool)
             if one["routes"] is not None:
                 for a, b in zip(res["routes"], one["routes"]):
@@ -4331,17 +4657,19 @@ def phase_trunk(torch, np):
                 if held else float("inf")
             if held < TRUNK_B // 2 or not err <= tol:
                 raise AssertionError(
-                    f"phase 14 {arch} rank {r}: first decode step's logits "
+                    f"phase 14 {key} rank {r}: first decode step's logits "
                     f"max abs err {err:.4e} over {held} rows, tolerance "
                     f"{tol:.4e} ({ulps} bf16 ulps at {top:.4f})")
             base = one["runs"]["dense"]
             ar = res["tally"].get("all-reduce", {})
             ag = res["tally"].get("all-gather", {})
             est = res["est"]
-            log(f"phase 14 {arch} ({depth or cfg.num_layers} layers) rank "
-                f"{r} ({res['backend']}, {res['device']}; local heads "
+            log(f"phase 14 {key} ({depth or cfg.num_layers} layers, max_len "
+                f"{max_len}, pages of {page}) rank {r} of {M} "
+                f"({res['backend']}, {res['device']}; local heads "
                 f"{res['local'][0]}/{res['local'][1]}, d_ff "
-                f"{res['local'][2]}): {res['seconds']:.1f} s in the world "
+                f"{res['local'][2]}; cache, pool, head_dims "
+                f"{res['splits']}): {res['seconds']:.1f} s in the world "
                 f"({one['seconds']:.1f} s one device), built in "
                 f"{res['build_s']:.1f} s; "
                 f"first decode step logits max abs err {err:.4e} over "
@@ -4349,6 +4677,15 @@ def phase_trunk(torch, np):
                 f"bf16 ulps at {top:.4f}"
                 + ("; rows routed alike" if one["routes"] is not None
                    else "") + ")")
+            if key in branch:
+                Dh = cfg.resolved_head_dim
+                blk = (r * Dh // M, (r + 1) * Dh // M) \
+                    if branch[key] == "dh" else None
+                if res["splits"] != (branch[key], branch[key], blk):
+                    raise AssertionError(
+                        f"phase 14 {key} rank {r}: cache, pool and "
+                        f"head_dims {res['splits']}, not "
+                        f"{(branch[key], branch[key], blk)}")
             for k, run in res["runs"].items():
                 vs = "" if k != "dense" else (
                     f" (one device {base['ms']:.2f}; requests identical "
@@ -4366,10 +4703,11 @@ def phase_trunk(torch, np):
                         f"q, k shapes {shapes}): max abs err {e:.3e} bf16, "
                         f"{e32:.3e} fp32")
                 elif run["launches"]["attention"]:
-                    raise AssertionError(f"phase 14 {arch} rank {r}: no "
+                    raise AssertionError(f"phase 14 {key} rank {r}: no "
                                          f"flash_attention call kept in "
                                          f"the {k} run")
-            got = res["runs"].get("paged", {}).get("partial_checked")
+            paged = res["runs"].get("paged", {})
+            got = paged.get("partial_checked")
             if got is not None:
                 log(f"  paged_attention_partial on the main path, held "
                     f"against its plain version on the same inputs (one "
@@ -4380,12 +4718,27 @@ def phase_trunk(torch, np):
                         f"{eo32:.3e} lse {el32:.3e} fp32"
                         for S, (n, eo, el, eo32, el32, lv) in sorted(
                             got.items())))
-            if "paged" in res["runs"] and \
-                    (got is not None) != (res["reach"] is not None):
+            if paged and (got is not None) != (res["reach"] is not None):
                 raise AssertionError(
-                    f"phase 14 {arch} rank {r}: the paged run's partial "
+                    f"phase 14 {key} rank {r}: the paged run's partial "
                     f"kernel calls checked {got} against the sequence "
                     f"split {res['reach']}")
+            dh = paged.get("dh_checked")
+            if dh is not None:
+                log(f"  the head_dim form (paged_attention_scores, "
+                    f"paged_attention_values) on the main path, held "
+                    f"against its plain version on the same inputs (one "
+                    f"call each a layer of the last feed of each width S; "
+                    f"error relative to max(1, |plain|)): " + "; ".join(
+                        f"S={S} {n} calls, scores {e0:.3e} values {e1:.3e} "
+                        f"bf16, scores {e2:.3e} values {e3:.3e} fp32"
+                        for S, (n, e0, e1, e2, e3) in sorted(dh.items())))
+            if paged and (dh is not None) != (
+                    paged["plan"].pool == "dh"):
+                raise AssertionError(
+                    f"phase 14 {key} rank {r}: the paged run's head_dim "
+                    f"form calls checked {dh} under the pool split "
+                    f"{paged['plan'].pool}")
             if res["reach"] is not None:
                 log(f"  sequence split: positions {res['positions']} of "
                     f"{max_len}, in-page offsets {res.get('offsets')}; live "
@@ -4395,7 +4748,7 @@ def phase_trunk(torch, np):
                     f"{res['reach']}")
                 if res["first_live"] <= 0 or min(res["reach"].values()) <= 0:
                     raise AssertionError(
-                        f"phase 14 {arch} rank {r}: no live position in the "
+                        f"phase 14 {key} rank {r}: no live position in the "
                         f"rank's share ({res['first_live']}, "
                         f"{res['reach']})")
             log(f"  collectives of one decode step (B {TRUNK_B}, {max_len} "
@@ -4417,29 +4770,45 @@ def phase_trunk(torch, np):
                 f"{res['bytes']['caches']} B by leaf (h: the recurrent "
                 f"state, conv: the conv cache), its page pools "
                 f"{res['bytes'].get('pools')} B (as the runs build them)")
-            if res["block_params"] != est["params"] or \
-                    not res["built_peak"] < res["whole_params"]:
+            # the build peak is held below the whole tree's bytes where
+            # the rank draws at most half of every layer at full depth; the
+            # TRUNK_SPLITS runs cut smollm-360m to 8 layers, where the fp32
+            # draw of a rank's vocabulary rows (94 MB) outweighs the layers,
+            # and the replicated branch keeps wk/wv and the FFN whole
+            peak_held = key in branch or \
+                res["built_peak"] < res["whole_params"]
+            if res["block_params"] != est["params"] or not peak_held:
                 raise AssertionError(
-                    f"phase 14 {arch} rank {r}: holds {res['block_params']} "
+                    f"phase 14 {key} rank {r}: holds {res['block_params']} "
                     f"B of params, not its blocks' {est['params']}, or its "
                     f"peak while building ({res['built_peak']} B) reaches "
                     f"the whole tree's {res['whole_params']} B")
             for k in ("caches", "pools"):
                 if res["bytes"].get(k) != est.get(k):
                     raise AssertionError(
-                        f"phase 14 {arch} rank {r}: its {k} hold "
+                        f"phase 14 {key} rank {r}: its {k} hold "
                         f"{res['bytes'][k]} B, not the trunk specs' "
                         f"{est[k]} B")
-        trunk_fp32_check(arch, one["fp32"], [res["fp32"] for res in ranks])
-    smollm = worlds[0]["smollm-360m"]["runs"]["paged"]
+        trunk_fp32_check(arch, ones[arch]["fp32"],
+                         [res["fp32"] for res in ranks], key)
+    smollm = results["smollm-360m"][1]
     row = partial[1]
-    row["launches"] = smollm["launches"]["paged_attention_partial"]
+    row["launches"] = smollm[0]["runs"]["paged"]["launches"][
+        "paged_attention_partial"]
     row["model"] = "smollm-360m"
     row["main_path_max_abs_err"] = max(
-        e[1] for w in worlds
-        for e in w["smollm-360m"]["runs"]["paged"]["partial_checked"].values())
+        e[1] for res in smollm
+        for e in res["runs"]["paged"]["partial_checked"].values())
+    dh_world = results[split_one][1]
+    for r in dh_rows:
+        r["launches"] = dh_world[0]["runs"]["paged"]["launches"][r["name"]]
+        r["model"] = f"smollm-360m ({TRUNK_SPLIT_DEPTH} layers)"
+        r["main_path_max_err"] = max(
+            e[1 if r["name"] == "paged_attention_scores" else 2]
+            for res in dh_world
+            for e in res["runs"]["paged"]["dh_checked"].values())
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
-    return [row]
+    return [row, *dh_rows]
 
 
 def main():
@@ -4476,6 +4845,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
 
+    share_mask_stores()
     stamp = lambda what: log(f"[{what} done at "
                              f"{time.perf_counter() - t_start:.1f} s]")
     phase_model_check(torch, np)

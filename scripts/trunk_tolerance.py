@@ -3,13 +3,17 @@ bf16, measured on the CPU (gloo ranks): the bound `chip_smoke.py` phase 14
 holds the card's first decode step to.
 
     PYTHONPATH=src python scripts/trunk_tolerance.py [--json out.json]
-        [--arch ARCH] [--own-noise DEPTH]
+        [--arch ARCH] [--split {any,default,dh,whole}] [--own-noise DEPTH]
 
-For each case (a config, a depth, a width) it draws seeded weights,
-prefills 8 prompts of 16 tokens (32 where M = 2 does not divide the kv
-heads, smollm-360m's 5: the sequence split, whose rank 1 then holds the
+For each case (a config, a depth, a width, a split) it draws seeded
+weights, prefills 8 prompts of 16 tokens (32 where M does not divide the
+kv heads, smollm-360m's 5: under the sequence split rank 1 then holds the
 step's own position 32 of the 64) and runs one decode step through the
-one-device engine and through each rank of a 2-rank trunk-sharded engine
+one-device engine and through each rank of a trunk-sharded engine of
+SPLITS' ranks and max_len (2 and 64 by default; "dh": 2 ranks at max_len
+63, which 2 does not divide, so smollm-360m's caches split head_dim;
+"whole": 3 ranks, which divide neither its kv heads, 64 nor its head_dim
+of 64, so every rank holds the whole cache)
 (`Engine(mesh, trunk_shard=True)`, the engines' own `_prefill`/`_decode`,
 the logits gathered), and prints the largest |difference| of the decode
 logits in bf16 ulps at the largest |logit| (the unit of the phase 11
@@ -29,7 +33,12 @@ rank's process: `ffn-no-all-reduce` drops the FFN's all-reduce,
 under the sequence split, `combine-no-lse` joins the ranks' partial
 attentions with equal weights instead of their log-sum-exp weights, and
 `other-rank-slots` has each rank's prefill write the positions of the
-other rank's share into its cache; in the recurrent layers,
+other rank's share into its cache; under the head_dim split,
+`scores-no-all-reduce` softmaxes a rank's partial scores without the
+other ranks', `o-blocks-out-of-order` joins the ranks' blocks of the
+output channels in reverse rank order, and `mask-before-join` masks each
+rank's partial scores before the all-reduce (and not after); in the
+recurrent layers,
 `norm-own-channels` takes the SSM's gated-norm statistic over the rank's
 own channels only, and `gates-own-channels` contracts the RG-LRU's gates
 over the rank's own conv channels only (the other ranks' as zeros).
@@ -54,7 +63,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 B, P = 8, 16
-# (arch, width, depth, planted fault or None)
+# (arch, width, depth, planted fault or None[, split of SPLITS])
 CASES = (("qwen1.5-0.5b", "reduced", 2, None),
          ("qwen1.5-0.5b", "reduced", 8, None),
          ("qwen1.5-0.5b", "reduced", 24, None),
@@ -86,7 +95,19 @@ CASES = (("qwen1.5-0.5b", "reduced", 2, None),
          ("recurrentgemma-9b", "full", 9, None),
          ("recurrentgemma-9b", "full", 3, "gates-own-channels"),
          ("recurrentgemma-9b", "full", 6, "gates-own-channels"),
-         ("recurrentgemma-9b", "full", 9, "gates-own-channels"))
+         ("recurrentgemma-9b", "full", 9, "gates-own-channels"),
+         ("smollm-360m", "full", 2, None, "dh"),
+         ("smollm-360m", "full", 8, None, "dh"),
+         ("smollm-360m", "full", 2, "scores-no-all-reduce", "dh"),
+         ("smollm-360m", "full", 8, "scores-no-all-reduce", "dh"),
+         ("smollm-360m", "full", 2, "o-blocks-out-of-order", "dh"),
+         ("smollm-360m", "full", 8, "o-blocks-out-of-order", "dh"),
+         ("smollm-360m", "full", 2, "mask-before-join", "dh"),
+         ("smollm-360m", "full", 8, "mask-before-join", "dh"),
+         ("smollm-360m", "full", 2, None, "whole"),
+         ("smollm-360m", "full", 8, None, "whole"))
+# split -> (ranks, the engines' max_len)
+SPLITS = {None: (2, 64), "dh": (2, 63), "whole": (3, 64)}
 BIAS_SCALE = 0.5
 BOUND = 16              # chip_smoke.py's TRUNK_ULPS
 FAMILY_BOUND = {"mamba2-370m": 64, "recurrentgemma-9b": 3}  # its own
@@ -153,6 +174,23 @@ def plant(fault):
             finally:
                 layers._seq_split = split
         layers._self_attention_prefill = shifted
+    elif fault == "scores-no-all-reduce":
+        layers.trunk_all_reduce = lambda s, mesh: s
+    elif fault == "o-blocks-out-of-order":
+        gather = layers.all_gather_last
+
+        def reversed_blocks(x, widths, mesh):
+            got = gather(x, widths, mesh)
+            return torch.cat(got.split(list(widths), -1)[::-1], -1)
+        layers.all_gather_last = reversed_blocks
+    elif fault == "mask-before-join":
+        from repro_torch.kernels.paged_attention.ref import NEG_INF
+        join = layers._dh_join
+
+        def masked_first(s, valid, values, dtype, out_dtype):
+            s = torch.where(valid[:, :, None, :], s, NEG_INF)
+            return join(s, torch.ones_like(valid), values, dtype, out_dtype)
+        layers._dh_join = masked_first
     elif fault == "two-reduces":        # not a fault: another order
         def two(params, y, z, dtype, tp):
             r0, r1 = tp.ssm_rows
@@ -204,13 +242,13 @@ def with_biases(params, cut=None, whole=None):
 
 
 def prompt_len(cfg):
-    """16, or 32 under the sequence split (M = 2 does not divide the kv
-    heads): the decode step's position then opens rank 1's share of the
-    64 positions."""
+    """16, or 32 where M = 2 does not divide the kv heads: under the
+    sequence split the decode step's position then opens rank 1's share
+    of the 64 positions."""
     return P if cfg.num_kv_heads % 2 == 0 else 32
 
 
-def run(rank, n, arch, width, depth, fault=None):
+def run(rank, n, arch, width, depth, fault=None, split=None):
     """-> (decode logits [B, V] fp32, per MoE call [B, k] routes)."""
     torch.set_num_threads(2)
     if n is not None:
@@ -235,8 +273,10 @@ def run(rank, n, arch, width, depth, fault=None):
         params = with_biases(model.init(gen, cut=cut), cut,
                              model.abstract_params())
     eng = Engine(model, params, ByteTokenizer(cfg.vocab_size), {},
-                 max_len=64, slots=B, device="cpu", mesh=mesh,
+                 max_len=SPLITS[split][1], slots=B, device="cpu", mesh=mesh,
                  trunk_shard=True)
+    if mesh is not None and split is not None:
+        assert eng._trunk.cache == split, (eng._trunk.cache, split)
     calls, orig = [], layers.moe_ffn
 
     def spy(p, x, c):
@@ -260,10 +300,12 @@ def run(rank, n, arch, width, depth, fault=None):
     return logits.float(), routes_of(calls)
 
 
-def measure(arch, width, depth, fault):
+def measure(arch, width, depth, fault, split=None):
     from repro_torch.launch.mesh import spawn
     want, want_routes = run(0, None, arch, width, depth)
-    ranks = spawn(2, run, 2, arch, width, depth, fault, device="cpu")
+    n = SPLITS[split][0]
+    ranks = spawn(n, run, n, arch, width, depth, fault, split,
+                  device="cpu")
     top = float(want.abs().max())
     ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
     worst, held = 0.0, B
@@ -275,6 +317,7 @@ def measure(arch, width, depth, fault):
         err = (got - want).abs().amax(-1)[same]
         worst = max(worst, float(err.max()) if err.numel() else 0.0)
     return {"arch": arch, "width": width, "depth": depth, "fault": fault,
+            "split": split, "ranks": n, "max_len": SPLITS[split][1],
             "max_abs_err": worst, "largest_logit": top,
             "ulps": worst / ulp, "rows_held": held, "rows": B,
             "caught": held < B // 2 or
@@ -315,6 +358,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None)
     ap.add_argument("--arch", default=None, help="only this config's cases")
+    ap.add_argument("--split", default="any",
+                    choices=("any", "default", "dh", "whole"),
+                    help="only the cases of this split")
     ap.add_argument("--own-noise", type=int, default=None, metavar="DEPTH",
                     help="print --arch's one-device bf16 distance from its "
                          "fp32 twin at DEPTH layers and stop")
@@ -323,10 +369,12 @@ def main():
         print(json.dumps(own_noise(args.arch, args.own_noise)), flush=True)
         return
     out = []
-    for arch, width, depth, fault in CASES:
-        if args.arch not in (None, arch):
+    for arch, width, depth, fault, *split in CASES:
+        split = split[0] if split else None
+        if args.arch not in (None, arch) or \
+                args.split not in ("any", split or "default"):
             continue
-        r = measure(arch, width, depth, fault)
+        r = measure(arch, width, depth, fault, split)
         print(json.dumps(r), flush=True)
         out.append(r)
     if args.json:

@@ -587,3 +587,207 @@ extern "C" int paged_attention_launch(const void* q, const void* k,
                                      smem, qscale, st);
   return static_cast<int>(e);
 }
+
+// ---------------------------------------------------------------------------
+// The head_dim form: a pool split on head_dim over M ranks (a trunk-sharded
+// engine where M divides neither the kv heads nor the page size), each
+// rank holding channels [d0, d0 + dw) of every position, [P, ps, K, dw].
+// The reference's GSPMD program, for the rank's block, computes the
+// partial scores, all-reduces them, masks and softmaxes once, and
+// multiplies P by the rank's V block; the port does the same in two
+// launches around the all-reduce (kernels/paged_attention/ref.py::
+// paged_scores_ref, paged_values_ref are the plain versions):
+//   scores[b,s,h,l] = sum_{d < dw} T(q[b,s,h,d0+d] * scale) * K[l][d]
+//                     (fp32; l = j * ps + o at (page_table[b, j], o))
+//   values[b,s,h,d] = sum_l P[b,s,h,l] * V[l][d]   (P in T, sums fp32)
+// An unmapped page reads page 0, as the plain version's gather does (its
+// scores are masked after the join, its P is 0).
+//
+// Bound: bytes. Scores read the rank's K block of every page a slot
+// names and write 4 bytes a (row, position) for 2 dw operations; values
+// read P and the V block for 2 dw operations a (row, position). At the
+// served sizes (S <= 32, G <= 8 heads a kv head, dw 8-128) that is well
+// under the card's ~295 operations a byte.
+//
+// Design: simple fp32 FMA tiles, no tensor cores. Scores: one block per
+// (page, slot, kv head) copies the page's K block into shared memory as
+// fp32 (rows padded by one word, so that threads on consecutive positions
+// hit distinct banks) and gives each thread (row, position) dots over the
+// dw channels, written position-contiguous. Values: one block per (slot,
+// kv head, tile of R rows) walks the slot's pages in order; per page it
+// copies the tile's P and the page's V block into shared memory and each
+// thread adds P[r] . V[:, d] to up to kVPer (row, channel) accumulators in
+// registers. A page whose P is 0 on every row of the tile (past every
+// row's position, or unmapped) is skipped: it would add exact zeros.
+
+namespace {
+
+constexpr int kVPer = 8;  // (row, channel) accumulators a thread
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_scores_kernel(
+    const T* __restrict__ q, const T* __restrict__ kp,
+    const int32_t* __restrict__ pt, float* __restrict__ out, int S, int H,
+    int K, int Dh, int dw, int d0, int ps, int nP, float qscale) {
+  extern __shared__ float ks[];  // [ps][dw + 1]
+  const int j = blockIdx.x, b = blockIdx.y, kh = blockIdx.z;
+  const int G = H / K, ld = dw + 1;
+  const int page = max(pt[static_cast<size_t>(b) * nP + j], 0);
+  const T* src = kp + (static_cast<size_t>(page) * ps * K + kh) * dw;
+  for (int i = threadIdx.x; i < ps * dw; i += blockDim.x) {
+    const int o = i / dw, d = i - o * dw;
+    ks[o * ld + d] = to_f(src[static_cast<size_t>(o) * K * dw + d]);
+  }
+  __syncthreads();
+  const size_t L = static_cast<size_t>(nP) * ps;
+  for (int i = threadIdx.x; i < S * G * ps; i += blockDim.x) {
+    const int r = i / ps, o = i - r * ps;
+    const int s = r / G, h = kh * G + r % G;
+    const size_t row = (static_cast<size_t>(b) * S + s) * H + h;
+    const T* qr = q + row * Dh + d0;
+    const float* kr = ks + o * ld;
+    float acc = 0.f;
+    for (int d = 0; d < dw; ++d)
+      acc = fmaf(to_f(from_f<T>(to_f(qr[d]) * qscale)), kr[d], acc);
+    out[row * L + static_cast<size_t>(j) * ps + o] = acc;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_values_kernel(
+    const T* __restrict__ p, const T* __restrict__ vp,
+    const int32_t* __restrict__ pt, float* __restrict__ out, int S, int H,
+    int K, int dw, int ps, int nP, int R) {
+  extern __shared__ float vsm[];
+  float* vs = vsm;            // [ps][dw]
+  float* pr = vsm + ps * dw;  // [R][ps]
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int G = H / K, r0 = blockIdx.z * R;
+  const int nr = min(R, S * G - r0);
+  const size_t L = static_cast<size_t>(nP) * ps;
+  float acc[kVPer];
+#pragma unroll
+  for (int t = 0; t < kVPer; ++t) acc[t] = 0.f;
+  for (int j = 0; j < nP; ++j) {
+    int live = 0;
+    for (int i = threadIdx.x; i < nr * ps; i += blockDim.x) {
+      const int r = i / ps, o = i - r * ps;
+      const int s = (r0 + r) / G, h = kh * G + (r0 + r) % G;
+      const float x = to_f(p[((static_cast<size_t>(b) * S + s) * H + h) * L +
+                             static_cast<size_t>(j) * ps + o]);
+      pr[i] = x;
+      live |= x != 0.f;
+    }
+    if (!__syncthreads_or(live)) continue;
+    const int page = max(pt[static_cast<size_t>(b) * nP + j], 0);
+    const T* src = vp + (static_cast<size_t>(page) * ps * K + kh) * dw;
+    for (int i = threadIdx.x; i < ps * dw; i += blockDim.x) {
+      const int o = i / dw, d = i - o * dw;
+      vs[i] = to_f(src[static_cast<size_t>(o) * K * dw + d]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kVPer; ++t) {
+      const int i = threadIdx.x + t * kThreads;
+      if (i < nr * dw) {
+        const int r = i / dw, d = i - r * dw;
+        float a = acc[t];
+        for (int o = 0; o < ps; ++o)
+          a = fmaf(pr[r * ps + o], vs[o * dw + d], a);
+        acc[t] = a;
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int t = 0; t < kVPer; ++t) {
+    const int i = threadIdx.x + t * kThreads;
+    if (i < nr * dw) {
+      const int r = i / dw, d = i - r * dw;
+      const int s = (r0 + r) / G, h = kh * G + (r0 + r) % G;
+      out[((static_cast<size_t>(b) * S + s) * H + h) * dw + d] = acc[t];
+    }
+  }
+}
+
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q [B,S,H,Dh] (every channel); k_pool
+// [P,ps,K,dw] channels [d0, d0 + dw) of each position; page table [B,nP]
+// int32 (-1 = unmapped); out fp32 [B,S,H,nP*ps]; qscale 1/sqrt(Dh)
+// rounded to the dtype.
+extern "C" int paged_scores_launch(const void* q, const void* k,
+                                   const void* pt, void* out, int dtype,
+                                   int B, int S, int H, int K, int Dh,
+                                   int dw, int d0, int ps, int nP,
+                                   float qscale, void* stream) {
+  if (B == 0 || S == 0) return 0;
+  const int smem = ps * (dw + 1) * 4;
+  if (K < 1 || H % K || dw < 1 || d0 < 0 || d0 + dw > Dh || ps < 1 ||
+      nP < 1 || B > 65535 || K > 65535 || smem > kSmemMax ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(nP, B, K);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0) {
+    auto kern = paged_scores_kernel<float>;
+    if ((e = allow_smem(kern, smem)) != cudaSuccess) return e;
+    kern<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const int32_t*>(pt), static_cast<float*>(out), S, H, K,
+        Dh, dw, d0, ps, nP, qscale);
+  } else {
+    auto kern = paged_scores_kernel<__nv_bfloat16>;
+    if ((e = allow_smem(kern, smem)) != cudaSuccess) return e;
+    kern<<<grid, kThreads, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const int32_t*>(pt), static_cast<float*>(out), S, H, K,
+        Dh, dw, d0, ps, nP, qscale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// p [B,S,H,nP*ps] the joined probabilities in the dtype; v_pool
+// [P,ps,K,dw]; page table [B,nP]; out fp32 [B,S,H,dw]. R rows of the S *
+// (H/K) of each (slot, kv head) a block, R * dw <= 128 * kVPer.
+extern "C" int paged_values_launch(const void* p, const void* v,
+                                   const void* pt, void* out, int dtype,
+                                   int B, int S, int H, int K, int dw,
+                                   int ps, int nP, int R, void* stream) {
+  if (B == 0 || S == 0) return 0;
+  const int smem = (ps * dw + R * ps) * 4;
+  const int tiles = (S * (H / (K > 0 ? K : 1)) + R - 1) / (R > 0 ? R : 1);
+  if (K < 1 || H % K || dw < 1 || ps < 1 || nP < 1 || R < 1 ||
+      R * dw > kThreads * kVPer || K > 65535 || tiles > 65535 ||
+      smem > kSmemMax || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B, K, tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0) {
+    auto kern = paged_values_kernel<float>;
+    if ((e = allow_smem(kern, smem)) != cudaSuccess) return e;
+    kern<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(p), static_cast<const float*>(v),
+        static_cast<const int32_t*>(pt), static_cast<float*>(out), S, H, K,
+        dw, ps, nP, R);
+  } else {
+    auto kern = paged_values_kernel<__nv_bfloat16>;
+    if ((e = allow_smem(kern, smem)) != cudaSuccess) return e;
+    kern<<<grid, kThreads, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(p),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const int32_t*>(pt), static_cast<float*>(out), S, H, K,
+        dw, ps, nP, R);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

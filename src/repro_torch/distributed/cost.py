@@ -101,9 +101,11 @@ after its all-gather. The collectives counted, each where it falls:
   * the MoE expert-parallel exchange: an all-to-all of the [B, E, C, D]
     dispatch buffer into the experts and of their output back, in the
     forward, the recompute and the backward;
-  * in decode against a cache whose sequence dim is on "model", the
-    all-reduce that joins the partial attention outputs, and the argmax
-    combine of the served token over the vocab shards.
+  * in decode against a cache (or a paged pool) whose sequence dim is on
+    "model", the all-reduce that joins the partial attention outputs;
+    against one whose head_dim is on "model", the all-reduce of the
+    fp32 partial scores; and the argmax combine of the served token over
+    the vocab shards.
 The recurrent kinds split as their leaves do: the SSM's w_in columns,
 conv channels, state heads and w_out rows, the RG-LRU's R (its
 projections, conv, gates, state and w_out), each by its own rule; their
@@ -601,6 +603,40 @@ def decode_step(cfg, B: int, cache_len: int, mesh=None, vocab=None):
     return span_decode(cfg, B, 1, cache_len, mesh=mesh, vocab=vocab)
 
 
+def _kv_exchange(t, cfg, spec, rows, S, L):
+    """GSPMD's exchange for one device's attention over a k/v leaf split
+    by `spec` ([c, B|P, L|ps, K, Dh]), at every self-attention layer: a
+    cache split on its sequence joins the partial outputs and their max
+    and sum in one all-reduce of [rows, H, S, Dh + 2] fp32; one split on
+    head_dim all-reduces the fp32 partial scores, [rows, H, S, L]. Split
+    by kv heads or whole: nothing."""
+    if t.mesh is None:
+        return
+    H, Dh = cfg.num_heads, cfg.resolved_head_dim
+    if spec[2] == "model":
+        b = rows * H * S * (Dh + 2) * 4
+    elif spec[4] == "model":
+        b = rows * H * S * L * 4
+    else:
+        return
+    t.collective("all-reduce", b, t.model, _n_self_attn(cfg))
+
+
+def _kv_ways(cfg, n, mesh) -> int:
+    """The model ways `cache_spec` splits a k/v leaf of length n into
+    (its kv heads, its length or its head_dim; 1 when whole)."""
+    if mesh is None:
+        return 1
+    return _spec_ways(_kv_spec(cfg, n, mesh), mesh, skip_data=True)
+
+
+def _kv_spec(cfg, n, mesh):
+    """`cache_spec` of a one-row k leaf [1, 1, n, K, Dh]."""
+    from .sharding import cache_spec
+    return cache_spec("['k']", (1, 1, n, cfg.num_kv_heads,
+                                cfg.resolved_head_dim), mesh)
+
+
 def span_decode(cfg, B: int, K: int, cache_len: int, mesh=None,
                 vocab=None):
     """One `Model.decode_span` of K tokens a row against dense caches
@@ -612,21 +648,16 @@ def span_decode(cfg, B: int, K: int, cache_len: int, mesh=None,
     rows = B / w.dw
     specs = cache_specs(caches, mesh) if mesh is not None else None
     t.bytes += _tree_bytes(caches, specs, mesh)
-    # written: K new positions a row at every attention layer, and the
-    # recurrent layers' state whole
+    # written: K new positions a row at every attention layer (the
+    # device's share of each under the cache's split), and the recurrent
+    # layers' state whole
     kv = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * w.it
     t.bytes += _n_self_attn(cfg) * rows * K * (
-        kv / t.split(cfg.num_kv_heads) + 4)
+        kv / _kv_ways(cfg, L, mesh) + 4)
     t.bytes += sum(b for p, b in _leaf_bytes(caches, specs, mesh)
                    if p.endswith(("['h']", "['conv']")))
-    if mesh is not None and any(
-            len(sp) == 5 and sp[2] == "model"
-            for _, _, sp in leaves_with_specs(caches, specs)):
-        # a sequence-split cache: the partial outputs and their max and
-        # sum joined over "model" at every attention layer
-        H, Dh = cfg.num_heads, cfg.resolved_head_dim
-        t.collective("all-reduce", rows * H * K * (Dh + 2) * 4, t.model,
-                     _n_self_attn(cfg))
+    if mesh is not None and _n_self_attn(cfg):
+        _kv_exchange(t, cfg, _kv_spec(cfg, L, mesh), rows, K, L)
     return t.forward()
 
 
@@ -638,13 +669,18 @@ def paged_feed(cfg, B: int, S: int, pages: int, page_size: int,
     gathers them all); bytes: the pool at the pages the table names,
     the S positions written a row, the table and the feed mask, and the
     logits of every fed position. Under a mesh, per device: the pool's
-    kv heads split as `cache_spec` splits them."""
-    t, w = _forward(cfg, "decode", B, S, mesh, vocab,
-                    cache=pages * page_size, paged=True)
+    share that `cache_spec` gives a device (its kv heads, its in-page
+    offsets or its head_dim; all of it when whole), and the exchange of
+    a split pool (`_kv_exchange`)."""
+    L = pages * page_size
+    t, w = _forward(cfg, "decode", B, S, mesh, vocab, cache=L, paged=True)
     kv = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * w.it / \
-        t.split(cfg.num_kv_heads)
-    t.bytes += _n_self_attn(cfg) * B * (pages * page_size + S) * kv
+        _kv_ways(cfg, page_size, mesh)
+    t.bytes += _n_self_attn(cfg) * B * (L + S) * kv
     t.bytes += B * pages * 4 + B * S + B * 4
+    if mesh is not None and _n_self_attn(cfg):
+        _kv_exchange(t, cfg, _kv_spec(cfg, page_size, mesh), B / w.dw, S,
+                     L)
     return t.forward()
 
 

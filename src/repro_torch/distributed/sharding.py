@@ -20,7 +20,8 @@ Parameter rules (megatron-style tensor parallelism on "model"):
     (e.g. smollm's 15 heads on a 16-way model axis).
 
 KV caches: batch on data; kv-head dim on model when divisible, otherwise
-the cache *sequence* dim goes on model, then head_dim.
+the cache *sequence* dim goes on model, else head_dim, else the leaf is
+replicated.
 
 Where the reference wraps each rule in a `NamedSharding` tree
 (`params_shardings`, ...), the port returns the tree of specs
@@ -35,8 +36,8 @@ collectives by, as the reference's dry run does; no live trainer shards
 (the reference's has no mesh either). Under `trunk_shard=True` the
 serving engine cuts each trunk leaf by `serving_param_spec(...,
 trunk_shard=True)` and each cache and pool leaf by `serving_cache_specs`
-(`trunk_plan` says what that splits, by heads or by the cache's
-sequence dim, and refuses the splits the port does not serve;
+(`trunk_plan` says what that splits: a cache by its kv heads, its
+sequence, its head_dim or not at all, as the reference's rule picks;
 `trunk_slice` is one leaf's cut). All are held to the
 reference's specs by the tests.
 """
@@ -492,20 +493,29 @@ class TrunkPlan:
     (`experts_split`). `heads`, `kv_heads`, `d_ff` and `experts` are the
     counts one rank's layers run over.
 
-    Two attention splits. Where M divides the kv heads (`seq` False), q
-    heads, kv heads (cache and pool leaves too) and the QKV columns split
-    whole heads: rank r holds q heads [rH/M, (r+1)H/M) and kv heads
+    Where M divides the kv heads, q heads, kv heads (cache and pool
+    leaves too) and the QKV columns split whole heads (`cache` and
+    `pool` "heads"): rank r holds q heads [rH/M, (r+1)H/M) and kv heads
     [rK/M, (r+1)K/M), so q head h still reads kv head h // (H/K). Where
-    it does not (`seq` True), the rules put the cache's sequence dim on
-    "model" instead: rank r holds positions `positions` = [rL/M,
-    (r+1)L/M) of every dense cache of L positions and in-page offsets
-    `offsets` = [r ps/M, (r+1) ps/M) of every page of a pool, all kv
-    heads of each; wq/wk/wv keep their column blocks `q_cols`/`kv_cols`
-    (None: the leaf whole), which may cut inside a head, so the rank
-    gathers whole q/k/v heads (one all-gather), attends over its own
-    positions (a partial attention with its log-sum-exp) and joins the
-    partials (one all-gather); wo's rows `wo_rows` (None: whole) take
-    the rank's columns of the joined output.
+    it does not (`gathers`), wq/wk/wv keep their column blocks
+    `q_cols`/`kv_cols` (None: the leaf whole), which may cut inside a
+    head, so the rank gathers whole q/k/v heads (one all-gather) and
+    runs every head; wo's rows `wo_rows` (None: whole) take the rank's
+    columns of the whole attention output. Each kind of cache then takes
+    the reference's next branch for its own length, read from
+    `cache_spec`: the dense caches of `cache_len` positions (`cache`)
+    and the pools of `page_size`-position pages (`pool`) may differ.
+      * "seq": rank r holds positions `positions` = [rL/M, (r+1)L/M) of
+        every dense cache, or in-page offsets `offsets` = [r ps/M, (r+1)
+        ps/M) of every page, all kv heads of each; it attends over them
+        (a partial attention with its log-sum-exp) and the partials are
+        joined (one all-gather).
+      * "dh": rank r holds head_dim block `head_dims` = [r Dh/M, (r+1)
+        Dh/M) of every position; its fp32 partial scores are all-reduced,
+        masked and softmaxed once, and its block of P.V gathered.
+      * "whole": every rank holds the whole leaf and attends as one
+        device does.
+    A kind of cache the plan was not given a length for is None.
 
     The recurrent kinds keep their widths in `local_config` and run over
     blocks (start, stop), each None where the rule leaves its leaves
@@ -523,12 +533,14 @@ class TrunkPlan:
     experts: int
     ff_split: bool
     experts_split: bool
-    seq: bool = False
+    cache: Optional[str] = None
+    pool: Optional[str] = None
     q_cols: Optional[tuple] = None
     kv_cols: Optional[tuple] = None
     wo_rows: Optional[tuple] = None
     positions: Optional[tuple] = None
     offsets: Optional[tuple] = None
+    head_dims: Optional[tuple] = None
     ssm_in: Optional[tuple] = None
     ssm_conv: Optional[tuple] = None
     ssm_heads: Optional[tuple] = None
@@ -540,9 +552,15 @@ class TrunkPlan:
         """False at M = 1: every block is the whole leaf."""
         return self.size > 1
 
+    @property
+    def gathers(self) -> bool:
+        """True where M does not divide the kv heads: the rank gathers
+        whole q/k/v and runs every head."""
+        return self.split and self.cache != "heads"
+
     def local_config(self, cfg):
         """The rank-local view of `cfg` its layers run over: its q and kv
-        heads (all of them under the sequence split), its share of d_ff;
+        heads (all of them where it gathers), its share of d_ff;
         head_dim, the expert count, the expert width, the vocabulary and
         the recurrent widths stay whole (routing and capacity read the
         global E; the recurrent layers read their blocks from the plan)."""
@@ -617,18 +635,27 @@ def _recurrent_blocks(cfg, kinds, mesh, rank, where) -> dict:
     return out
 
 
+def _kv_split(spec) -> str:
+    """The branch a k/v spec [c, B, L, K, Dh] (a dense cache, or a pool
+    [c, P, ps, K, Dh]) takes, in the reference's order of preference
+    (`cache_spec`): its kv heads, its sequence, its head_dim, or the
+    whole leaf on every rank."""
+    for name, dim in (("heads", 3), ("seq", 2), ("dh", 4)):
+        if spec[dim] == "model":
+            return name
+    return "whole"
+
+
 def trunk_plan(cfg, M: int, rank: int = 0, cache_len=None,
                page_size=None) -> TrunkPlan:
     """The trunk split of `cfg` over M ranks. At M = 1 nothing is split.
     `cache_len` is the attention layers' dense caches' length (max_len,
     or a smaller window: `serving_trunk_plan`) and `page_size` the
-    pools' page, each when the engine holds such caches. Above M = 1,
-    raises ValueError (naming the config, M and the dimension) for a
-    split the port does not serve: a layer kind other than attn, moe, ssm
-    and rec (the vlm and audio families), or, where attention layers are
-    present and M does not divide the kv heads, a cache length or page
-    size that M does not divide either (the reference's rule then splits
-    head_dim or replicates the cache: `cache_spec`)."""
+    pools' page, each when the engine holds such caches: the branch each
+    kind of cache takes is read from `cache_spec` at that length (see
+    `TrunkPlan`). Above M = 1, raises ValueError (naming the config, M
+    and the layer kinds) for a layer kind other than attn, moe, ssm and
+    rec: the vlm and audio families, which the engine does not serve."""
     M = int(M)
     if M < 1:
         raise ValueError(f"trunk_shard: M must be >= 1, got {M}")
@@ -658,23 +685,20 @@ def trunk_plan(cfg, M: int, rank: int = 0, cache_len=None,
                wo_rows=_block(param_spec("['groups'][0][0]['attn']['wo']",
                                          wo, mesh), wo, mesh, rank, 1))
     cache = lambda n: (1, 1, n, K, Dh)
-    if cache_spec("['k']", cache(1), mesh)[3] == "model":   # kv heads
-        return TrunkPlan(M, int(rank), H // M, K // M, **own)
-    spans = {}
-    for what, n in (("positions", cache_len), ("offsets", page_size)):
+    if _kv_split(cache_spec("['k']", cache(1), mesh)) == "heads":
+        return TrunkPlan(M, int(rank), H // M, K // M, cache="heads",
+                         pool="heads", **own)
+    for what, n, block in (("cache", cache_len, "positions"),
+                           ("pool", page_size, "offsets")):
         if n is None:
             continue
-        span = _block(cache_spec("['k']", cache(n), mesh), cache(n), mesh,
-                      rank, 2)
-        if span is None:
-            dim = "cache length (max_len)" if what == "positions" else \
-                "page_size"
-            raise ValueError(
-                f"{where}: num_kv_heads {K} does not split {M} ways and "
-                f"the {dim} {n} does not either (the reference's rule then "
-                f"splits head_dim or replicates the cache; not served)")
-        spans[what] = span
-    return TrunkPlan(M, int(rank), H, K, seq=True, **own, **spans)
+        spec = cache_spec("['k']", cache(n), mesh)
+        own[what] = _kv_split(spec)
+        if own[what] == "seq":
+            own[block] = _block(spec, cache(n), mesh, rank, 2)
+        elif own[what] == "dh":
+            own["head_dims"] = _block(spec, cache(n), mesh, rank, 4)
+    return TrunkPlan(M, int(rank), H, K, **own)
 
 
 def serving_trunk_plan(cfg, M: int, rank: int, max_len: int,

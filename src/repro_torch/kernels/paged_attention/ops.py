@@ -17,6 +17,13 @@ pages of `ps` positions -> the rank's fp32 output, not rounded, and each
 row's fp32 log-sum-exp (`ref.paged_attention_partial_ref`; rows with no
 valid position on the rank: 0 and NEG_INF). Its launches count in
 `paged_attention_partial.launches`.
+
+`paged_attention_scores` and `paged_attention_values` are the head_dim
+form (a pool split on head_dim: [P, ps, K, dw] a rank), two launches of
+`csrc/paged_attention.cu` around the caller's all-reduce: the rank's
+fp32 partial scores through the page table, then the joined
+probabilities times its V block (`ref.paged_scores_ref`,
+`ref.paged_values_ref`). Each counts in its own `.launches`.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ import torch
 
 from .. import _build
 from ..flash_attention.ops import aligned, qscale
-from .ref import paged_attention_partial_ref, paged_attention_ref
+from .ref import (paged_attention_partial_ref, paged_attention_ref,
+                  paged_scores_ref, paged_values_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
@@ -38,7 +46,8 @@ MAX_CLUSTER = 8             # the portable thread-block cluster size
 MAX_ROWS = 32               # query rows per cluster
 MMA_ROWS = 16               # bf16 spans of at least one mma row tile
                             # take tiles of exactly one
-_LAUNCH: dict = {}          # "fn" -> the C entry point, typed once
+VALUES_OUT = 1024           # (row, channel) outputs a values block holds
+_LAUNCH: dict = {}          # C entry point name -> the function, typed once
 
 
 class Plan(NamedTuple):
@@ -111,15 +120,23 @@ def pages_of(plan: Plan, rank: int, nP: int) -> range:
     return range(beg, min(nP, beg + plan.ppb))
 
 
-def _launcher():
-    fn = _LAUNCH.get("fn")
+_SIGNATURES = {
+    "paged_attention_launch": _ARGTYPES,
+    "paged_scores_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    + [ctypes.c_float, ctypes.c_void_p],
+    "paged_values_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p]}
+
+
+def _launcher(name="paged_attention_launch"):
+    fn = _LAUNCH.get(name)
     if fn is None:
         lib = _build.load()
-        fn = lib.paged_attention_launch
-        fn.argtypes = _ARGTYPES
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
         _LAUNCH["lib"] = lib
-        _LAUNCH["fn"] = fn
+        _LAUNCH[name] = fn
     return _LAUNCH["lib"], fn
 
 
@@ -204,6 +221,77 @@ def paged_attention_partial(q, k_pool, v_pool, page_table, pos, ps: int,
     return out
 
 
+def values_rows(S: int, G: int, dw: int) -> int:
+    """Query rows a values block takes: as many of the S * G rows of a
+    (slot, kv head) as keep its (row, channel) outputs within
+    VALUES_OUT (8 fp32 accumulators a thread), at least one."""
+    return max(1, min(S * G, VALUES_OUT // dw))
+
+
+def paged_attention_scores(q, k_pool, page_table, d0: int):
+    """The head_dim form's first launch: q [B,S,H,Dh] (roped, unscaled,
+    every channel); k_pool [P,ps,K,dw] channels [d0, d0 + dw) of every
+    position; page_table [B,nP] int32 -> fp32 partial scores
+    [B,S,H,nP*ps] (`ref.paged_scores_ref`)."""
+    if _device(q, "paged_attention_scores") == "cpu":
+        return paged_scores_ref(q, k_pool, page_table, d0)
+    B, S, H, Dh = q.shape
+    P, ps, K, dw = k_pool.shape
+    nP = page_table.shape[1]
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or H % K or \
+            not 0 <= d0 <= Dh - dw or tuple(page_table.shape) != (B, nP) \
+            or nP < 1 or page_table.dtype != torch.int32 or B > 65535 or \
+            ps * (dw + 1) * 4 > SMEM_MAX:
+        raise ValueError(f"paged_attention_scores: unsupported q "
+                         f"{tuple(q.shape)} {q.dtype}, pool "
+                         f"{tuple(k_pool.shape)} {k_pool.dtype}, page table "
+                         f"{tuple(page_table.shape)} {page_table.dtype}, "
+                         f"channels [{d0}, {d0 + dw})")
+    q, k_pool, page_table = (t.contiguous() for t in (q, k_pool,
+                                                       page_table))
+    out = torch.empty((B, S, H, nP * ps), dtype=torch.float32,
+                      device=q.device)
+    lib, fn = _launcher("paged_scores_launch")
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), page_table.data_ptr(),
+            out.data_ptr(), _DTYPES[q.dtype], B, S, H, K, Dh, dw, int(d0),
+            ps, nP, qscale(q.dtype, Dh),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "paged_attention_scores launch")
+    paged_attention_scores.launches += 1
+    return out
+
+
+def paged_attention_values(p, v_pool, page_table):
+    """The head_dim form's second launch: p [B,S,H,nP*ps] the joined
+    probabilities in the value dtype; v_pool [P,ps,K,dw]; page_table
+    [B,nP] int32 -> fp32 [B,S,H,dw] (`ref.paged_values_ref`)."""
+    if _device(p, "paged_attention_values") == "cpu":
+        return paged_values_ref(p, v_pool, page_table)
+    B, S, H, L = p.shape
+    P, ps, K, dw = v_pool.shape
+    nP = page_table.shape[1]
+    R = values_rows(S, H // max(K, 1), dw)
+    if p.dtype not in _DTYPES or v_pool.dtype != p.dtype or H % K or \
+            L != nP * ps or tuple(page_table.shape) != (B, nP) or \
+            nP < 1 or page_table.dtype != torch.int32 or \
+            R * dw > VALUES_OUT or -(-S * (H // K) // R) > 65535 or \
+            (ps * dw + R * ps) * 4 > SMEM_MAX:
+        raise ValueError(f"paged_attention_values: unsupported p "
+                         f"{tuple(p.shape)} {p.dtype}, pool "
+                         f"{tuple(v_pool.shape)} {v_pool.dtype}, page table "
+                         f"{tuple(page_table.shape)} {page_table.dtype}")
+    p, v_pool, page_table = (t.contiguous() for t in (p, v_pool,
+                                                       page_table))
+    out = torch.empty((B, S, H, dw), dtype=torch.float32, device=p.device)
+    lib, fn = _launcher("paged_values_launch")
+    rc = fn(p.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+            out.data_ptr(), _DTYPES[p.dtype], B, S, H, K, dw, ps, nP, R,
+            torch.cuda.current_stream(p.device).cuda_stream)
+    _build.check(lib, rc, "paged_attention_values launch")
+    paged_attention_values.launches += 1
+    return out
+
+
 def paged_attention_decode(q, k_pool, v_pool, page_table, pos):
     """Decode ([B, 1]) form: q [B,H,Dh] -> [B,H,Dh]."""
     return paged_attention(q[:, None], k_pool, v_pool, page_table,
@@ -212,3 +300,5 @@ def paged_attention_decode(q, k_pool, v_pool, page_table, pos):
 
 paged_attention.launches = 0
 paged_attention_partial.launches = 0
+paged_attention_scores.launches = 0
+paged_attention_values.launches = 0

@@ -119,3 +119,55 @@ def paged_attention_partial_ref(q, k_pool, v_pool, page_table, pos, ps,
     mapped = (page_table >= 0).repeat_interleave(psl, dim=1)
     valid = mapped[:, None, :] & (idx[None, None, :] <= qpos[:, :, None])
     return attend_partial(q, kc, vc, valid)
+
+
+def dh_scores(q, kc, d0: int):
+    """q [B,S,H,Dh] (roped, unscaled, every channel), kc [B,L,K,dw] one
+    rank's channels [d0, d0 + dw) of the cache -> [B,S,H,L] fp32: the
+    scaled q's channels [d0, d0 + dw) dotted with kc, q scaled in its own
+    dtype as in `attend`."""
+    B, S, H, Dh = q.shape
+    L, K, dw = kc.shape[1:]
+    qs = (q * torch.tensor(1.0 / Dh ** 0.5, dtype=q.dtype))[..., d0:d0 + dw]
+    s = torch.einsum("bqkgd,blkd->bqkgl",
+                     qs.reshape(B, S, K, H // K, dw).float(), kc.float())
+    return s.reshape(B, S, H, L)
+
+
+def dh_probs(s, valid, dtype):
+    """Joined fp32 scores [B,S,H,L] and valid [B,S,L] -> P [B,S,H,L] in
+    `dtype`: masked to NEG_INF, softmax in fp32, rounded as `attend`
+    rounds P before P.V."""
+    s = torch.where(valid[:, :, None, :], s, NEG_INF)
+    return torch.softmax(s, dim=-1).to(dtype)
+
+
+def dh_values(p, vc):
+    """P [B,S,H,L] (the value dtype) and vc [B,L,K,dw] one rank's
+    channels of the cache -> [B,S,H,dw] fp32: P.V over those channels."""
+    B, S, H, L = p.shape
+    K, dw = vc.shape[2:]
+    o = torch.einsum("bqkgl,blkd->bqkgd",
+                     p.reshape(B, S, K, H // K, L).float(), vc.float())
+    return o.reshape(B, S, H, dw)
+
+
+def _gathered(pool, page_table):
+    """The slots' pages of `pool` [P, ps, K, dw] in table order -> [B,
+    nP * ps, K, dw] (an unmapped page reads page 0)."""
+    B, nP = page_table.shape
+    ps, K, dw = pool.shape[1:]
+    return pool[page_table.clamp(min=0).long()].reshape(B, nP * ps, K, dw)
+
+
+def paged_scores_ref(q, k_pool, page_table, d0: int):
+    """`dh_scores` through a page table: k_pool [P, ps, K, dw] holds
+    channels [d0, d0 + dw) of every page; page_table [B, nP] int32 ->
+    [B,S,H,nP*ps] fp32, position l = j * ps + o at (page_table[b, j], o)."""
+    return dh_scores(q, _gathered(k_pool, page_table), d0)
+
+
+def paged_values_ref(p, v_pool, page_table):
+    """`dh_values` through a page table: P [B,S,H,nP*ps] (the value
+    dtype), v_pool [P, ps, K, dw] -> [B,S,H,dw] fp32."""
+    return dh_values(p, _gathered(v_pool, page_table))

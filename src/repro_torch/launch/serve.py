@@ -34,15 +34,18 @@ and the page pools (Megatron column/row blocks, kv heads, experts): each
 rank draws only its blocks. It takes the dense and MoE configs: by kv
 heads where N divides them (syncode-demo, qwen1.5-0.5b, internlm2-1.8b,
 deepseek-coder-33b, qwen3-moe-30b-a3b and kimi-k2-1t-a32b at N = 2 and
-4), else by the caches' positions and each page's offsets (smollm-360m's
-5 kv heads at N = 2 and 4; syncode-demo's and qwen3-moe's 4 at N = 8),
-where N must divide `build_engine`'s max_len (512 here; the attention
-ring, min(max_len, local_window), for recurrentgemma) and, paged,
-`--page-size`. It takes the ssm and hybrid configs too (mamba2-370m,
+4); else each cache by the reference's next branch for its own length
+(`build_engine`'s max_len, 512 here, or the attention ring,
+min(max_len, local_window), for recurrentgemma; paged, `--page-size`):
+its positions or each page's offsets where N divides that length
+(smollm-360m's 5 kv heads at N = 2 and 4; syncode-demo's and
+qwen3-moe's 4 at N = 8), else its block of head_dim where N divides that
+(smollm-360m at N = 2 and an odd length), else the whole cache on every
+rank (N = 3). It takes the ssm and hybrid configs too (mamba2-370m,
 recurrentgemma-9b: w_in columns, conv channels, SSD heads, the RG-LRU
 width, with the gathers `models/ssm.py` and `models/rglru.py` name),
-dense and `--sequential`. It refuses the rest with a ValueError (such a
-length; the vlm and audio families).
+dense and `--sequential`. It refuses the vlm and audio families with a
+ValueError.
 
 Weights are random, drawn from `--seed` by a torch.Generator on the
 device, or loaded with `--checkpoint` from a msgpack checkpoint that

@@ -11,11 +11,12 @@ Under a trunk-sharded engine (`distributed.api.current_trunk()`) a rank
 holds the column blocks of wq/wk/wv/w_gate/w_up and the row blocks of
 wo/w_down (Megatron), runs over the rank-local config (H/M, K/M heads):
 `attn_out` and `ffn` all-reduce their partial products, and `qkv_proj`
-takes the rank's columns of the whole 1-D QKV biases. Under the
-sequence split (`TrunkPlan.seq`: M does not divide the kv heads) the
-column blocks may cut inside a head: `qkv_proj` gathers them into whole
-heads (one all-gather), and `attn_out` takes the rank's columns of the
-whole attention output before its wo rows.
+takes the rank's columns of the whole 1-D QKV biases. Where M does not
+divide the kv heads (`TrunkPlan.gathers`: the caches then split their
+sequence or head_dim, or stay whole) the column blocks may cut inside a
+head: `qkv_proj` gathers them into whole heads (one all-gather), and
+`attn_out` takes the rank's columns of the whole attention output before
+its wo rows.
 """
 from __future__ import annotations
 
@@ -175,7 +176,7 @@ def _cols(b, span):
 
 
 def _whole_cols(parts):
-    """The sequence split's [(y [B, S, n], span)] -> each y whole: the
+    """A gathering split's [(y [B, S, n], span)] -> each y whole: the
     column blocks (span not None) go in one all-gather, whose rank order
     is the columns' order."""
     out = [y for y, _ in parts]
@@ -205,7 +206,7 @@ def qkv_proj(p, x, cfg):
         q = q + _cols(p["bq"], qc)
         k = k + _cols(p["bk"], kc)
         v = v + _cols(p["bv"], kc)
-    if tp is not None and tp.seq:
+    if tp is not None and tp.gathers:
         q, k, v = _whole_cols([(q, qc), (k, kc), (v, kc)])
     return (q.reshape(B, S, H, Dh), k.reshape(B, S, K, Dh),
             v.reshape(B, S, K, Dh))
@@ -215,13 +216,13 @@ def attn_out(p, o):
     """o [B,S,H,Dh] @ wo; under a trunk split of wo's rows (`wo_rows`)
     the rank's rows give a partial sum over H*Dh, all-reduced: o holds
     the rank's heads (head split), or every head, of which the rank
-    takes its rows' columns (sequence split; wo whole where M does not
+    takes its rows' columns (where it gathers; wo whole where M does not
     divide H*Dh, and nothing to reduce)."""
     B, S, H, Dh = o.shape
     o = o.reshape(B, S, H * Dh)
     tp = current_trunk()
     rows = None if tp is None else tp.wo_rows
-    if rows is not None and tp.seq:
+    if rows is not None and tp.gathers:
         o = o[..., rows[0]:rows[1]]
     y = matmul(o, p["wo"])
     if rows is not None:

@@ -22,15 +22,26 @@ KV caches store rotated K plus a per-slot absolute-position array
 share one masking rule: valid <=> 0 <= kv_pos <= q_pos (and
 q_pos - kv_pos < window).
 
-Under a trunk-sharded engine's sequence split (`TrunkPlan.seq`: M does
-not divide the kv heads) a rank's dense cache holds its positions
-`positions` of the L (k/v [B, L/M, K, Dh]; kv_pos stays whole, as the
-reference's `cache_spec` keeps it) and its pools the in-page offsets
-`offsets` of every page ([P, ps/M, K, Dh]). q/k/v come whole from
-`qkv_proj`; prefill attends as one device does and writes the rank's
-slots only; decode writes the rank's slots, attends over them
-(`attend_partial`, `paged_attention_partial`) and joins the ranks'
-partials by their log-sum-exp (`_join`).
+Under a trunk-sharded engine where M does not divide the kv heads
+(`TrunkPlan.gathers`) q/k/v come whole from `qkv_proj`, and each kind of
+cache takes the branch the reference's `cache_spec` gives its length
+(`TrunkPlan.cache` for the dense caches, `.pool` for the page pools):
+  * "seq": a rank's dense cache holds its positions `positions` of the L
+    (k/v [B, L/M, K, Dh]) and its pools the in-page offsets `offsets` of
+    every page ([P, ps/M, K, Dh]); decode attends over them
+    (`attend_partial`, `paged_attention_partial`) and joins the ranks'
+    partials by their log-sum-exp (`_join`);
+  * "dh": k/v hold the rank's head_dim block `head_dims` = [d0, d1) of
+    every position ([B, L, K, dw], [P, ps, K, dw]); decode forms its fp32
+    partial scores (`dh_scores`, `paged_attention_scores`), all-reduces
+    them, masks and softmaxes once, multiplies P by its V block
+    (`dh_values`, `paged_attention_values`) and gathers the blocks
+    (`_dh_join`), as the reference's jnp path runs under GSPMD;
+  * "whole": every rank holds and attends over the whole cache, as one
+    device does.
+kv_pos stays whole in every branch, as the reference's `cache_spec`
+keeps it. Prefill attends as one device does (the flash kernel on the
+gathered q/k/v) and writes the rank's share of every cache.
 
 Unlike the functional reference, decode writes the new K/V into the
 cache IN PLACE (the cache dict passed in is the one returned), which
@@ -47,13 +58,18 @@ from .common import (apply_rope, attn_out, ffn, init_attention, init_ffn,
 from .moe import init_moe, moe_ffn
 from .rglru import init_rglru, rglru_decode, rglru_prefill, rglru_train
 from .ssm import init_ssm, ssm_decode, ssm_prefill, ssm_train
-from ..distributed.api import all_gather_stack, current_mesh, current_trunk
+from ..distributed.api import (all_gather_last, all_gather_stack,
+                               current_mesh, current_trunk,
+                               trunk_all_reduce)
 from ..kernels.flash_attention.ops import attention, qscale
 from ..kernels.flash_attention.ref import qscale_tensor
 from ..kernels.paged_attention.ops import (paged_attention,
-                                          paged_attention_partial)
+                                          paged_attention_partial,
+                                          paged_attention_scores,
+                                          paged_attention_values)
 from ..kernels.paged_attention.ref import (attend, attend_partial,
-                                           combine_partials)
+                                           combine_partials, dh_probs,
+                                           dh_scores, dh_values)
 
 
 def _window_of(cfg, ctx):
@@ -66,25 +82,41 @@ def _cache_len(cfg, ctx, seq_len):
     return min(L, w) if w else L
 
 
-def _seq_split():
-    """This rank's TrunkPlan under a sequence split, else None."""
+def _kv_split(kind):
+    """(this rank's TrunkPlan, its split of the `kind` caches: "cache"
+    the dense ones, "pool" the page pools) where the rank gathers whole
+    q/k/v, else (None, None): a cache then holds the local config's kv
+    heads whole."""
     tp = current_trunk()
-    return tp if tp is not None and tp.seq else None
+    if tp is None or not tp.gathers:
+        return None, None
+    split = getattr(tp, kind)
+    if split is None:
+        raise ValueError(f"trunk_shard: this rank's plan was made without "
+                         f"a length for its {kind} caches")
+    return tp, split
+
+
+def _block(t, tp, split):
+    """t [..., Dh] -> the rank's head_dim block under "dh", else t."""
+    return t[..., tp.head_dims[0]:tp.head_dims[1]] if split == "dh" else t
 
 
 def init_kv_cache(cfg, batch, length, dtype, device, lead=()):
-    """k/v [*lead, batch, n, K, Dh]: n the length, or under a
-    trunk-sharded engine's sequence split this rank's share of the
-    positions (`TrunkPlan.positions`, planned for this length); kv_pos
+    """k/v [*lead, batch, n, K, dw]: n the length and dw the head_dim, or
+    under a trunk-sharded engine's split of the dense caches (planned for
+    this length) the rank's share of the positions (`TrunkPlan.positions`,
+    "seq") or of head_dim (`TrunkPlan.head_dims`, "dh"); kv_pos
     [*lead, batch, length] whole."""
     K = cfg.num_kv_heads
     Dh = cfg.resolved_head_dim
-    tp = _seq_split()
-    n = length if tp is None else tp.positions[1] - tp.positions[0]
+    tp, split = _kv_split("cache")
+    n = tp.positions[1] - tp.positions[0] if split == "seq" else length
+    dw = tp.head_dims[1] - tp.head_dims[0] if split == "dh" else Dh
     return {
-        "k": torch.zeros((*lead, batch, n, K, Dh), dtype=dtype,
+        "k": torch.zeros((*lead, batch, n, K, dw), dtype=dtype,
                          device=device),
-        "v": torch.zeros((*lead, batch, n, K, Dh), dtype=dtype,
+        "v": torch.zeros((*lead, batch, n, K, dw), dtype=dtype,
                          device=device),
         "kv_pos": torch.full((*lead, batch, length), -1, dtype=torch.int32,
                              device=device),
@@ -97,6 +129,19 @@ def _join(o, lse, dtype):
     got = all_gather_stack(torch.cat([o, lse[..., None]], -1),
                            current_mesh())
     return combine_partials(got[..., :-1], got[..., -1], dtype)
+
+
+def _dh_join(s, valid, values, dtype, out_dtype):
+    """The head_dim split's attention from this rank's fp32 partial
+    scores s [B,S,H,L]: one all-reduce joins them, the mask valid
+    [B,S,L] and the fp32 softmax apply once (P rounded to `dtype`, the
+    values'), `values(P)` gives the rank's fp32 block of P.V's channels,
+    rounded to `out_dtype`, and one all-gather joins the blocks in rank
+    order, which is channel order -> [B,S,H,Dh]."""
+    mesh = current_mesh()
+    s = trunk_all_reduce(s, mesh)
+    o = values(dh_probs(s, valid, dtype)).to(out_dtype)
+    return all_gather_last(o, (o.shape[-1],) * mesh.size, mesh)
 
 
 def _self_attention_train(p, x, cfg, ctx):
@@ -133,16 +178,16 @@ def _self_attention_prefill(p, x, cfg, ctx):
     # gather does; kv_pos = -1 hides them too.
     limit = min(S, int(ctx["true_len"])) if "true_len" in ctx else S
     src = take.clamp(max=S - 1)
-    tp = _seq_split()
+    tp, split = _kv_split("cache")
     cache = init_kv_cache(cfg, B, L, x.dtype, dev)
-    if tp is None:
-        cache["k"][:, slot] = k[:, src]
-        cache["v"][:, slot] = v[:, src]
-    else:               # the rank's positions [lo, hi) only
+    if split == "seq":  # the rank's positions [lo, hi) only
         lo, hi = tp.positions
         mine = (slot >= lo) & (slot < hi)
         cache["k"][:, slot[mine] - lo] = k[:, src[mine]]
         cache["v"][:, slot[mine] - lo] = v[:, src[mine]]
+    else:               # every position: its head_dim block under "dh"
+        cache["k"][:, slot] = _block(k, tp, split)[:, src]
+        cache["v"][:, slot] = _block(v, tp, split)[:, src]
     cache["kv_pos"][:, slot] = torch.where(
         take < limit, take, -1).to(torch.int32)[None, :].expand(B, L)
     return attn_out(p, o), cache
@@ -159,17 +204,21 @@ def _paged_attention_decode(p, x, cache, cfg, ctx):
     Attention reads back through the page table
     (`kernels.paged_attention`). Rejected speculative writes roll back as
     in the dense path: positions past the commit frontier are masked
-    (idx <= q_pos) and overwritten on re-feed. Under a sequence split
-    the pools hold the rank's offsets [o0, o1) of pages of ps = M (o1 -
-    o0) positions: the rank writes positions at those offsets only and
-    joins its partial attention with the other ranks'."""
+    (idx <= q_pos) and overwritten on re-feed. Under a split of the
+    pools (`TrunkPlan.pool`): "seq", the pools hold the rank's offsets
+    [o0, o1) of pages of ps = M (o1 - o0) positions, and the rank writes
+    positions at those offsets only and joins its partial attention with
+    the other ranks'; "dh", they hold its head_dim block [d0, d1) of
+    every position, and the rank writes that block and runs the kernel's
+    head_dim form around the joins (`_dh_join`); "whole", as one
+    device."""
     B, S, D = x.shape
     dev = x.device
-    kp, vp = cache["k"], cache["v"]                     # [P,ps(/M),K,Dh]
-    P, psl, K, Dh = kp.shape
-    tp = _seq_split()
-    ps = psl if tp is None else psl * tp.size
-    o0 = 0 if tp is None else tp.offsets[0]
+    kp, vp = cache["k"], cache["v"]                     # [P,ps(/M),K,dw]
+    P, psl, K, dw = kp.shape
+    tp, split = _kv_split("pool")
+    ps = psl * tp.size if split == "seq" else psl
+    o0 = tp.offsets[0] if split == "seq" else 0
     pos = torch.as_tensor(ctx["pos"], dtype=torch.int32,
                           device=dev).expand(B)
     qpos = pos[:, None] + torch.arange(S, dtype=torch.int32,
@@ -188,16 +237,24 @@ def _paged_attention_decode(p, x, cache, cfg, ctx):
     if feed is not None:
         ok &= feed
     off = (qpos % ps).long() - o0
-    if tp is not None:
+    if split == "seq":
         ok &= (off >= 0) & (off < psl)
     dest = (page.long() * psl + off)[ok]
-    kp.view(P * psl, K, Dh)[dest] = k[ok].to(kp.dtype)
-    vp.view(P * psl, K, Dh)[dest] = v[ok].to(vp.dtype)
-    if tp is None:
-        o = paged_attention(q, kp, vp, pt, pos)
-    else:
+    kp.view(P * psl, K, dw)[dest] = _block(k, tp, split)[ok].to(kp.dtype)
+    vp.view(P * psl, K, dw)[dest] = _block(v, tp, split)[ok].to(vp.dtype)
+    if split == "seq":
         o = _join(*paged_attention_partial(q, kp, vp, pt, pos, ps, o0),
                   q.dtype)
+    elif split == "dh":
+        idx = torch.arange(nP * ps, dtype=torch.int32, device=dev)
+        mapped = (pt >= 0).repeat_interleave(ps, dim=1)         # [B,L]
+        valid = mapped[:, None, :] & (idx[None, None, :] <=
+                                      qpos[:, :, None])
+        o = _dh_join(paged_attention_scores(q, kp, pt, tp.head_dims[0]),
+                     valid, lambda pr: paged_attention_values(pr, vp, pt),
+                     vp.dtype, q.dtype)
+    else:
+        o = paged_attention(q, kp, vp, pt, pos)
     return attn_out(p, o), cache
 
 
@@ -209,7 +266,10 @@ def _self_attention_decode(p, x, cache, cfg, ctx):
     position. Writes go into `cache` in place; position-addressed masking
     (kv_pos <= q_pos) makes a rewrite of a position idempotent. With a
     page table in ctx the slot's KV lives in the shared paged pool
-    instead (`_paged_attention_decode`)."""
+    instead (`_paged_attention_decode`). Under a split of the dense
+    caches (`TrunkPlan.cache`) the rank writes its positions ("seq") or
+    its head_dim block ("dh") and joins the ranks' attention (module
+    docstring)."""
     if "page_table" in ctx:
         return _paged_attention_decode(p, x, cache, cfg, ctx)
     B, S, D = x.shape
@@ -222,35 +282,40 @@ def _self_attention_decode(p, x, cache, cfg, ctx):
     q = apply_rope(q, qpos, cfg.rope_theta)
     k = apply_rope(k, qpos, cfg.rope_theta)
     kc, vc, kvp = cache["k"], cache["v"], cache["kv_pos"]
-    L = kvp.shape[1]            # kv_pos is whole under a sequence split
+    L = kvp.shape[1]            # kv_pos is whole under every split
     slot = (qpos % L).long()                                    # [B,S]
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
     feed = ctx.get("feed_mask")
     pn = qpos if feed is None else torch.where(feed, qpos, kvp[bidx, slot])
-    tp = _seq_split()
-    if tp is None:
-        kn, vn = k.to(kc.dtype), v.to(vc.dtype)
-        if feed is not None:
-            kn = torch.where(feed[..., None, None], kn, kc[bidx, slot])
-            vn = torch.where(feed[..., None, None], vn, vc[bidx, slot])
-        kc[bidx, slot] = kn
-        vc[bidx, slot] = vn
-    else:               # the rank's positions [lo, hi) only
+    tp, split = _kv_split("cache")
+    if split == "seq":  # the rank's positions [lo, hi) only
         lo, hi = tp.positions
         mine = (slot >= lo) & (slot < hi)
         if feed is not None:
             mine &= feed
         kc[bidx[mine], slot[mine] - lo] = k[mine].to(kc.dtype)
         vc[bidx[mine], slot[mine] - lo] = v[mine].to(vc.dtype)
+    else:               # its head_dim block under "dh"
+        kn = _block(k, tp, split).to(kc.dtype)
+        vn = _block(v, tp, split).to(vc.dtype)
+        if feed is not None:
+            kn = torch.where(feed[..., None, None], kn, kc[bidx, slot])
+            vn = torch.where(feed[..., None, None], vn, vc[bidx, slot])
+        kc[bidx, slot] = kn
+        vc[bidx, slot] = vn
     kvp[bidx, slot] = pn
 
     w = _window_of(cfg, ctx)
     valid = (kvp[:, None, :] >= 0) & (kvp[:, None, :] <= qpos[:, :, None])
     if w:
         valid &= kvp[:, None, :] > (qpos[:, :, None] - w)
-    if tp is None:
-        return attn_out(p, attend(q, kc, vc, valid)), cache
-    o = _join(*attend_partial(q, kc, vc, valid[..., lo:hi]), q.dtype)
+    if split == "seq":
+        o = _join(*attend_partial(q, kc, vc, valid[..., lo:hi]), q.dtype)
+    elif split == "dh":
+        o = _dh_join(dh_scores(q, kc, tp.head_dims[0]), valid,
+                     lambda pr: dh_values(pr, vc), vc.dtype, q.dtype)
+    else:
+        o = attend(q, kc, vc, valid)
     return attn_out(p, o), cache
 
 

@@ -397,9 +397,12 @@ class Model:
         attention layer holds {"k","v": [count, num_pages, page_size, K,
         Dh]} shared across all decode slots; per-slot page tables ride in
         via batch_ctx["page_table"] on each decode/span call. Under a
-        trunk-sharded engine's sequence split (the `use_sharding` context)
-        a rank holds its in-page offsets `TrunkPlan.offsets` of each page.
-        Requires position-addressed, window-free attention throughout."""
+        trunk-sharded engine's split of the pools (the `use_sharding`
+        context, `TrunkPlan.pool`) a rank holds its in-page offsets
+        `TrunkPlan.offsets` of each page ("seq"), its head_dim block
+        `TrunkPlan.head_dims` of each position ("dh"), or every page
+        whole ("whole"). Requires position-addressed, window-free
+        attention throughout."""
         cfg = self.cfg
         if not self.supports_span_decode:
             raise ValueError(
@@ -412,8 +415,14 @@ class Model:
         dtype = dtype_of(cfg)
         K, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
         tp = current_trunk()
-        if tp is not None and tp.seq:
-            page_size = tp.offsets[1] - tp.offsets[0]
+        if tp is not None and tp.gathers:
+            if tp.pool is None:
+                raise ValueError("trunk_shard: this rank's plan was made "
+                                 "without a page size")
+            if tp.pool == "seq":
+                page_size = tp.offsets[1] - tp.offsets[0]
+            elif tp.pool == "dh":
+                Dh = tp.head_dims[1] - tp.head_dims[0]
         shape = lambda count: (count, num_pages, page_size, K, Dh)
         return [tuple({"k": torch.zeros(shape(count), dtype=dtype,
                                         device=self.device),

@@ -79,19 +79,21 @@ says: each all-reduce adds partial sums in another order than the
 one-device product (in the CPU tests, fp32 at 1, 2 and 4 ranks: logits
 within atol 1e-4 of the JAX one-device model, and every serving path
 gives the unsharded engine's tokens). Where M does not divide the kv
-heads the rules put the caches' sequence dim on "model" instead
-(`TrunkPlan.seq`): the rank gathers whole q/k/v heads from its column
-blocks, holds its share of each cache's positions and of each page's
-offsets, attends over them and joins the ranks' partial attentions by
-their log-sum-exp (`models/layers.py`); the attention ring (`max_len`,
-or the hybrid's local window) and, paged, `page_size` must then divide
-M ways. The recurrent families (mamba2's ssm, recurrentgemma's rec)
-split their channels by the same rules (`TrunkPlan`'s ssm and rec
-blocks) and serve dense and sequential, as on one device: each rank's
-recurrent caches hold its heads' or its width's state and its conv
-channels (`models/ssm.py`, `models/rglru.py` name the gathers). The vlm
-and audio families are refused with a ValueError (ROADMAP queue 1 item
-2 lists what is left).
+heads (`TrunkPlan.gathers`) the rank gathers whole q/k/v heads from its
+column blocks, and each kind of cache takes the reference's next branch
+for its own length (`TrunkPlan.cache` for the attention ring of
+`max_len` positions, or the hybrid's local window; `TrunkPlan.pool` for
+pages of `page_size`): its share of each cache's positions and of each
+page's offsets, whose partial attentions are joined by their
+log-sum-exp; else its block of head_dim, whose partial scores are
+all-reduced and whose blocks of the output are gathered; else the whole
+cache on every rank (`models/layers.py`). The recurrent families
+(mamba2's ssm, recurrentgemma's rec) split their channels by the same
+rules (`TrunkPlan`'s ssm and rec blocks) and serve dense and
+sequential, as on one device: each rank's recurrent caches hold its
+heads' or its width's state and its conv channels (`models/ssm.py`,
+`models/rglru.py` name the gathers). The vlm and audio families, which
+the engine does not serve at all, are refused with a ValueError.
 """
 from __future__ import annotations
 

@@ -110,15 +110,15 @@ def model_case(mesh, cfg, params_np, toks):
             "resident": C._bytes(eng.params) + C._bytes(dense)}
 
 
-def run_cases(mesh, name, payload, device="cpu"):
+def run_cases(mesh, name, payload, device="cpu", cfg=None):
     """The paths these families serve, on one engine: greedy and sampled
     `generate()` over the six builtin grammars, a long unconstrained run
     (the hybrid's ring wraps three times) and `generate_sequential` ->
     {case: {rid: (token ids, finish reason)}}. `mesh` None is the
-    unsharded port on `device`."""
+    unsharded port on `device`; `cfg` replaces config `name`."""
     params_np, tok, bundles = payload[:3]
     dev = mesh.device if mesh is not None else torch.device(device)
-    eng = Engine(build_model(config(name), device=dev),
+    eng = Engine(build_model(cfg or config(name), device=dev),
                  bridge.to_torch(params_np, dev), tok, bundles,
                  max_len=MAX_LEN, slots=4, device=dev, mesh=mesh,
                  trunk_shard=True)

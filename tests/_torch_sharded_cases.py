@@ -148,14 +148,15 @@ def _async_cancel(eng):
 
 def run_cases(mesh, vocab, params_np, tok, grammars, async_cancel=False,
               cfg=None, device="cpu", max_len=MAX_LEN, long=False,
-              **engine_kw):
+              page_size=8, **engine_kw):
     """Every case on one engine set-up: the reference's weights as numpy
     leaves, the port's tokenizer and {name: bundle} of the six builtin
     grammars. `mesh` None is the unsharded port. `cfg` replaces the
     narrow syncode-demo at `vocab`; `device` is the unsharded engine's
     (a mesh brings its own); `max_len` is every engine's; `long` adds the
-    "long" case (`long_requests` through dense `generate()`); `engine_kw`
-    go to every Engine (e.g. trunk_shard=True)."""
+    "long" case (`long_requests` through dense `generate()`);
+    `page_size` is the paged case's; `engine_kw` go to every Engine
+    (e.g. trunk_shard=True)."""
     dev = mesh.device if mesh is not None else torch.device(device)
     model = build_model(cfg or config(vocab), device=dev)
     params = bridge.to_torch(params_np, dev)
@@ -177,7 +178,7 @@ def run_cases(mesh, vocab, params_np, tok, grammars, async_cancel=False,
         speculative_requests(), spec=SpecConfig(literal_jump=False))[0])
     out["sequential"] = tokens(eng.generate_sequential(
         sequential_requests())[0])
-    paged = engine(paged=True, page_size=8)
+    paged = engine(paged=True, page_size=page_size)
     states, stats = paged.generate(prefix_requests())
     out["paged"] = tokens(states)
     out["paged_hit_rate"] = stats.prefix_hit_rate

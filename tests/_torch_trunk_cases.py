@@ -82,15 +82,15 @@ def _bytes(tree) -> int:
                for _, t in leaves_with_path(tree))
 
 
-def model_case(mesh, cfg, params_np, toks, max_len=S.MAX_LEN):
+def model_case(mesh, cfg, params_np, toks, max_len=S.MAX_LEN, page=PAGE):
     """Prefill B x P tokens (toks [B, P + 1]) and one decode step at
     position P through a trunk-sharded engine's own device calls (dense
-    caches of `max_len`) -> the gathered
-    logits of both, the decode step's collective tally, the rank's
-    params (numpy), the shapes of a fresh decode cache tree and page
-    pool, the bytes the rank holds (params + the decode caches of its
-    slots) and `live`: the written positions of the first layer's cache
-    among those the rank holds (all of them without a sequence split)."""
+    caches of `max_len`) -> the gathered logits of both, the decode
+    step's collective tally, the rank's params (numpy), the shapes of a
+    fresh decode cache tree and page pool (pages of `page` positions),
+    the bytes the rank holds (params + the decode caches of its slots)
+    and `live`: the written positions of the first layer's cache among
+    those the rank holds (all of them without a sequence split)."""
     P = toks.shape[1] - 1
     eng = Engine(build_model(cfg, device="cpu"), bridge.to_torch(params_np),
                  ByteTokenizer(V), {}, max_len=max_len, slots=B,
@@ -101,14 +101,15 @@ def model_case(mesh, cfg, params_np, toks, max_len=S.MAX_LEN):
                        torch.full((B,), P, dtype=torch.int32))
     tally = collective_tally()
     tp = eng._trunk
-    lo, hi = tp.positions if tp is not None and tp.seq else (0, max_len)
+    lo, hi = tp.positions if tp is not None and tp.cache == "seq" \
+        else (0, max_len)
     dense = eng._decode_caches(B)
-    # the pool a paged engine of PAGE-position pages would hold, its plan
-    # the same but for the in-page offsets
+    # the pool a paged engine of `page`-position pages would hold, its
+    # plan the same but for the pool's split
     paged = None if tp is None else serving_trunk_plan(
-        cfg, tp.size, tp.rank, max_len, PAGE)
+        cfg, tp.size, tp.rank, max_len, page)
     with use_sharding(mesh, eng._vs, paged):
-        pools = eng.model.init_paged_caches(PAGES, PAGE)
+        pools = eng.model.init_paged_caches(PAGES, page)
     return {"prefill": eng._gather(logits).numpy(),
             "decode": eng._gather(step).numpy(), "tally": tally,
             "params": bridge.to_numpy(eng.params),
@@ -117,8 +118,16 @@ def model_case(mesh, cfg, params_np, toks, max_len=S.MAX_LEN):
             "live": int((caches[0][0]["kv_pos"][0, :, lo:hi] >= 0).sum())}
 
 
+# the card test's head_dim world: SEQ_CONFIGS' dense widths at a max_len
+# and page size that M = 2 does not divide (cache and pool on head_dim)
+DH_CARD = ("seq", 47, 9)
+
+
 def _serving_kw(name):
-    """`run_cases`' engine length and long case for config `name`."""
+    """`run_cases`' engine length, long case and page size for config
+    `name` (or "dh": DH_CARD's)."""
+    if name == "dh":
+        return dict(max_len=DH_CARD[1], long=True, page_size=DH_CARD[2])
     seq = name in SEQ_CONFIGS
     return dict(max_len=SEQ_MAX_LEN if seq else S.MAX_LEN, long=seq)
 
@@ -211,20 +220,22 @@ def card_payload(name):
     return random_biases(bridge.to_numpy(params)), tok, bundles
 
 
-CARD_CONFIGS = (*CONFIGS, "seq")
+CARD_CONFIGS = (*CONFIGS, "seq", "dh")
 
 
 def card_world(rank, n, device="cuda"):
-    """Every serving case of CARD_CONFIGS on the card (`device`): one
-    device (n None, in the calling process) or rank `rank` of an n-rank
-    gloo world under trunk_shard -> {config: {case: tokens}}."""
+    """Every serving case of CARD_CONFIGS on the card (`device`; "dh":
+    the "seq" widths at DH_CARD's lengths): one device (n None, in the
+    calling process) or rank `rank` of an n-rank gloo world under
+    trunk_shard -> {config: {case: tokens}}."""
     mesh = None if n is None else make_serving_mesh(n, backend="gloo",
                                                     device=device)
     out = {}
     for name in CARD_CONFIGS:
-        res = S.run_cases(mesh, V, *card_payload(name), cfg=config(name),
-                          device=device, trunk_shard=True,
-                          **_serving_kw(name))
+        widths = DH_CARD[0] if name == "dh" else name
+        res = S.run_cases(mesh, V, *card_payload(widths),
+                          cfg=config(widths), device=device,
+                          trunk_shard=True, **_serving_kw(name))
         out[name] = {k: v for k, v in res.items()
                      if k not in ("stores", "mesh_devices")}
     return out

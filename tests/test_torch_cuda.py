@@ -842,6 +842,62 @@ def test_paged_attention_partial_matches_plain(dev, nP, psl, S, dtype):
         assert dead[-1].all() and (r == 0 or dead[0, 0].all())
         assert (lse[dead] == wl[dead]).all() and (o[dead] == 0).all()
 
+
+@pytest.mark.parametrize("S,ps", [(1, 9), (8, 16), (16, 9), (1, 16)])
+@pytest.mark.parametrize("H,K,Dh,M", [(15, 5, 64, 2), (16, 1, 256, 2),
+                                      (6, 3, 32, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_head_dim_form_matches_plain(dev, S, ps, H, K, Dh, M, dtype):
+    """The head_dim form over each rank's block of a pool split M ways
+    on head_dim (smollm-360m's heads in 32-wide blocks, recurrentgemma's
+    in 128-wide, the narrow CPU config's in 8-wide), 7 pages a slot with
+    holes: each rank's `paged_attention_scores` and
+    `paged_attention_values` within DH_TOL (1e-5) of the plain version's
+    largest magnitude (both sum exact products in fp32 in another
+    order), and the partial scores summed, softmaxed once and the blocks
+    of P.V joined within the paged tolerance of the whole kernel."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_scores, paged_attention_values)
+    from repro_torch.kernels.paged_attention.ref import (
+        dh_probs, paged_scores_ref, paged_values_ref)
+    B, nP = 8, 7
+    rng, q, kp, vp, pt, pos = _paged_inputs(dev, S + ps + Dh, B, S, H, K,
+                                            Dh, ps, nP, B * nP, dtype)
+    pt[:, 1:][rng.random((B, nP - 1)) < 0.15] = -1
+    pt[-1] = -1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    pt, pos = t(pt), t(pos)
+    qpos = pos[:, None] + torch.arange(S, device=dev)[None, :]
+    valid = (pt >= 0).repeat_interleave(ps, dim=1)[:, None, :] & \
+        (torch.arange(nP * ps, device=dev)[None, None, :] <=
+         qpos[:, :, None])
+    rel = lambda a, b: ((a - b).abs().max() /
+                        b.abs().max().clamp(min=1.0)).item()
+    dw, total = Dh // M, 0
+    for r in range(M):
+        kr = kp[..., r * dw:(r + 1) * dw].contiguous()
+        before = paged_attention_scores.launches
+        s = paged_attention_scores(q, kr, pt, r * dw)
+        assert paged_attention_scores.launches == before + 1
+        assert s.dtype == torch.float32 and s.shape == (B, S, H, nP * ps)
+        assert rel(s, paged_scores_ref(q, kr, pt, r * dw)) <= 1e-5
+        total = total + s
+    p = dh_probs(total, valid, dtype)
+    blocks = []
+    for r in range(M):
+        vr = vp[..., r * dw:(r + 1) * dw].contiguous()
+        before = paged_attention_values.launches
+        o = paged_attention_values(p, vr, pt)
+        assert paged_attention_values.launches == before + 1
+        assert o.dtype == torch.float32 and o.shape == (B, S, H, dw)
+        assert rel(o, paged_values_ref(p, vr, pt)) <= 1e-5
+        blocks.append(o)
+    got = torch.cat(blocks, -1).to(dtype)
+    want = paged_attention(q, kp, vp, pt, pos)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -5
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
 # --------------------------------------------- attention backward (training)
 
 def _bwd_inputs(dev, B, Sq, Sk, H, K, Dh, dtype, seed):
@@ -1003,8 +1059,11 @@ def test_trunk_shard_world_of_two_on_the_card(dev):
     the one card (NCCL refuses two ranks on one device), the narrow fp32
     dense and MoE configs of `tests/_torch_trunk_cases.py` and its
     6/3-head config, whose kv heads M = 2 does not divide (the sequence
-    split: the partial paged kernel over 4 of each page's 8 offsets),
-    with the port's own seeded weights: every serving case of
+    split at max_len 48: the partial paged kernel over 4 of each page's
+    8 offsets; and, "dh", at max_len 47 with pages of 9, which M = 2
+    does not divide either: the head_dim split, the paged kernel's
+    head_dim form over 16 of the 32 channels), with the port's own
+    seeded weights: every serving case of
     `_torch_sharded_cases` (greedy and sampled over six grammars,
     speculative, paged with a shared prefix, two-grammar store,
     sequential, opportunistic, and the sequence split's long run) gives

@@ -355,7 +355,7 @@ def test_full_width_plans_are_the_reference_blocks(arch, M):
                                      ("w_out", (1, R_, D), 1)):
                 assert plan.rec_width == blk(name, shape, dim), name
             assert plan.rec_width == blk("h", (1, 1, R_), 2, cache=True)
-            assert plan.seq and plan.positions == blk(
+            assert plan.cache == "seq" and plan.positions == blk(
                 "k", (1, 1, 2048, 1, 256), 2, cache=True)
             assert plan.d_ff * M == cfg.d_ff and plan.ff_split
 

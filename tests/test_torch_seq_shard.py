@@ -390,7 +390,7 @@ def test_seq_plans_are_the_reference_rules(arch, M):
     assert cspec[2] == pspec[2] == "model" and cspec[3] is None
     for rank in range(M):
         plan = port.trunk_plan(cfg, M, rank, cache_len=L, page_size=ps)
-        assert plan.seq and plan.split
+        assert plan.cache == plan.pool == "seq" and plan.split
         for got, name, shape, dim in (
                 (plan.q_cols, "wq", (1, D, H * Dh), 2),
                 (plan.kv_cols, "wk", (1, D, K * Dh), 2),
@@ -418,12 +418,27 @@ CACHE_REFUSED = [("smollm-360m", 2, dict(cache_len=511), "max_len) 511"),
 
 @pytest.mark.parametrize("arch,M,kw,dim", CACHE_REFUSED)
 def test_cache_lengths_m_does_not_divide_are_refused(arch, M, kw, dim):
-    """The reference's head_dim and replicated branches stay refused,
-    naming the config, M and the dimension; the same config and M with
-    lengths M divides are served."""
+    """Where M divides neither the kv heads nor the cache length (or the
+    page size) the reference's rule splits head_dim, and so does the
+    plan (these four cases were refused until the port served that
+    branch): every rank's head_dim block is the reference's
+    `cache_shardings` block at that length, and the same config and M
+    with lengths M divides take the sequence split."""
     cfg = get_config(arch)
-    with pytest.raises(ValueError) as e:
-        port.trunk_plan(cfg, M, 0, **kw)
-    msg = str(e.value)
-    assert cfg.name in msg and f"M = {M}" in msg and dim in msg
-    assert port.trunk_plan(cfg, M, 0, cache_len=64, page_size=16).seq
+    jcfg = jax_get_config(arch)
+    mesh = _mesh(M)
+    (what, n), = kw.items()
+    kind = {"cache_len": "cache", "page_size": "pool"}[what]
+    K, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (1, 1, n, K, Dh)
+    spec = tuple(ref.cache_shardings(
+        {"k": jax.ShapeDtypeStruct(shape, jnp.bfloat16)}, mesh, jcfg)["k"])
+    assert spec[3] is None and spec[2] is None and spec[4] == "model", dim
+    for rank in range(M):
+        plan = port.trunk_plan(cfg, M, rank, **kw)
+        assert getattr(plan, kind) == "dh" and plan.gathers
+        sl = port.shard_slice(spec, shape, mesh, rank)[4]
+        assert plan.head_dims == (sl.start, sl.stop)
+        assert plan.positions is None and plan.offsets is None
+    served = port.trunk_plan(cfg, M, 0, cache_len=64, page_size=16)
+    assert served.cache == served.pool == "seq"

@@ -266,9 +266,11 @@ def _one_rank_of(M):
 
 def test_engine_needs_a_model_axis_and_refuses_trunk_shard():
     """No 'model' axis: ValueError. trunk_shard at M = 1 (or without a
-    mesh) splits nothing: the plain engine, the same tensors; a split the
-    trunk plan refuses raises ValueError naming it (here 1 kv head and a
-    max_len of 31 at M = 2: neither divides)."""
+    mesh) splits nothing: the plain engine, the same tensors. Where M
+    divides neither the kv heads nor max_len (here 1 kv head and a
+    max_len of 31 at M = 2), which the engine refused until it served
+    the reference's head_dim branch, the rank holds its block of
+    head_dim: channels [0, 8) of the 16 in every cache."""
     with pytest.raises(ValueError, match="'model' axis"):
         _tiny_engine(mesh=MeshShape({"data": 2}, ("data",)))
     plain = _tiny_engine()
@@ -278,9 +280,10 @@ def test_engine_needs_a_model_axis_and_refuses_trunk_shard():
         assert [tuple(t.shape) for _, t in port.leaves_with_path(
             eng.params)] == [tuple(t.shape) for _, t in
                              port.leaves_with_path(plain.params)]
-    with pytest.raises(ValueError, match="num_kv_heads 1 does not split "
-                       "2 ways and the cache length"):
-        _tiny_engine(mesh=_one_rank_of(2), trunk_shard=True, max_len=31)
+    eng = _tiny_engine(mesh=_one_rank_of(2), trunk_shard=True, max_len=31)
+    assert (eng._trunk.cache, eng._trunk.head_dims) == ("dh", (0, 8))
+    k = eng._decode_caches(1)[0][0]["k"]
+    assert k.shape[-3:] == (31, 1, 8)
     eng = _tiny_engine(mesh=make_serving_mesh(1, device="cpu"))
     assert eng._vs.split and eng._vs.width == 320
     assert eng._store_cat.shape == (1, 10)
@@ -288,13 +291,14 @@ def test_engine_needs_a_model_axis_and_refuses_trunk_shard():
 
 def test_build_engine_passes_mesh_and_trunk_shard():
     """build_engine hands trunk_shard to the engine: at M = 1 the plain
-    engine; at M = 2 a refused split (smollm-360m's 5 kv heads and a
-    max_len of 511) raises."""
+    engine; at M = 2, smollm-360m's 5 kv heads and a max_len of 511
+    (refused until the port served the reference's head_dim branch)
+    give rank 0 channels [0, 32) of each head."""
     from repro_torch.launch.serve import build_engine
-    with pytest.raises(ValueError, match="smollm-360m at M = 2"):
-        build_engine("smollm-360m", grammars=(), device="cpu",
-                     mesh=_one_rank_of(2), trunk_shard=True, num_layers=1,
-                     max_len=511)
+    eng, _, _ = build_engine("smollm-360m", grammars=(), device="cpu",
+                             mesh=_one_rank_of(2), trunk_shard=True,
+                             num_layers=1, max_len=511)
+    assert (eng._trunk.cache, eng._trunk.head_dims) == ("dh", (0, 32))
     eng, _, _ = build_engine(grammars=("json",), device="cpu", mesh=1,
                              trunk_shard=True, num_layers=1)
     assert eng.mesh.size == 1 and eng._trunk is None

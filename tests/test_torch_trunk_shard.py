@@ -26,6 +26,7 @@ and the splits `trunk_plan` refuses raise ValueError. The sequence split
 (M does not divide the kv heads) is held by tests/test_torch_seq_shard.py,
 the recurrent families by tests/test_torch_recurrent_shard.py."""
 import threading
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -302,9 +303,10 @@ def test_resident_bytes_are_the_trunk_spec_argument_bytes(runs, name, M):
 # ------------------------------- refusals -------------------------------
 
 # (config, M, the engine's cache lengths, the dimension named): the
-# layer kinds the port does not split, and where M divides neither the
-# kv heads nor a cache length (the reference then splits head_dim or
-# replicates the cache; recurrentgemma's one kv head included)
+# layer kinds the port does not split (the vlm and audio families), and
+# where M divides neither the kv heads nor a cache length, which the port
+# refused until it served the reference's head_dim branch (recurrentgemma's
+# one kv head included): these four now plan that branch
 REFUSED = [("smollm-360m", 2, dict(cache_len=511), "max_len) 511"),
            ("syncode-demo", 8, dict(cache_len=100), "max_len) 100"),
            ("qwen3-moe-30b-a3b", 8, dict(page_size=4), "page_size 4"),
@@ -316,12 +318,30 @@ REFUSED = [("smollm-360m", 2, dict(cache_len=511), "max_len) 511"),
 @pytest.mark.parametrize("arch,M,lens,dim", REFUSED)
 def test_refused_splits_raise_naming_config_m_and_dimension(arch, M, lens,
                                                             dim):
+    """The vlm and audio kinds raise, naming the config, M and the kinds;
+    a cache length M does not divide (beside kv heads it does not
+    divide) takes the reference's head_dim block on every rank."""
     cfg = get_config(arch)
-    with pytest.raises(ValueError) as e:
-        port.trunk_plan(cfg, M, **lens)
-    msg = str(e.value)
-    assert cfg.name in msg and f"M = {M}" in msg and dim in msg
     assert port.trunk_plan(cfg, 1).split is False     # M = 1 splits nothing
+    if cfg.arch_type in ("audio", "vlm"):
+        with pytest.raises(ValueError) as e:
+            port.trunk_plan(cfg, M, **lens)
+        msg = str(e.value)
+        assert cfg.name in msg and f"M = {M}" in msg and dim in msg
+        return
+    (what, n), = lens.items()
+    mesh = _mesh(M)
+    shape = (1, 1, n, cfg.num_kv_heads, cfg.resolved_head_dim)
+    spec = tuple(ref.cache_shardings(
+        {"k": jax.ShapeDtypeStruct(shape, jnp.bfloat16)}, mesh,
+        jax_get_config(arch))["k"])
+    assert spec[4] == "model", dim
+    for rank in range(M):
+        plan = port.trunk_plan(cfg, M, rank, **lens)
+        assert getattr(plan, {"cache_len": "cache",
+                              "page_size": "pool"}[what]) == "dh"
+        sl = port.shard_slice(spec, shape, mesh, rank)[4]
+        assert plan.head_dims == (sl.start, sl.stop)
 
 
 COVERED = ("syncode-demo", "qwen1.5-0.5b", "internlm2-1.8b",
@@ -355,30 +375,57 @@ def test_covered_configs_split_whole_heads(arch, M):
 
 def _stand_in_mesh(M):
     """A mesh of M ranks with no process group (collectives would be
-    identities): enough for a refusal, which comes before any."""
+    identities)."""
     return ServingMesh({"data": 1, "model": M}, ("data", "model"))
 
 
-def test_engine_and_launcher_refuse_what_the_plan_refuses():
-    """The launcher passes the engine's max_len and, when paged, its
-    page_size to the plan: smollm-360m's 5 kv heads at M = 2 are served
-    at max_len 512 but refused at 511, and at page_size 15;
-    recurrentgemma-9b's one kv head (its first three layers: rec, rec,
-    attn) at a ring of 511 positions."""
-    from repro_torch.launch.serve import build_engine
-    with pytest.raises(ValueError, match="smollm-360m at M = 2.*max_len"):
-        build_engine("smollm-360m", grammars=(), device="cpu",
-                     mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=1,
-                     max_len=511)
-    with pytest.raises(ValueError, match="smollm-360m at M = 2.*page_size"):
-        build_engine("smollm-360m", grammars=(), device="cpu",
-                     mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=1,
-                     paged=True, page_size=15)
-    with pytest.raises(ValueError,
-                       match="recurrentgemma-9b at M = 2.*max_len"):
-        build_engine("recurrentgemma-9b", grammars=(), device="cpu",
-                     mesh=_stand_in_mesh(2), trunk_shard=True, num_layers=3,
-                     max_len=511)
+class _Planned(Exception):
+    """Raised by `_plan_spy` once a plan is made: nothing is drawn."""
+
+
+def _plan_spy(monkeypatch, module, seen):
+    real = port.serving_trunk_plan
+
+    def spy(*args, **kw):
+        seen.append(real(*args, **kw))
+        raise _Planned
+    monkeypatch.setattr(module, "serving_trunk_plan", spy)
+
+
+def test_engine_and_launcher_refuse_what_the_plan_refuses(monkeypatch):
+    """The launcher and the engine pass the engine's max_len and, when
+    paged, its page_size to the plan: smollm-360m's 5 kv heads at M = 2
+    take the sequence split at max_len 512, the head_dim split at 511
+    and, paged, at page_size 15; recurrentgemma-9b's one kv head (its
+    first three layers: rec, rec, attn) at a ring of 511 positions. (The
+    plan stops the build: nothing is drawn.)"""
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine as engine_mod
+    seen = []
+    _plan_spy(monkeypatch, serve, seen)
+    cases = (("smollm-360m", 1, dict(max_len=512), "cache", "seq"),
+             ("smollm-360m", 1, dict(max_len=511), "cache", "dh"),
+             ("smollm-360m", 1, dict(paged=True, page_size=15), "pool",
+              "dh"),
+             ("recurrentgemma-9b", 3, dict(max_len=511), "cache", "dh"))
+    for arch, layers, kw, kind, want in cases:
+        with pytest.raises(_Planned):
+            serve.build_engine(arch, grammars=(), device="cpu",
+                               mesh=_stand_in_mesh(2), trunk_shard=True,
+                               num_layers=layers, **kw)
+        assert getattr(seen.pop(), kind) == want, (arch, kw)
+    _plan_spy(monkeypatch, engine_mod, seen)
+    cfg = replace(get_config("smollm-360m"), num_layers=1)
+    for kw, kind, want in ((dict(max_len=511), "cache", "dh"),
+                           (dict(max_len=512, paged=True, page_size=15),
+                            "pool", "dh"),
+                           (dict(max_len=512, paged=True, page_size=16),
+                            "pool", "seq")):
+        with pytest.raises(_Planned):
+            engine_mod.Engine(build_model(cfg, device="meta"), None,
+                              None, {}, mesh=_stand_in_mesh(2),
+                              trunk_shard=True, **kw)
+        assert getattr(seen.pop(), kind) == want, kw
 
 
 # --------------------------- the cut as drawn ---------------------------
