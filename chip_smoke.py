@@ -35,7 +35,7 @@ no result line):
    json + jsonmsg, each run with the kernels' launch counters zeroed
    just before it and read just after, every eos-finished output
    parsed: dense `generate()` (16 requests, half greedy, half sampled,
-   64 new tokens), then a devtime run of it; `generate_speculative`
+   64 new tokens), then a devtime run of its first 8; `generate_speculative`
    over dense caches (the same 16); paged `generate()` (the same 16 plus
    8 sharing a >= 256-token prefix); `generate_speculative` over pages
    (8 requests x 32 new tokens); `generate_sequential` (4 x 32);
@@ -53,10 +53,10 @@ no result line):
    its pages back; `POST /grammars` hot-loads a grammar that then serves
    a valid request; `/metrics`, `/stats` and `POST /profile` (whose dump
    must hold device events of `fused_select_kernel`); then opportunistic
-   masking, `generate()` over the 16 requests and `generate_sequential`
-   over 4 x 32. Each run's launch counters are zeroed just before it and
+   masking, `generate()` over 8 of the requests x 32 new tokens and
+   `generate_sequential` over 4 x 32. Each run's launch counters are zeroed just before it and
    read just after;
-8. architectures: mamba2-370m (ssm, all 48 layers, V 50280),
+8. architectures: mamba2-370m (ssm, 24 of 48 layers, V 50280),
    recurrentgemma-9b (hybrid RG-LRU + local attention, all 38 layers,
    head_dim 256, MQA, window 2048, V 256000) and qwen3-moe-30b-a3b (moe,
    full width: 128 experts top-8, 32/4 heads, head_dim 128, V 151936; 4
@@ -95,7 +95,7 @@ no result line):
    32 x 20; a profiled train step; the checkpoint saved, served through
    `build_engine(..., checkpoint=)` (4 json requests x 32 new tokens,
    every eos output parsed) and loaded back equal leaf for leaf; then 5
-   steps each of mamba2-370m (all 48 layers, B 4, S 1024), qwen3-moe
+   steps each of mamba2-370m (24 of 48 layers, B 4, S 1024), qwen3-moe
    (2 of 48 layers, B 4, S 1024) and recurrentgemma-9b (3 of 38 layers,
    one (rec, rec, attn) block, B 2, S 4096), each freed before the next;
 10. the audio family, whisper-base (6 encoder + 6 decoder layers, d_model
@@ -150,7 +150,7 @@ no result line):
    `torch.distributed`), smollm-360m at full width: a 1-rank world over
    NCCL in this process (`launch.mesh.spawn`) serves phase 5's first 8
    requests at 32 new tokens through the unsharded and the sharded
-   engine on the same weights, three runs each in alternating order
+   engine on the same weights, two runs each in alternating order
    (identical tokens, each request a prefix of its phase 5 stream; the
    median and range of each side's ms a step), phase 5's speculative run
    and its paged run with the shared prefix (identical tokens), each run's
@@ -248,7 +248,29 @@ no result line):
    then on the paged run's own calls against its plain version; the
    build-peak check is not applied to these 8-layer runs (the vocabulary
    draw outweighs 8 layers). The ranks reuse the parent's mask stores
-   (`share_mask_stores`).
+   (`share_mask_stores`);
+15. data-parallel training (`train(..., mesh=make_train_mesh(2))`: the
+   reference's sharded train step on a (data 2, model 1) mesh) of
+   smollm-360m at full width and all 32 layers in bf16 over a 2-rank
+   gloo world on the one card (NCCL takes one card a rank), on phase 9's
+   json batches (B 8 x S 1024, the first 3) with a planted loss_mask
+   whose counts differ between the ranks and the microbatches: plain DP
+   + ZeRO-1, FSDP forced and microbatch 2, 3 steps each, against the
+   one-device port step on the same seeded weights and batches
+   (`train()` with no mesh; at microbatch 2 its plain accumulation):
+   each step's loss and gnorm within DP_BF16_REL relative; fp32 copies
+   at 2 layers stepped beside the one-device twin on rank 0 (loss, and
+   after the last step every moment, within DP_FP32_REL; the params by
+   the one-device parity test's rule, its |mu|-sure elements where their
+   clipped gradient never fell below 100 eps; the last step's new params
+   within DP_UPDATE_REL of the AdamW formula on the run's own gathered
+   params and moments); each rank's param, moment and accumulator bytes
+   equal to the specs' (`train_plan`); the attention launches (32 layers
+   x steps x microbatches, the forward twice under remat); the
+   collectives a step against `cost.train_step`'s count; the flash
+   forward and backward kernels on the run's own calls against their
+   plain versions; ms a step after the first beside the twin's, and the
+   gloo calls' ms.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -944,11 +966,12 @@ def phase_e2e(torch, engine, bundles, counters):
         raise AssertionError(f"flash_attention launched "
                              f"{launches['attention']} times, want "
                              f"{stats.requests} admissions x {n_layers}")
-    # devtime run: the same requests with device spans synchronized
+    # devtime run: the first 8 of the requests (not all 16: the script's
+    # time) with device spans synchronized
     dev_engine = Engine(engine.model, engine.params, engine.tok, bundles,
                         max_len=engine.max_len, slots=engine.slots,
                         devtime=True, device="cuda")
-    _, dstats = dev_engine.generate(e2e_requests())
+    _, dstats = dev_engine.generate(e2e_requests()[:8])
     log(f"e2e devtime run: {dstats.tokens} tokens in {dstats.wall:.3f} s; "
         f"device_forward_s {dstats.device_forward_s:.4f}; "
         f"device_mask_sample_s {dstats.device_mask_sample_s:.4f}; decode "
@@ -1452,9 +1475,12 @@ def phase_front_end(torch, engine, bundles, counters, dense_states):
         "smollm-360m", grammars=("json", "jsonmsg"), max_len=engine.max_len,
         slots=engine.slots, opportunistic=True, params=engine.params,
         device="cuda")
+    reqs = e2e_requests()[:8]       # not 16 x 64: the script's time
+    for r in reqs:
+        r.max_new_tokens = 32
     states, stats, launches = run_counted(
-        torch, counters, lambda: opp.generate(e2e_requests()))
-    report("opportunistic generate (16 requests x 64 new tokens)", states,
+        torch, counters, lambda: opp.generate(reqs))
+    report("opportunistic generate (8 requests x 32 new tokens)", states,
            stats, opp.bundles, launches,
            f"; opportunistic hits {stats.opportunistic_hits}; mask "
            f"computations {stats.mask_computations}")
@@ -1488,8 +1514,10 @@ def phase_front_end(torch, engine, bundles, counters, dense_states):
 # seeded random weights, served, checked and freed before the next.
 # qwen3-moe at all 48 layers fits the card but takes the script past half
 # its time limit; 8 layers until phase 14 came, 4 since (PERF.md §4).
+# mamba2-370m at 24 of 48 layers since phase 15 came, for the script's
+# time (all layers until then; phase 14 still serves mamba2's 48)
 MOE_DEPTH = 4
-ARCHS = (("mamba2-370m", None), ("recurrentgemma-9b", None),
+ARCHS = (("mamba2-370m", 24), ("recurrentgemma-9b", None),
          ("qwen3-moe-30b-a3b", MOE_DEPTH))
 
 
@@ -1662,10 +1690,12 @@ def phase_arch(torch, np, counters, arch, depth):
     sel["launches"] = launches["fused_mask_select"]
     for r in flash:
         r["launches"] = launches["attention"]
-    # devtime twin: the same requests with device spans synchronized
+    # devtime twin: the first 4 of the requests (not all 8: the script's
+    # time) with device spans synchronized
     _, dstats = Engine(engine.model, engine.params, engine.tok, bundles,
                        max_len=engine.max_len, slots=engine.slots,
-                       devtime=True, device="cuda").generate(arch_requests())
+                       devtime=True, device="cuda").generate(
+                           arch_requests()[:4])
     log(f"{arch} devtime run: {dstats.tokens} tokens in {dstats.wall:.3f} "
         f"s; device_forward_s {dstats.device_forward_s:.4f}; "
         f"device_mask_sample_s {dstats.device_mask_sample_s:.4f}; decode "
@@ -1774,7 +1804,7 @@ TRAIN_FWD_LAUNCHES = 32 * TRAIN_STEPS * 2
 TRAIN_BWD_LAUNCHES = 32 * TRAIN_STEPS
 # (arch, layers kept or None for all, B, S) of the other families' runs,
 # 5 steps each; PERF.md §4 gives each cut's reason
-TRAIN_ARCHS = (("mamba2-370m", None, 4, 1024),
+TRAIN_ARCHS = (("mamba2-370m", 24, 4, 1024),     # of 48: the script's time
                ("qwen3-moe-30b-a3b", 2, 4, 1024),
                ("recurrentgemma-9b", 3, 2, 4096))
 ARCH_TRAIN_STEPS = 5
@@ -1977,20 +2007,30 @@ def phase_attention_backward(torch):
 
 class _TimedIter:
     """An iterator that sums the host seconds spent in its source's
-    __next__ (the data pipeline's share of a training run)."""
+    __next__ (the data pipeline's share of a training run) and keeps the
+    time each call began (`marks`: a step's start, where the loop syncs
+    every step)."""
 
     def __init__(self, it):
-        self.it, self.seconds = it, 0.0
+        self.it, self.seconds, self.marks = it, 0.0, []
 
     def __iter__(self):
         return self
 
     def __next__(self):
         t0 = time.perf_counter()
+        self.marks.append(t0)
         try:
             return next(self.it)
         finally:
             self.seconds += time.perf_counter() - t0
+
+    def later_steps_ms(self, end):
+        """Median ms of the steps after the first (its warm-up left out),
+        each from its start to the next one's (the last to `end`)."""
+        marks = self.marks + [end]
+        return statistics.median(
+            (b - a) * 1e3 for a, b in zip(marks[1:-1], marks[2:]))
 
 
 def _train_run(torch, counters, arch, depth, B, S, steps, opt):
@@ -3049,7 +3089,10 @@ def phase_vlm(torch, np, counters):
 
 SHARD_V = 50280         # the kernel check's vocab: W 1572, 2 shards
 SHARD_NEW = 32          # new tokens of the 8 requests of the dense runs
-SHARD_PAIRS = 3         # world 1 dense runs a side, in alternating order
+# world 1 dense runs a side, in alternating order (one, for the script's
+# time)
+SHARD_PAIRS = 1
+                        # (3 until phase 15 came, for the script's time)
 
 
 def sharded_requests():
@@ -4811,6 +4854,518 @@ def phase_trunk(torch, np):
     return [row, *dh_rows]
 
 
+# ------------------------------------- phase 15: data-parallel training
+
+# smollm-360m at full width and depth in bf16 on phase 9's global batch
+# (B 8 x S 1024 of json batches, with a planted loss_mask: row r masks
+# its first (5 r + 1) S / 128 positions, so the ranks' and the
+# microbatches' counts differ), trained by `train(..., mesh=)` on a
+# (data 2, model 1) gloo world on the one card, 3 steps a run; the twin
+# is the one-device port step on the same seeded weights and batches
+# (at microbatch 2 its plain accumulation, no DataParallelStep)
+DP_ARCH, DP_B, DP_S, DP_STEPS, DP_WORLD = "smollm-360m", 8, 1024, 3, 2
+# (label, microbatch, FSDP forced)
+DP_RUNS = (("dp", 1, False), ("fsdp", 1, True), ("mb2", 2, False))
+DP_FP32_DEPTH = 2       # the fp32 copies' layers
+# fp32 against the twin after each step: the loss relative, each moment
+# leaf (after the last step) relative to its largest magnitude; the
+# params by the one-device parity test's rule
+# (tests/test_torch_train_parity.py), with lr the steps' summed lr:
+# within 2 lr everywhere (Adam's update is g / (|g| + eps): where the
+# clipped |g| is near or below eps, sum-order noise decides its size and
+# sign) and within 1e-6 + 1e-5 lr wherever |mu| is at least 1e-3 of its
+# leaf's largest (a skipped, stale or sign-flipped update of a block
+# moves such elements by about lr). Over several steps an element whose
+# clipped gradient was below 100 eps at an earlier step keeps that
+# step's noisy update after its |mu| has grown, so the second rule
+# holds the elements whose gradient never fell below 100 eps; the
+# others are counted and logged (at 100 eps a gradient noise of 1e-6 of
+# the leaf's largest moves the update by about 1e-4 of lr)
+DP_FP32_REL = 1e-5
+# and the last step's new params against the AdamW formula applied to the
+# run's own gathered params and moments (fp32 rounding only)
+DP_UPDATE_REL = 1e-6
+# bf16: each step's loss and gnorm against the twin's, relative; from
+# `scripts/train_shard_tolerance.py` (PERF.md section 2: on the CPU at 8
+# layers and S 512 the sound splits read at most 1.26e-3, the planted
+# faults 1.98e-2 or more, but for the MoE fractions' 8.0e-4, which the
+# CPU test catches; 5e-3 is the geometric middle)
+DP_BF16_REL = 5e-3
+DP_OPT = dict(lr=1e-3, warmup_steps=10, total_steps=20)   # phase 9's
+
+
+def dp_batches(vocab, steps=DP_STEPS, B=DP_B, S=DP_S):
+    """The first `steps` global batches of phase 9's seeded json pipeline,
+    with the planted loss_mask (`scripts/train_shard_tolerance.py`'s)."""
+    from repro_torch.core.grammars import load_grammar
+    from repro_torch.core.tokenizer import ByteTokenizer
+    from repro_torch.training.data import GrammarDataPipeline
+    g, _ = load_grammar("json")
+    it = iter(GrammarDataPipeline(g, ByteTokenizer(vocab), S, B, seed=0))
+    out = []
+    for _ in range(steps):
+        b = next(it)
+        b["loss_mask"] = b["loss_mask"].copy()
+        for r in range(B):
+            b["loss_mask"][r, :(5 * r + 1) * S // 128] = 0.0
+        out.append(b)
+    return out
+
+
+def dp_model(torch, dtype="bfloat16", depth=None, device="cuda"):
+    """(model, seeded whole params) of DP_ARCH."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = replace(get_config(DP_ARCH), dtype=dtype)
+    if depth:
+        cfg = replace(cfg, num_layers=depth)
+    model = build_model(cfg, device=device)
+    dev = model.device
+    return model, model.init(torch.Generator(device=dev).manual_seed(0))
+
+
+class _CollectiveClock:
+    """While active, times every torch.distributed tensor collective this
+    process issues (a device sync before and after each, so the time is
+    the collective's own, gloo's copies through host memory included)."""
+
+    NAMES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor")
+
+    def __init__(self, torch):
+        self.torch, self.ms, self.calls = torch, 0.0, 0
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist, self.orig = dist, {n: getattr(dist, n) for n in self.NAMES}
+        for name, fn in self.orig.items():
+            def timed(*a, _fn=fn, **kw):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                self.torch.cuda.synchronize()
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.calls += 1
+                return out
+            setattr(dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.dist, name, fn)
+
+
+class _TrainFlashSpy:
+    """While active, keeps the last `keep` forward and backward calls of
+    the flash attention autograd Function (`ops._Attention`: the
+    training path's own launches) with their inputs and outputs.
+    `check()` holds each kept forward output against `chunked_attention`
+    and each kept backward's dq, dk, dv against `ref.attention_bwd` on
+    the same inputs, within ATTN_TOL of the plain version's largest
+    magnitude -> [forward calls, backward calls, max rel err forward,
+    backward]; raises beyond the tolerance."""
+
+    def __init__(self, keep=2):
+        self.keep, self.fwd, self.bwd, self.n = keep, [], [], [0, 0]
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+        self.fn = ops._Attention
+        self.orig = (self.fn.forward, self.fn.backward)
+        fwd = self.orig[0]
+
+        def forward(ctx, q, k, v, causal, window, chunk):
+            out = fwd(ctx, q, k, v, causal, window, chunk)
+            self.n[0] += 1
+            self.fwd = (self.fwd + [((q.detach().clone(), k.detach().clone(),
+                                      v.detach().clone()), causal, window,
+                                     out.detach().clone())])[-self.keep:]
+            return out
+
+        def backward(ctx, do):
+            # the Function's own backward, reading its saved tensors once
+            # (a checkpointed layer's may be unpacked only once)
+            saved = ctx.saved_tensors
+            grads = ops.attention_backward(*saved, do, causal=ctx.causal,
+                                           window=ctx.window)
+            self.n[1] += 1
+            self.bwd = (self.bwd + [(tuple(t.clone() for t in saved)
+                                     + (do.clone(),), ctx.causal,
+                                     ctx.window,
+                                     [g.clone() for g in grads])]
+                        )[-self.keep:]
+            return (*grads, None, None, None)
+        self.fn.forward = staticmethod(forward)
+        self.fn.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        fwd, bwd = self.orig
+        self.fn.forward, self.fn.backward = staticmethod(fwd), \
+            staticmethod(bwd)
+
+    def check(self, who):
+        from repro_torch.kernels.flash_attention.ref import (
+            attention_bwd, chunked_attention)
+        rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                            / b.float().abs().max().clamp(min=1e-30)).item()
+        ef = eb = 0.0
+        for (q, k, v), causal, window, out in self.fwd:
+            plain = chunked_attention(q, k, v, causal=causal, q_offset=0,
+                                      window=window, chunk=1024)
+            ef = max(ef, rel(out, plain))
+        for args, causal, window, grads in self.bwd:
+            plain = attention_bwd(*args, causal=causal, window=window)
+            eb = max(eb, *(rel(g, p) for g, p in zip(grads, plain)))
+        tol = ATTN_TOL[str(self.fwd[0][0][0].dtype).removeprefix("torch.")]
+        if not (ef <= tol and eb <= tol) or not all(self.n):
+            raise AssertionError(
+                f"{who}: flash attention on the path ({self.n[0]} forward, "
+                f"{self.n[1]} backward calls): max rel err forward {ef}, "
+                f"backward {eb} (tol {tol})")
+        return [self.n[0], self.n[1], ef, eb]
+
+
+def dp_held_bytes(model, mesh, fsdp, mb):
+    """The bytes a rank holds by the specs: {"params": the FSDP blocks or
+    whole leaves, "moments": mu and nu's ZeRO-1 blocks, "acc": one more
+    moment's blocks when microbatched}."""
+    from repro_torch.distributed.sharding import train_plan
+    from repro_torch.training.optimizer import block_shape
+    from repro_torch.training.tree import leaves
+    whole = model.abstract_params()
+    plan = train_plan(whole, mesh, fsdp=fsdp, rank=mesh.rank)
+    p = sum(math.prod(block_shape(lp.param)) * t.element_size()
+            for lp, t in zip(plan.leaves, leaves(whole)))
+    m = sum(math.prod(block_shape(lp.moment)) * 4 for lp in plan.leaves)
+    return {"params": p, "moments": 2 * m, "acc": m if mb > 1 else 0}
+
+
+def dp_tally_check(who, calls, cfg, mb, fsdp, steps):
+    """A run's collectives a step (the final gather left out) against
+    `cost.train_step`'s count at the same mesh: the reduce-scatters are
+    cost.py's a microbatch; the all-gathers cost.py's, less the recompute
+    gathers under remat (the port gathers an FSDP leaf once a
+    microbatch, before the layers, and keeps it through the backward),
+    plus one a later microbatch. -> the comparison's line."""
+    from repro_torch.distributed import cost
+    from repro_torch.launch.mesh import MeshShape
+    mesh = MeshShape({"data": DP_WORLD, "model": 1}, ("data", "model"))
+    orig = cost.needs_fsdp
+    cost.needs_fsdp = lambda *a, **k: fsdp
+    try:
+        want = cost.train_step(cfg, DP_B, DP_S, mb, mesh=mesh)["collectives"]
+    finally:
+        cost.needs_fsdp = orig
+    kind = {"fsdp-gather": "all-gather", "fsdp-scatter": "reduce-scatter"}
+    # ZeRO-1's reduce-scatter carries the gradient in fp32 (as the
+    # reference's compiled step sums it, after the cast); cost.py counts
+    # a gradient in its param's dtype: its bytes at that dtype
+    it = 2 if cfg.dtype == "bfloat16" else 4
+    got = {}
+    for call, d in calls.items():
+        if call in ("gather", "loss", "gnorm", "moe"):
+            continue
+        k = kind.get(call, call)
+        g = got.setdefault(k, {"count": 0, "wire_bytes": 0.0})
+        g["count"] += d["count"] / steps
+        g["wire_bytes"] += d["wire_bytes"] / steps * (
+            it / 4 if call == "reduce-scatter" else 1)
+    n_fsdp = calls.get("fsdp-gather", {}).get("count", 0) / (steps * mb)
+    gw = calls.get("fsdp-gather", {}).get("wire_bytes", 0.0) / (steps * mb)
+    rem = int(cfg.remat)
+    exp_ag = (want["all-gather"]["count"] - rem * n_fsdp + (mb - 1) * n_fsdp,
+              want["all-gather"]["wire_bytes"] + (mb - 1 - rem) * gw)
+    exp_rs = (mb * want["reduce-scatter"]["count"],
+              mb * want["reduce-scatter"]["wire_bytes"])
+    ok = set(got) == {"all-gather", "reduce-scatter"} and \
+        abs(got["all-gather"]["count"] - exp_ag[0]) < 1e-9 and \
+        abs(got["reduce-scatter"]["count"] - exp_rs[0]) < 1e-9 and \
+        math.isclose(got["all-gather"]["wire_bytes"], exp_ag[1],
+                     rel_tol=1e-9) and \
+        math.isclose(got["reduce-scatter"]["wire_bytes"], exp_rs[1],
+                     rel_tol=1e-9) and \
+        calls["loss"]["count"] == mb * steps and \
+        calls["gnorm"]["count"] == steps
+    line = (f"{who}: a step's collectives {json.dumps(got)} (ZeRO-1's "
+            f"fp32 reduce-scatter at {it}-byte gradients); cost.py "
+            f"{json.dumps(want)} (reduce-scatters x{mb} microbatches, "
+            f"all-gathers less {rem} recompute gather(s) of {n_fsdp:.0f} "
+            f"FSDP leaves); extra all-reduces a step: loss "
+            f"{calls['loss']['count'] / steps:.0f}, gnorm "
+            f"{calls['gnorm']['count'] / steps:.0f}")
+    if not ok:
+        raise AssertionError(line)
+    return line
+
+
+def dp_rank(rank, n, batches):
+    """One rank of phase 15's gloo world: each of DP_RUNS through
+    `train(..., mesh=)` in bf16 at full depth, then the fp32 copies at
+    DP_FP32_DEPTH layers step by step (rank 0 steps the one-device twin
+    beside them and compares after each step). -> {label: ...}."""
+    import torch
+    from repro_torch.distributed.api import (collective_calls,
+                                             reset_collective_tally)
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_backward)
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import train
+    mesh = make_train_mesh(n, device="cuda")
+    opt = AdamWConfig(**DP_OPT)
+    out = {}
+    for label, mb, fsdp in DP_RUNS:
+        model, params = dp_model(torch)
+        init = [params]
+        del params
+        want = dp_held_bytes(model, mesh, fsdp, mb)
+        data = _TimedIter(iter(batches))
+        reset_collective_tally()
+        attention.launches = attention_backward.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _CollectiveClock(torch) as clock, _TrainFlashSpy() as spy:
+            _, result = train(model, init.pop(), data, DP_STEPS,
+                              opt_cfg=opt, log_every=1, verbose=False,
+                              device="cuda", mesh=mesh, microbatch=mb,
+                              fsdp=fsdp)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rec = {"losses": result.losses,
+               "gnorms": [m["gnorm"] for m in result.metrics],
+               "held": result.held, "want": want,
+               "calls": collective_calls(),
+               "launches": (attention.launches, attention_backward.launches),
+               "step_ms": data.later_steps_ms(t0 + secs),
+               "gloo_ms": clock.ms / DP_STEPS, "gloo_calls": clock.calls,
+               "flash": spy.check(f"phase 15 {label} rank {rank}"),
+               "cfg": model.cfg}
+        out[label] = rec
+        del model, result
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, mb, fsdp in DP_RUNS:
+        out[label]["fp32"] = dp_fp32(torch, mesh, batches, mb, fsdp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_fp32(torch, mesh, batches, mb, fsdp, depth=DP_FP32_DEPTH):
+    """The fp32 copy of one run at `depth` layers, step by step; rank 0
+    steps the plain one-device twin (no mesh) beside it and compares
+    after each step -> the worst readings (rank 0; zeros elsewhere):
+    "loss" relative; "moments" (after the last step) of each leaf's
+    largest; "params" of each leaf's largest and "params_lr" over the
+    steps' summed lr; "sure" over 1e-6 + 1e-5 lr where |mu| is at least
+    1e-3 of its leaf's largest and the element's clipped gradient (the
+    twin's, read from its mu) never fell below 100 eps (DP_FP32 rule);
+    the largest count in a step of "over" (elements past 1e-5 of their
+    leaf's largest), "over_near" (of them, those whose gradient did fall
+    below 100 eps), "past_sure" (|mu|-sure elements past 1e-6 + 1e-5 lr)
+    and "near_eps" (of them, those whose gradient fell below 100 eps);
+    "update" the last step against the AdamW formula (`dp_update_err`)."""
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import leaves
+    opt = AdamWConfig(**DP_OPT)
+    model, whole = dp_model(torch, "float32", depth, device=mesh.device)
+    step = make_train_step(model, opt, mesh, mb, fsdp)
+    params = step.shard(whole)
+    state = step.init_state(params)
+    lead = mesh.rank == 0
+    if lead:        # the plain one-device step
+        twin_step = make_train_step(model, opt, None, mb)
+        twin, twin_state = [whole], init_opt_state(whole)
+        small = None        # per leaf: |g| fell below 100 eps at a step
+    del whole
+    worst = {"loss": 0.0, "moments": 0.0, "params_lr": 0.0, "params": 0.0,
+             "sure": 0.0, "over": 0, "over_near": 0, "past_sure": 0,
+             "near_eps": 0, "update": 0.0}
+    rel = lambda a, w: ((a - w).abs().max()
+                        / w.abs().max().clamp(min=1e-30)).item()
+    lr_sum, prev = 0.0, None
+    for b in batches:
+        tb = {k: torch.from_numpy(v).to(mesh.device) for k, v in b.items()}
+        params, state, m = step(params, state, tb)
+        last = b is batches[-1]
+        got = step.gather(params)
+        mom = step.gather_moments(state) if last else None
+        if lead:
+            mu0 = [t.clone() for t in leaves(twin_state["mu"])]
+            tp, twin_state, tm = twin_step(twin.pop(), twin_state, tb)
+            twin.append(tp)
+            lr_sum += float(tm["lr"])
+            worst["loss"] = max(worst["loss"], abs(
+                float(m["loss"]) - float(tm["loss"])) / abs(float(tm["loss"])))
+            for k in ("mu", "nu") if last else ():
+                for a, w in zip(leaves(mom[k]), leaves(twin_state[k])):
+                    worst["moments"] = max(worst["moments"], rel(a, w))
+            # the twin's clipped gradient of this step, from its mu
+            g = [(mu - opt.beta1 * m0).abs() / (1 - opt.beta1)
+                 for mu, m0 in zip(leaves(twin_state["mu"]), mu0)]
+            now = [x < 100 * opt.eps for x in g]
+            small = now if small is None else [
+                a | b for a, b in zip(small, now)]
+            bound = 1e-6 + 1e-5 * lr_sum
+            n = {"over": 0, "over_near": 0, "past_sure": 0, "near_eps": 0}
+            for a, w, mu, sm in zip(leaves(got), leaves(tp),
+                                    leaves(twin_state["mu"]), small):
+                d = (a - w).abs()
+                worst["params"] = max(worst["params"], rel(a, w))
+                worst["params_lr"] = max(worst["params_lr"],
+                                         d.max().item() / lr_sum)
+                mu = mu.abs()
+                sure = mu >= 1e-3 * mu.max().clamp(min=1e-30)
+                held = sure & ~sm
+                if held.any():
+                    worst["sure"] = max(worst["sure"],
+                                        d[held].max().item() / bound)
+                past = sure & (d > bound)
+                big = d > 1e-5 * w.abs().max()
+                for k, x in (("over", big), ("over_near", big & sm),
+                             ("past_sure", past),
+                             ("near_eps", past & sm)):
+                    n[k] += int(x.sum().item())
+            for k, v in n.items():
+                worst[k] = max(worst[k], v)
+            if last:
+                worst["update"] = dp_update_err(opt, prev, got, mom,
+                                                state["step"], m["lr"])
+        prev = got
+        del got, mom
+    return worst
+
+
+def dp_update_err(opt, prev, got, mom, step, lr):
+    """The last step's ZeRO-1 update held to the AdamW formula on the
+    run's own gathered tensors: the params before the step (`prev`), the
+    moments after it (`mom`, which hold the step's clipped gradient) ->
+    the largest difference of the gathered new params (`got`) from
+    prev - lr ((mu / b1c) / (sqrt(nu / b2c) + eps) + wd prev [matrices]),
+    over each leaf's largest magnitude. A block updated from another
+    block's moments, skipped, cast or gathered out of place differs by
+    about lr."""
+    from repro_torch.training.tree import leaves
+    b1c = 1 - opt.beta1 ** step.float()
+    b2c = 1 - opt.beta2 ** step.float()
+    err = 0.0
+    for p, new, mu, nu in zip(leaves(prev), leaves(got), leaves(mom["mu"]),
+                              leaves(mom["nu"])):
+        delta = (mu / b1c) / ((nu / b2c).sqrt() + opt.eps)
+        if p.dim() >= 2:
+            delta = delta + opt.weight_decay * p
+        want = p - lr * delta
+        err = max(err, ((new - want).abs().max()
+                        / want.abs().max().clamp(min=1e-30)).item())
+    return err
+
+
+def dp_twin(torch, batches, mb):
+    """The one-device bf16 run of the same weights and batches through
+    `train()` with no mesh (at microbatch 2 the plain accumulation of
+    `make_train_step`, no `DataParallelStep`) -> (losses, gnorms, ms a
+    step)."""
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import train
+    model, params = dp_model(torch)
+    init = [params]
+    del params
+    data = _TimedIter(iter(batches))
+    torch.cuda.synchronize()
+    _, result = train(model, init.pop(), data, DP_STEPS,
+                      opt_cfg=AdamWConfig(**DP_OPT), log_every=1,
+                      verbose=False, device="cuda", microbatch=mb)
+    torch.cuda.synchronize()
+    ms = data.later_steps_ms(time.perf_counter())
+    out = (result.losses, [m["gnorm"] for m in result.metrics], ms)
+    del model, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_data_parallel(torch, np):
+    """Phase 15: data-parallel training (`train(..., mesh=)`) of
+    smollm-360m at full width and depth in bf16 on a (data 2, model 1)
+    gloo world on the one card: plain DP + ZeRO-1, FSDP forced and
+    microbatch 2, each 3 steps of phase 9's json batches with the
+    planted loss_mask, against the one-device port step on the same
+    seeded weights (bf16 within DP_BF16_REL; fp32 copies at
+    DP_FP32_DEPTH layers by `dp_fp32`'s rules);
+    each rank's bytes against the specs', the collectives against
+    cost.py's, the flash kernels on the run's own calls against their
+    plain versions. -> the rank's launches by run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    batches = dp_batches(get_config(DP_ARCH).vocab_size)
+    twins = {1: dp_twin(torch, batches, 1), 2: dp_twin(torch, batches, 2)}
+    log(f"[phase 15 twins done at {time.perf_counter() - t0:.1f} s]")
+    t1 = time.perf_counter()
+    ranks = spawn(DP_WORLD, dp_rank, DP_WORLD, batches, backend="gloo",
+                  device="cuda")
+    log(f"[phase 15 world of {DP_WORLD}: {time.perf_counter() - t1:.1f} s]")
+    launches = {}
+    for label, mb, fsdp in DP_RUNS:
+        losses, gnorms, twin_ms = twins[mb]
+        r0 = ranks[0][label]
+        who = f"phase 15, {DP_ARCH} {label} (data {DP_WORLD}, microbatch " \
+              f"{mb}, fsdp {fsdp})"
+        worst = max(max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                            losses)),
+                    max(abs(a - b) / abs(b) for a, b in zip(r0["gnorms"],
+                                                            gnorms)))
+        log(f"{who}: losses {r0['losses']} vs the twin's {losses}; gnorms "
+            f"{r0['gnorms']} vs {gnorms}; worst relative difference "
+            f"{worst:.3e} (bound {DP_BF16_REL})")
+        if not worst <= DP_BF16_REL:
+            raise AssertionError(f"{who}: bf16 beyond the bound")
+        fp = r0["fp32"]
+        log(f"{who}: fp32 at {DP_FP32_DEPTH} layers against the twin: loss "
+            f"{fp['loss']:.3e} relative, moments {fp['moments']:.3e} of "
+            f"their leaf's largest (bound {DP_FP32_REL} each); params "
+            f"{fp['params_lr']:.3e} x the steps' summed lr (bound 2), "
+            f"where |mu| >= 1e-3 of its leaf's largest and |g| stayed above "
+            f"100 eps {fp['sure']:.3e} x 1e-6 + 1e-5 lr (bound 1; "
+            f"{fp['past_sure']} |mu|-sure elements past it in a step, "
+            f"{fp['near_eps']} of them with |g| below 100 eps at a step); "
+            f"{fp['params']:.3e} of their leaf's largest, {fp['over']} "
+            f"elements over 1e-5 of it in a step, {fp['over_near']} of them "
+            f"with |g| below 100 eps at a step")
+        log(f"{who}: the last step's update on the run's own gathered "
+            f"params and moments: {fp['update']:.3e} of each leaf's largest "
+            f"from the AdamW formula (bound {DP_UPDATE_REL})")
+        if not (fp["loss"] <= DP_FP32_REL and fp["moments"] <= DP_FP32_REL
+                and fp["params_lr"] <= 2.0 and fp["sure"] <= 1.0
+                and fp["update"] <= DP_UPDATE_REL):
+            raise AssertionError(f"{who}: fp32 beyond the bound")
+        for rank, res in enumerate(ranks):
+            r = res[label]
+            log(f"{who} rank {rank}: holds {r['held']} bytes, the specs "
+                f"{r['want']}; attention launches {r['launches'][0]} "
+                f"forward, {r['launches'][1]} backward; flash on the run's "
+                f"own calls {r['flash']}; {r['step_ms']:.1f} ms a step after "
+                f"the first (twin {twin_ms:.1f}); {r['gloo_ms']:.1f} ms a "
+                f"step in "
+                f"{r['gloo_calls'] / DP_STEPS:.0f} gloo collectives")
+            if r["held"] != r["want"]:
+                raise AssertionError(f"{who} rank {rank}: held bytes differ "
+                                     f"from the specs'")
+            n_attn = r["cfg"].num_layers * DP_STEPS * mb
+            fwd = n_attn * (1 + int(r["cfg"].remat))
+            if tuple(r["launches"]) != (fwd, n_attn):
+                raise AssertionError(f"{who} rank {rank}: attention "
+                                     f"launched {r['launches']}, want "
+                                     f"{(fwd, n_attn)}")
+            log("  " + dp_tally_check(f"{who} rank {rank}", r["calls"],
+                                      r["cfg"], mb, fsdp, DP_STEPS))
+        launches[label] = r0["launches"]
+    log(f"[phase 15 done in {time.perf_counter() - t0:.1f} s]")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4904,6 +5459,14 @@ def main():
     stamp("phase 13")
     rows += phase_trunk(torch, np)
     stamp("phase 14")
+    dp_launches = phase_data_parallel(torch, np)
+    for r in rows:          # the smollm training rows of phase 9
+        if r.get("model") == DP_ARCH and r.get("case") and \
+                r["name"] in ("flash_attention", "flash_attention_bwd"):
+            r["data_parallel_launches_a_rank"] = {
+                k: v[r["name"] == "flash_attention_bwd"]
+                for k, v in dp_launches.items()}
+    stamp("phase 15")
 
     for r in rows:
         r.pop("key", None)

@@ -38,6 +38,25 @@ The collectives of sharded serving, over the mesh's process group
   * `broadcast_control`: the step loop's per-iteration record of what
     rank 0 decided (admissions, cancellations, deadlines, hot loads),
     always in host memory over a gloo group.
+
+The collectives of a data-parallel train step, over the training mesh's
+data group (`launch/mesh.py::TrainMesh`; identities without a group):
+  * `data_all_reduce`: a SUM over the data ranks, in place: the loss's
+    (tot, cnt) and the MoE router's sums and counts, the gradient of a
+    leaf whose moments are whole on every rank, the gradient norm's sum
+    of squares;
+  * `reduce_scatter_block`: the SUM of every rank's whole tensor, of
+    which this rank keeps its block along one dim (ZeRO-1's gradients
+    into the moments' blocks);
+  * `all_gather_block`: the ranks' blocks along one dim joined into the
+    whole tensor (ZeRO-1's new params, the gathered params and moments
+    of a checkpoint, a reshard between a leaf's FSDP and moment dims);
+  * `fsdp_gather`: an FSDP param block gathered at its use, as an
+    autograd Function: all-gather forward, reduce-scatter of the
+    gradient backward (a slice where every rank ran the same rows).
+`use_data(mesh)` marks the model calls of a step whose rows are split
+over the data ranks: `current_data()` is then the mesh, and
+`Model.loss` and `moe_ffn` normalise over the global batch with it.
 The tensor collectives take tensors where they lie, on NCCL and gloo
 alike (gloo took CUDA tensors in torch 2.11 on the H100, so no host
 staging is written), and add their count, result bytes and ring wire
@@ -58,6 +77,8 @@ from .cost import wire
 _state = threading.local()
 # kind -> {"count", "bytes" (results), "wire_bytes"}, this process
 _tally = defaultdict(lambda: {"count": 0, "bytes": 0, "wire_bytes": 0.0})
+# call -> the same, by the call that issued the collective
+_calls = defaultdict(lambda: {"count": 0, "bytes": 0, "wire_bytes": 0.0})
 
 
 def _ctx():
@@ -100,6 +121,24 @@ def current_vocab():
     return None if ctx is None else ctx[1]
 
 
+@contextlib.contextmanager
+def use_data(mesh):
+    """Mark the model calls of a train step whose batch rows are split
+    over `mesh`'s data ranks (a `TrainMesh`; None marks nothing)."""
+    prev = getattr(_state, "data", None)
+    _state.data = mesh if mesh is not None and mesh.group is not None \
+        else None
+    try:
+        yield
+    finally:
+        _state.data = prev
+
+
+def current_data():
+    """The active `use_data` mesh, or None (the batch is whole here)."""
+    return getattr(_state, "data", None)
+
+
 def current_trunk():
     """The active context's `TrunkPlan` when it splits the trunk, else
     None."""
@@ -118,16 +157,24 @@ def collective_tally() -> dict:
     return {k: dict(v) for k, v in _tally.items()}
 
 
+def collective_calls() -> dict:
+    """The same figures keyed by the call that issued each collective
+    (the `call` argument of the collectives below, else its kind)."""
+    return {k: dict(v) for k, v in _calls.items()}
+
+
 def reset_collective_tally() -> None:
     _tally.clear()
+    _calls.clear()
 
 
-def _note(kind: str, n: int, mesh) -> None:
+def _note(kind: str, n: int, mesh, call=None) -> None:
     """One collective of `kind` whose result is n bytes a rank."""
-    d = _tally[kind]
-    d["count"] += 1
-    d["bytes"] += n
-    d["wire_bytes"] += wire(kind, n, mesh.size)
+    w = wire(kind, n, mesh.size)
+    for d in (_tally[kind], _calls[call or kind]):
+        d["count"] += 1
+        d["bytes"] += n
+        d["wire_bytes"] += w
 
 
 def _all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -198,3 +245,78 @@ def broadcast_control(obj, mesh):
     dist.broadcast_object_list(box, src=mesh.global_rank(0),
                                group=mesh.ctrl_group)
     return box[0]
+
+
+# ------------------------- data-parallel training -------------------------
+
+def data_all_reduce(x: torch.Tensor, mesh, call="all-reduce"):
+    """SUM of x over the mesh's data ranks, in place; returns x."""
+    import torch.distributed as dist
+    if mesh is None or mesh.group is None:
+        return x
+    _note("all-reduce", x.numel() * x.element_size(), mesh, call)
+    dist.all_reduce(x, group=mesh.group)
+    return x
+
+
+def global_share(local: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """`total` (a sum over the data ranks) in value, `local` (this rank's
+    term of it) in gradient: summing the ranks' gradients then gives the
+    gradient of the total."""
+    return total + (local - local.detach())
+
+
+def reduce_scatter_block(x: torch.Tensor, dim: int, mesh,
+                         call="reduce-scatter") -> torch.Tensor:
+    """SUM of every rank's whole x, cut along `dim` into equal blocks in
+    rank order: this rank's block (a new tensor)."""
+    import torch.distributed as dist
+    n = mesh.size if mesh is not None and mesh.group is not None else 1
+    if n == 1:
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=mesh.group)
+    _note("reduce-scatter", out.numel() * out.element_size(), mesh, call)
+    return out.movedim(0, dim)
+
+
+def all_gather_block(x: torch.Tensor, dim: int, mesh,
+                     call="all-gather") -> torch.Tensor:
+    """Every rank's block x, joined along `dim` in rank order (a new
+    tensor); values pass unchanged."""
+    import torch.distributed as dist
+    n = mesh.size if mesh is not None and mesh.group is not None else 1
+    if n == 1:
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] * n, *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=mesh.group)
+    _note("all-gather", out.numel() * out.element_size(), mesh, call)
+    return out.movedim(0, dim).contiguous()
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, dim, mesh, replicated):
+        ctx.dim, ctx.mesh, ctx.replicated = dim, mesh, replicated
+        ctx.width = block.shape[dim]
+        return all_gather_block(block, dim, mesh, call="fsdp-gather")
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.replicated:      # every rank's grad is already the whole
+            w = ctx.width
+            return grad.narrow(ctx.dim, ctx.mesh.rank * w, w), None, \
+                None, None
+        return reduce_scatter_block(grad, ctx.dim, ctx.mesh,
+                                    call="fsdp-scatter"), None, None, None
+
+
+def fsdp_gather(block: torch.Tensor, dim: int, mesh,
+                replicated: bool = False) -> torch.Tensor:
+    """The whole param from this rank's FSDP block along `dim`: an
+    all-gather forward; backward, the SUM of the ranks' gradients
+    reduce-scattered into the block, or, where every rank ran the same
+    rows (`replicated`), this rank's block of its own gradient."""
+    return _FsdpGather.apply(block, dim, mesh, replicated)

@@ -32,8 +32,10 @@ training rules (FSDP `param_spec(fsdp=True)` when `needs_fsdp`, ZeRO-1
 `opt_state_specs`, `batch_specs`) and `cache_specs` are what the dry run
 (`launch/dryrun.py`) cuts each device's arguments with and what the
 static cost count (`distributed/cost.py`) splits FLOPs, bytes and
-collectives by, as the reference's dry run does; no live trainer shards
-(the reference's has no mesh either). Under `trunk_shard=True` the
+collectives by, as the reference's dry run does, and what a
+data-parallel train step cuts each rank's params, moments and batch rows
+with (`train_plan`: the reference's `_jit_target` train step on a
+(data, 1) mesh). Under `trunk_shard=True` the
 serving engine cuts each trunk leaf by `serving_param_spec(...,
 trunk_shard=True)` and each cache and pool leaf by `serving_cache_specs`
 (`trunk_plan` says what that splits: a cache by its kv heads, its
@@ -184,27 +186,33 @@ def param_specs(params, mesh, fsdp: bool = False):
         lambda p, leaf: param_spec(p, leaf.shape, mesh, fsdp=fsdp), params)
 
 
+def opt_state_spec(ps: str, shape, mesh, zero: bool = True) -> tuple:
+    """Rule for one optimizer-state leaf at path `ps` (under ['mu'] or
+    ['nu']). With zero=True (ZeRO-1), a moment also shards its largest
+    divisible dim not yet sharded over the data axes; `step` and 0-dim
+    leaves replicate."""
+    shape = tuple(shape)
+    if ps.startswith("['step']") or len(shape) == 0:
+        return ()
+    spec = list(param_spec(ps, shape, mesh))
+    while len(spec) < len(shape):
+        spec.append(None)
+    if zero:
+        dpa = data_axes(mesh)
+        best = None
+        for i, s in enumerate(spec):
+            if s is None and _div(shape[i], mesh, tuple(dpa)):
+                if best is None or shape[i] > shape[best]:
+                    best = i
+        if best is not None:
+            spec[best] = tuple(dpa) if len(dpa) > 1 else dpa[0]
+    return tuple(spec)
+
+
 def opt_state_specs(opt, mesh, zero: bool = True):
-    """Optimizer-moment specs. With zero=True (ZeRO-1), each moment also
-    shards its largest divisible dim not yet sharded over the data
-    axes; `step` and 0-dim leaves replicate."""
-    def rule(ps, leaf):
-        if ps.startswith("['step']") or len(leaf.shape) == 0:
-            return ()
-        spec = list(param_spec(ps, leaf.shape, mesh))
-        while len(spec) < len(leaf.shape):
-            spec.append(None)
-        if zero:
-            dpa = data_axes(mesh)
-            best = None
-            for i, s in enumerate(spec):
-                if s is None and _div(leaf.shape[i], mesh, tuple(dpa)):
-                    if best is None or leaf.shape[i] > leaf.shape[best]:
-                        best = i
-            if best is not None:
-                spec[best] = tuple(dpa) if len(dpa) > 1 else dpa[0]
-        return tuple(spec)
-    return map_with_path(rule, opt, "")
+    """Optimizer-moment specs (`opt_state_spec` for every leaf)."""
+    return map_with_path(
+        lambda ps, leaf: opt_state_spec(ps, leaf.shape, mesh, zero), opt, "")
 
 
 def batch_specs(batch, mesh):
@@ -721,3 +729,99 @@ def trunk_slice(path_str: str, shape, mesh, rank: int,
         return vocab_slice(path_str, shape, shard)
     spec = serving_param_spec(path_str, shape, mesh, None, trunk_shard=True)
     return shard_slice(spec, tuple(shape), mesh, rank)
+
+
+# ====================== data-parallel training plan =======================
+# The reference's sharded train step (`launch/dryrun.py::_jit_target`,
+# train mode) places params by `params_shardings(fsdp=...)`, AdamW's
+# moments by `opt_state_shardings` (ZeRO-1) and the batch by
+# `batch_shardings`, and GSPMD inserts the collectives. The port's rank
+# holds the blocks those specs give it on a (data, 1) mesh and calls the
+# collectives itself (`training/optimizer.py`, `training/train_loop.py`).
+
+
+def _data_dim(spec):
+    """The dim a spec splits over the data axes, or None (on a (data,
+    model) mesh the rules put "data" in at most one entry)."""
+    for i, e in enumerate(spec):
+        axes = e if isinstance(e, tuple) else (e,)
+        if "data" in axes:
+            return i
+    return None
+
+
+@dataclass(frozen=True)
+class LeafPlan:
+    """One param leaf in a data-parallel step: `shape` the whole leaf's;
+    `pdim` the dim FSDP splits over data (None: every rank holds the
+    whole leaf); `odim` the dim ZeRO-1 splits its moments (and the
+    gradient accumulator) over (None: whole on every rank); `param` and
+    `moment` the rank's blocks as slices of the whole leaf. The two dims
+    need not agree: the moments' rule looks at every dim of the leaf,
+    FSDP's never at the stacked layer dim."""
+    path: str
+    shape: tuple
+    pdim: Optional[int]
+    odim: Optional[int]
+    param: tuple
+    moment: tuple
+
+
+@dataclass(frozen=True)
+class TrainPlan:
+    """What rank `rank` of a (data, 1) mesh holds in the reference's
+    sharded train step: `leaves` in the params' flattening order."""
+    data: int
+    rank: int
+    fsdp: bool
+    leaves: tuple
+
+    def rows(self, B: int, microbatch: int = 1) -> tuple:
+        """-> (replicated, [slice of global rows a microbatch]). The
+        reference reshapes the batch [B, ...] to [microbatch, B/mb, ...]:
+        microbatch i is global rows [i*B/mb, (i+1)*B/mb), and its rows
+        split over the data ranks as `batch_specs` splits B. Where
+        `batch_specs` replicates the batch (B does not divide over the
+        data ways), every rank runs every row of each microbatch:
+        `replicated` is True and the gradients must not be summed over
+        the ranks. Raises ValueError where the microbatches do not cut
+        evenly: B not a multiple of mb (replicated) or of mb*data."""
+        mb = int(microbatch)
+        mesh = MeshShape({"data": self.data, "model": 1},
+                         ("data", "model"))
+        replicated = self.data > 1 and _dp(mesh, B) is None
+        ways = 1 if replicated else self.data
+        if mb < 1 or B % (mb * ways):
+            raise ValueError(
+                f"batch of {B} rows does not split into microbatch {mb} x "
+                f"data {ways} (B must be a multiple of {mb * ways})")
+        per, mine = B // mb, B // (mb * ways)
+        r = 0 if replicated else self.rank
+        return replicated, [slice(i * per + r * mine, i * per + (r + 1) * mine)
+                            for i in range(mb)]
+
+
+def train_plan(params, mesh, fsdp: bool = False,
+               rank: int = 0) -> TrainPlan:
+    """The per-rank plan of a data-parallel train step for the WHOLE
+    param tree `params` (tensors, meta tensors or anything with
+    `.shape`): each leaf's param block from `param_specs(fsdp=...)`, its
+    moment block from `opt_state_specs(zero=True)`, both cut with
+    `shard_slice`, in the reference's leaf order (dict keys sorted, as
+    `training/tree.py` flattens). `mesh` is a (data, model) mesh of
+    model 1."""
+    if mesh.shape.get("model", 1) != 1:
+        raise ValueError(
+            f"training mesh {dict(mesh.shape)}: the model axis in training "
+            f"is not ported yet (a later slice)")
+    from ..training.tree import flatten_with_path
+    out = []
+    for path, leaf in flatten_with_path(params):
+        shape = tuple(leaf.shape)
+        pspec = param_spec(path, shape, mesh, fsdp=fsdp)
+        ospec = opt_state_spec("['mu']" + path, shape, mesh)
+        out.append(LeafPlan(
+            path, shape, _data_dim(pspec), _data_dim(ospec),
+            shard_slice(pspec, shape, mesh, rank),
+            shard_slice(ospec, shape, mesh, rank)))
+    return TrainPlan(mesh.shape["data"], rank, bool(fsdp), tuple(out))

@@ -6,8 +6,11 @@ a rank, every rank the same program. `spawn(n, fn)` starts the ranks (a
 file store in a temp dir, no network), `make_serving_mesh(n)` is the
 serving engine's mesh over them: axes ("data", "model"), data 1, model n
 (the engine's slot pool is the batch dim and stays host-driven, as in the
-reference). A mesh carries the process group, its backend and this
-rank's device; `.shape` and `.axis_names` are what the sharding rules
+reference). `make_train_mesh(n)` is a train step's mesh: data n, model 1
+(the reference's `make_local_mesh`; the model axis in training is not
+ported yet and raises). A serving mesh carries the process group, its
+backend and this rank's device, a train mesh the data group and the
+device; `.shape` and `.axis_names` are what the sharding rules
 read (`distributed/sharding.py`). The production meshes have no host to
 run on here: `make_production_mesh` returns their shape only, for the
 rules.
@@ -52,6 +55,48 @@ class ServingMesh(MeshShape):
 
     def global_rank(self, i: int) -> int:
         return self.ranks[i]
+
+
+@dataclass(frozen=True, eq=False)
+class TrainMesh(MeshShape):
+    """A data-parallel train step's mesh on one rank: `rank` is this
+    process's coordinate on the data axis, `group` the data group (None
+    for one process with no group: every collective is then the
+    identity), `device` this rank's device."""
+    rank: int = 0
+    group: object = None
+    device: torch.device = field(default_factory=lambda:
+                                 torch.device("cpu"))
+
+
+def make_train_mesh(data: Optional[int] = None, model: int = 1,
+                    device="cuda") -> TrainMesh:
+    """The (data, model) mesh of a sharded train step over the ranks of
+    the initialized process group (`spawn` starts them): data `data`
+    (default: the world size), model 1. Rank r trains on device
+    `cuda:{r % device_count}` (or the CPU when asked). Without a process
+    group, data must be 1 and the mesh's collectives are identities.
+    Raises ValueError for model > 1 (the model axis in training is a
+    later slice), data < 1, or data other than the group's world size."""
+    import torch.distributed as dist
+    world = _world()
+    d = world if data is None else int(data)
+    if int(model) != 1:
+        raise ValueError(
+            f"training mesh (data {d}, model {model}): the model axis in "
+            f"training is not ported yet (a later slice); use model 1")
+    if d < 1 or d != world:
+        raise ValueError(f"training mesh (data {d}, model 1) needs a "
+                         f"process group of {d} ranks, got {world}")
+    dev = resolve_device(device)
+    shape = {"data": d, "model": 1}
+    if not dist.is_initialized():
+        return TrainMesh(shape, ("data", "model"), device=dev)
+    rank = dist.get_rank()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return TrainMesh(shape, ("data", "model"), rank=rank,
+                     group=dist.group.WORLD if d > 1 else None, device=dev)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

@@ -5,6 +5,17 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
       --grammar json --steps 20 --batch 8 --seq 1024 \
       [--checkpoint build/smollm.msgpack] [--num-layers N] [--device cpu]
+      [--data N]
+
+`--data N` trains data-parallel on N ranks (`launch.mesh.spawn`): the
+reference's sharded train step on a (data N, model 1) mesh, with
+ZeRO-1 moments and FSDP weights where `needs_fsdp` asks for them
+(`training/train_loop.py`). Every rank draws the whole global batch
+from the same seeded pipeline and trains on its rows; rank 0 prints the
+log lines and writes the checkpoint. The ranks meet over NCCL when the
+host has a card a rank, else over gloo (NCCL refuses two ranks on one
+card); with `--device cpu`, over gloo. The backend is printed.
+Without `--data` the launcher trains on one device, as before.
 
 `--arch` takes the port's configs (dense, moe, ssm, hybrid, vlm,
 audio); `--reduced` trains the config's small variant, `--num-layers`
@@ -28,6 +39,7 @@ from ..configs import get_config
 from ..core.grammars import load_grammar
 from ..core.tokenizer import ByteTokenizer
 from ..device import resolve_device
+from .mesh import make_train_mesh, spawn
 from ..models.model import build_model
 from ..training.data import GrammarDataPipeline, RandomTokenPipeline
 from ..training.optimizer import AdamWConfig
@@ -36,6 +48,8 @@ from ..training.tree import leaves
 
 
 def main(argv=None):
+    """-> (params, TrainResult); with `--data`, (None, rank 0's
+    TrainResult)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="syncode-demo")
     ap.add_argument("--reduced", action="store_true",
@@ -53,9 +67,30 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--data", type=int, default=None,
+                    help="train data-parallel on N ranks")
     args = ap.parse_args(argv)
-
+    if args.data is None:
+        return run(args)
     dev = resolve_device(args.device)
+    backend = "gloo" if dev.type != "cuda" or \
+        torch.cuda.device_count() < args.data else "nccl"
+    print(f"data-parallel training on {args.data} ranks over {backend}")
+    out = spawn(args.data, _rank, args, backend=backend, device=dev)
+    return out[0]
+
+
+def _rank(rank, args):
+    """One rank of `--data N`: the run on its mesh -> (None, its
+    TrainResult); the trained params stay in the checkpoint."""
+    return None, run(args, make_train_mesh(args.data,
+                                           device=args.device))[1]
+
+
+def run(args, mesh=None):
+    """Build, train and report one run (on `mesh`'s rank, or alone)."""
+    lead = mesh is None or mesh.rank == 0
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -66,8 +101,9 @@ def main(argv=None):
     gen.manual_seed(args.seed)
     init = [model.init(gen)]        # handed to train() without a reference
     n_params = sum(p.numel() for p in leaves(init[0]))
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"vocab={cfg.vocab_size}")
+    if lead:
+        print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
+              f"vocab={cfg.vocab_size}")
 
     if args.grammar == "random":
         data = iter(RandomTokenPipeline(cfg, args.seq, args.batch,
@@ -81,9 +117,11 @@ def main(argv=None):
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20),
                       total_steps=args.steps)
     params, result = train(model, init.pop(), data, args.steps, opt_cfg=opt,
-                           checkpoint_path=args.checkpoint, device=dev)
-    print(f"final loss {result.losses[-1]:.4f} "
-          f"({result.steps_per_sec:.2f} steps/s)")
+                           checkpoint_path=args.checkpoint, device=dev,
+                           mesh=mesh)
+    if lead:
+        print(f"final loss {result.losses[-1]:.4f} "
+              f"({result.steps_per_sec:.2f} steps/s)")
     return params, result
 
 

@@ -44,7 +44,12 @@ rank's serving params (`bridge.shard_params`) inside the sharded engine's
 combines across ranks (`common.embed_tokens`), the trunk is whole. Training
 differentiates with torch autograd; `cfg.remat` checkpoints each layer
 (`torch.utils.checkpoint`, non-reentrant) where the reference wraps its
-scan body in `jax.checkpoint`. Paged KV
+scan body in `jax.checkpoint`. Inside a data-parallel train step
+(`distributed.api.use_data`, each rank a block of the batch rows) `loss`
+is the reference's loss over the GLOBAL batch: the CE's (tot, cnt) and
+the MoE layers' router sums are all-reduced over the data ranks before
+they are divided (`global_ce`, `moe.moe_ffn`), and each rank's gradient
+is its rows' share of the global loss's. Paged KV
 pools (`init_paged_caches`) keep the reference's leaf layout
 {"k","v": [count, P, ps, K, Dh]}; a page table in `batch_ctx` routes the
 attention layers to them.
@@ -64,7 +69,8 @@ from .layers import (KIND_DECODE, KIND_INIT, KIND_PREFILL, KIND_TRAIN,
 from .rglru import init_rglru_cache
 from .ssm import init_ssm_cache
 from ..device import resolve_device
-from ..distributed.api import current_trunk
+from ..distributed.api import (current_data, current_trunk,
+                               data_all_reduce, global_share)
 from ..distributed.sharding import (leaves_with_path, map_with_path,
                                     ring_len)
 
@@ -114,6 +120,16 @@ class _MetaDraw:
     device is meta, so `dense_init` allocates and draws nothing
     (`torch.Generator` has no meta device)."""
     device = torch.device("meta")
+
+
+def global_ce(tot: torch.Tensor, cnt: torch.Tensor, mesh) -> torch.Tensor:
+    """The reference's CE over the GLOBAL batch, tot / max(cnt, 1), from
+    this rank's rows' NLL sum and mask count: one all-reduce of (tot,
+    cnt) over the data ranks. (A mean of the ranks' means is another
+    loss wherever their mask counts differ.)"""
+    g = data_all_reduce(torch.stack([tot.detach(), cnt.detach()]), mesh,
+                        call="loss")
+    return global_share(tot, g[0]) / torch.clamp(g[1], min=1.0)
 
 
 @dataclass
@@ -257,8 +273,16 @@ class Model:
         B, S, D = x.shape
         C = min(seq_chunk, S)
         eb = params["embed_block"]
-        if S % C != 0:
+        data = current_data()
+        if S % C != 0 and data is None:
             ce = cross_entropy_loss(lm_logits(eb, x, cfg), labels, mask)
+        elif S % C != 0:
+            logits = lm_logits(eb, x, cfg).float()
+            nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+                logits, -1, labels.long()[..., None])[..., 0]
+            if mask is None:
+                mask = torch.ones_like(nll)
+            ce = global_ce((nll * mask).sum(), mask.sum(), data)
         else:
             if mask is None:
                 mask = torch.ones((B, S), dtype=torch.float32,
@@ -276,7 +300,8 @@ class Model:
                 s, m = checkpoint(chunk_nll, x[:, sl], labels[:, sl],
                                   mask[:, sl], use_reentrant=False)
                 tot, cnt = tot + s, cnt + m
-            ce = tot / torch.clamp(cnt, min=1.0)
+            ce = tot / torch.clamp(cnt, min=1.0) if data is None else \
+                global_ce(tot, cnt, data)
         total = ce + LB_COEF * aux["lb"] + Z_COEF * aux["z"]
         return total, {"ce": ce, "lb": aux["lb"], "z": aux["z"]}
 

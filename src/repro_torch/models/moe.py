@@ -25,7 +25,13 @@ positions and the drops are computed on every rank from the same row
 with the global E and capacity; the rank dispatches and runs only its
 experts' pairs, and one all-reduce sums the ranks' combined outputs.
 
-Aux outputs: load-balance loss (Switch-style f.P) and router z-loss.
+Aux outputs: load-balance loss (Switch-style f.P) and router z-loss,
+both over every token of the batch. In a data-parallel train step
+(`distributed.api.current_data()`, each rank a block of the rows) the
+rank's router-probability sums, expert counts, squared log-sum-exps and
+token count are all-reduced (one collective a layer) before the
+fractions are formed, so lb and z are the global batch's; routing and
+capacity stay row-local and need no collective.
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.api import (all_gather_last, current_mesh, current_trunk,
-                               trunk_all_reduce)
+from ..distributed.api import (all_gather_last, current_data, current_mesh,
+                               current_trunk, data_all_reduce,
+                               global_share, trunk_all_reduce)
 from .common import dense_init
 
 
@@ -115,8 +122,30 @@ def moe_ffn(params, x, cfg):
         y = trunk_all_reduce(y, current_mesh())
 
     # ---- aux losses (Switch f.P, router z-loss) ----
+    data = current_data()
+    if data is not None:
+        lb_loss, z_loss = global_aux(probs, counts, logits, k, data)
+        return y, {"lb_loss": lb_loss, "z_loss": z_loss}
     me = probs.mean(dim=(0, 1))                               # [E]
     ce = counts.sum(0).float() / (B * S * k)
     lb_loss = E * torch.sum(me * ce)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return y, {"lb_loss": lb_loss, "z_loss": z_loss}
+
+
+def global_aux(probs, counts, logits, k: int, mesh):
+    """(lb_loss, z_loss) over the GLOBAL batch from this rank's rows: the
+    probability sums, expert counts, squared log-sum-exps and token count
+    all-reduced in one collective; each loss is the global value, and its
+    gradient this rank's rows' share of it."""
+    E = probs.shape[-1]
+    me_sum = probs.sum(dim=(0, 1))
+    z_sum = (torch.logsumexp(logits, dim=-1) ** 2).sum()
+    n = probs.new_tensor([probs.shape[0] * probs.shape[1]])
+    g = data_all_reduce(torch.cat([me_sum.detach(), counts.sum(0).float(),
+                                   z_sum.detach()[None], n]), mesh,
+                        call="moe")
+    tokens = g[-1]
+    me = global_share(me_sum, g[:E]) / tokens
+    ce = g[E:2 * E] / (tokens * k)
+    return E * torch.sum(me * ce), global_share(z_sum, g[2 * E]) / tokens

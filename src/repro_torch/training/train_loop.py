@@ -6,6 +6,18 @@ Params are the port's tree of tensors. A step detaches every leaf into a
 fresh leaf that requires grad, runs `model.loss`, takes
 `torch.autograd.grad` and applies `apply_updates`; the step's metrics
 stay tensors on the device until a logged step reads them.
+
+Data parallelism (`make_train_step(..., mesh=, microbatch=, fsdp=)`,
+`train(..., mesh=)`) is the reference's sharded train step
+(`launch/dryrun.py::_jit_target`, train mode) on a (data, 1) mesh,
+computing the same function of the GLOBAL batch: each rank holds the
+blocks `distributed/sharding.py::train_plan` gives it (its FSDP param
+blocks, its ZeRO-1 moment blocks), runs its rows of each microbatch
+(`TrainPlan.rows`), gathers each FSDP param at its use
+(`api.fsdp_gather`), normalises the loss over the global batch
+(`api.use_data`), accumulates fp32 gradients in the moments' blocks
+(divided by `microbatch`, as the reference's scan) and updates with
+`apply_updates`' ZeRO-1 form. The step takes the global batch.
 """
 from __future__ import annotations
 
@@ -15,29 +27,150 @@ from dataclasses import dataclass, field
 import torch
 
 from ..device import resolve_device
+from ..distributed.api import all_gather_block, fsdp_gather, use_data
+from ..distributed.sharding import needs_fsdp, train_plan
+from . import optimizer
 from .checkpoint import save_checkpoint
 from .optimizer import AdamWConfig, apply_updates, init_opt_state
 from .tree import leaves, unflatten
 
 
-def make_train_step(model, opt_cfg: AdamWConfig):
+class DataParallelStep:
+    """The sharded train step of one rank (see the module docstring):
+    `step(params, opt_state, batch)` -> (params, opt_state, metrics),
+    with `params` and `opt_state` the rank's blocks (`shard`,
+    `init_state`) and `batch` the global batch. `acc_bytes` is the
+    fp32 gradient accumulator's size on this rank in the last
+    microbatched step (0 with one microbatch)."""
+
+    def __init__(self, model, opt_cfg, mesh, microbatch=1, fsdp=None):
+        whole = model.abstract_params()
+        self.model, self.opt_cfg, self.mesh = model, opt_cfg, mesh
+        self.microbatch = int(microbatch)
+        self.fsdp = needs_fsdp(whole, mesh) if fsdp is None else bool(fsdp)
+        self.plan = train_plan(whole, mesh, fsdp=self.fsdp, rank=mesh.rank)
+        self.acc_bytes = 0
+
+    def shard(self, params):
+        """The whole param tree -> this rank's (its FSDP blocks, copied)."""
+        return unflatten(params, [
+            p[lp.param].contiguous() if lp.pdim is not None else p
+            for p, lp in zip(leaves(params), self.plan.leaves)])
+
+    def init_state(self, params):
+        return init_opt_state(params, self.plan)
+
+    def gather(self, params):
+        """This rank's params -> the whole tree (a collective: every rank
+        calls it)."""
+        return unflatten(params, [
+            all_gather_block(p, lp.pdim, self.mesh, call="gather")
+            if lp.pdim is not None else p
+            for p, lp in zip(leaves(params), self.plan.leaves)])
+
+    def gather_moments(self, state):
+        """This rank's moment blocks -> {"mu", "nu"} whole (a collective)."""
+        return {k: unflatten(state[k], [
+            all_gather_block(m, lp.odim, self.mesh, call="gather")
+            if lp.odim is not None else m
+            for m, lp in zip(leaves(state[k]), self.plan.leaves)])
+            for k in ("mu", "nu")}
+
+    def _loss_grads(self, params, batch, replicated):
+        blocks = [p.detach().requires_grad_() for p in leaves(params)]
+        whole = [fsdp_gather(b, lp.pdim, self.mesh, replicated)
+                 if lp.pdim is not None else b
+                 for b, lp in zip(blocks, self.plan.leaves)]
+        with use_data(None if replicated else self.mesh):
+            loss, metrics = self.model.loss(unflatten(params, whole), batch)
+        grads = torch.autograd.grad(loss, blocks)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            grads
+
+    def __call__(self, params, opt_state, batch):
+        B = next(iter(batch.values())).shape[0]
+        replicated, rows = self.plan.rows(B, self.microbatch)
+        mb = self.microbatch
+        acc, loss, metrics = None, 0.0, {}
+        for sl in rows:
+            l, m, grads = self._loss_grads(
+                params, {k: v[sl] for k, v in batch.items()}, replicated)
+            grads = optimizer.moment_grads(grads, self.plan, self.mesh,
+                                           replicated)
+            acc = _accumulate(acc, grads, mb)
+            loss, metrics = _mean_metrics(loss, metrics, l, m, mb)
+        self.acc_bytes = sum(a.numel() * a.element_size() for a in acc) \
+            if mb > 1 else 0
+        params, opt_state, om = apply_updates(
+            self.opt_cfg, params, acc, opt_state, plan=self.plan,
+            mesh=self.mesh)
+        return params, opt_state, dict(metrics, loss=loss, **om)
+
+
+def _accumulate(acc, grads, mb):
+    """The reference's scan carry: the sum over the microbatches of each
+    gradient in fp32 divided by `microbatch` (with one microbatch, the
+    gradients as they are)."""
+    if mb > 1:
+        grads = [g.float() / mb for g in grads]
+    return list(grads) if acc is None else \
+        [a.add_(g) for a, g in zip(acc, grads)]
+
+
+def _mean_metrics(loss, metrics, l, m, mb):
+    """The loss and metrics summed over the microbatches, each / mb."""
+    return loss + l / mb, {k: metrics.get(k, 0.0) + v / mb
+                           for k, v in m.items()}
+
+
+def make_train_step(model, opt_cfg: AdamWConfig, mesh=None,
+                    microbatch: int = 1, fsdp=None):
+    """The train step. With a mesh (a `launch.mesh.TrainMesh`), a
+    `DataParallelStep` over it: `fsdp` None decides by `needs_fsdp`, as
+    the reference does, and B must divide by microbatch x data. Without
+    one, the one-device step: with `microbatch` k > 1 it runs the
+    reference's scan in plain form (rows [i B/k, (i+1) B/k) of the batch
+    a microbatch, fp32 gradients each divided by k and summed, then one
+    update); `fsdp` is ignored."""
+    if mesh is not None:
+        return DataParallelStep(model, opt_cfg, mesh, microbatch, fsdp)
+    mb = int(microbatch)
+
     def train_step(params, opt_state, batch):
-        flat = [p.detach().requires_grad_() for p in leaves(params)]
-        loss, metrics = model.loss(unflatten(params, flat), batch)
-        grads = torch.autograd.grad(loss, flat)
+        B = next(iter(batch.values())).shape[0]
+        if mb < 1 or B % mb:
+            raise ValueError(f"batch of {B} rows does not split into "
+                             f"microbatch {mb}")
+        n = B // mb
+        acc, loss, metrics = None, 0.0, {}
+        for i in range(mb):
+            part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            flat = [p.detach().requires_grad_() for p in leaves(params)]
+            l, m = model.loss(unflatten(params, flat), part)
+            acc = _accumulate(acc, torch.autograd.grad(l, flat), mb)
+            loss, metrics = _mean_metrics(
+                loss, metrics, l.detach(),
+                {k: v.detach() for k, v in m.items()}, mb)
         params, opt_state, opt_metrics = apply_updates(
-            opt_cfg, params, unflatten(params, grads), opt_state)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics = dict(metrics, loss=loss.detach(), **opt_metrics)
-        return params, opt_state, metrics
+            opt_cfg, params, unflatten(params, acc), opt_state)
+        return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
     return train_step
 
 
 @dataclass
 class TrainResult:
+    """`held`: under a mesh, the bytes this rank held at the end of the
+    run: its params ("params", FSDP blocks or whole leaves), its moment
+    blocks ("moments", mu and nu) and its gradient accumulator ("acc",
+    microbatched runs)."""
     losses: list = field(default_factory=list)
     metrics: list = field(default_factory=list)
     steps_per_sec: float = 0.0
+    held: dict = field(default_factory=dict)
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
 def ship_batch(batch, device):
@@ -53,16 +186,33 @@ def ship_batch(batch, device):
 def train(model, params, data_iter, steps: int,
           opt_cfg: AdamWConfig | None = None, log_every: int = 10,
           checkpoint_path: str | None = None, checkpoint_every: int = 0,
-          verbose: bool = True, device="cuda") -> tuple:
+          verbose: bool = True, device="cuda", mesh=None,
+          microbatch: int = 1, fsdp=None) -> tuple:
     """-> (params, TrainResult). `device` is resolved as every entry
     point's: "cuda" unless the caller asks for the CPU. The first step
     replaces `params` with new tensors: a caller that keeps its own
     reference to them holds a second copy of the weights for the whole
-    run (2 bytes a bf16 param), so hand them over without one."""
+    run (2 bytes a bf16 param), so hand them over without one.
+
+    With a `mesh` (a `launch.mesh.TrainMesh`), every rank calls this with
+    the same whole params and the same seeded pipeline: each draws the
+    whole global batch, so the batches are bit for bit the one-device
+    run's, in the same order, and the step takes its rows. Rank 0 prints
+    the log lines and writes the checkpoint, after every rank gathered
+    the params; every rank returns the whole params."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig(total_steps=steps)
-    opt_state = init_opt_state(params)
-    step_fn = make_train_step(model, opt_cfg)
+    step_fn = make_train_step(model, opt_cfg, mesh, microbatch, fsdp)
+    sharded = isinstance(step_fn, DataParallelStep)
+    if sharded:
+        dev = step_fn.mesh.device
+        params = step_fn.shard(params)
+        opt_state = step_fn.init_state(params)
+        verbose = verbose and step_fn.mesh.rank == 0
+    else:
+        opt_state = init_opt_state(params)
+    whole = step_fn.gather if sharded else (lambda p: p)
+    lead = not sharded or step_fn.mesh.rank == 0
     result = TrainResult()
     t0 = time.time()
     for i in range(steps):
@@ -79,10 +229,18 @@ def train(model, params, data_iter, steps: int,
                       f"lr {m['lr']:.2e} gnorm {m['gnorm']:.2f}")
         if checkpoint_path and checkpoint_every and \
                 (i + 1) % checkpoint_every == 0:
-            save_checkpoint(checkpoint_path, params, step=i + 1)
+            full = whole(params)
+            if lead:
+                save_checkpoint(checkpoint_path, full, step=i + 1)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     result.steps_per_sec = steps / max(time.time() - t0, 1e-9)
-    if checkpoint_path:
+    if sharded:
+        result.held = {"params": _nbytes(params),
+                       "moments": _nbytes([opt_state["mu"],
+                                           opt_state["nu"]]),
+                       "acc": step_fn.acc_bytes}
+    params = whole(params)
+    if checkpoint_path and lead:
         save_checkpoint(checkpoint_path, params, step=steps)
     return params, result
