@@ -188,7 +188,8 @@ no result line):
    bf16 at full width: qwen1.5-0.5b (all 24 layers, 16/16 heads, QKV
    bias, d_ff 2816, V 151936), qwen3-moe-30b-a3b (phase 8's 4 layers,
    32/4 heads, 128 experts top-8), smollm-360m (all 32 layers, 15/5
-   heads: the sequence split, max_len 64 so that both ranks' shares hold
+   heads: the sequence split, max_len 64 so that
+   both ranks' shares hold
    positions of the requests), mamba2-370m (all 48 layers: w_in columns,
    conv channels, SSD heads and w_out rows split, the projection and the
    conv output gathered, the gated norm's statistic carried in the w_out
@@ -251,7 +252,7 @@ no result line):
    (`share_mask_stores`);
 15. data-parallel training (`train(..., mesh=make_train_mesh(2))`: the
    reference's sharded train step on a (data 2, model 1) mesh) of
-   smollm-360m at full width and all 32 layers in bf16 over a 2-rank
+   smollm-360m at full width and 16 of 32 layers in bf16 over a 2-rank
    gloo world on the one card (NCCL takes one card a rank), on phase 9's
    json batches (B 8 x S 1024, the first 3) with a planted loss_mask
    whose counts differ between the ranks and the microbatches: plain DP
@@ -259,18 +260,33 @@ no result line):
    one-device port step on the same seeded weights and batches
    (`train()` with no mesh; at microbatch 2 its plain accumulation):
    each step's loss and gnorm within DP_BF16_REL relative; fp32 copies
-   at 2 layers stepped beside the one-device twin on rank 0 (loss, and
-   after the last step every moment, within DP_FP32_REL; the params by
-   the one-device parity test's rule, its |mu|-sure elements where their
-   clipped gradient never fell below 100 eps; the last step's new params
+   at 2 layers stepped beside the one-device twin on rank 0, set to the
+   run's own params and moments before each step with its own step
+   counter (each step's loss and moments within DP_FP32_REL; the params
+   by the one-device parity test's rule, its |mu|-sure elements where
+   their clipped gradient is at least 100 eps; the last step's new params
    within DP_UPDATE_REL of the AdamW formula on the run's own gathered
-   params and moments); each rank's param, moment and accumulator bytes
-   equal to the specs' (`train_plan`); the attention launches (32 layers
+   params and moments), and against the same twin run free from the
+   seeded weights (loss, gnorm and moments of every step within
+   DP_FREE_REL); each rank's param, moment and accumulator bytes
+   equal to the specs' (`train_plan`); the attention launches (16 layers
    x steps x microbatches, the forward twice under remat); the
    collectives a step against `cost.train_step`'s count; the flash
    forward and backward kernels on the run's own calls against their
    plain versions; ms a step after the first beside the twin's, and the
-   gloo calls' ms.
+   gloo calls' ms;
+16. the model axis in training (`train(..., mesh=make_train_mesh(D,
+   M))`: the reference's sharded train step on a (data, model) mesh,
+   Megatron blocks with their backward collectives, the
+   vocabulary-parallel loss): run A, qwen1.5-0.5b at full width and all
+   24 layers (16/16 heads, QKV bias) on a (data 2, model 2) world of 4
+   gloo ranks; run B, smollm-360m at 8 of 32 layers (15/5 heads: q/k/v
+   cut inside heads and gathered; tied) on a (data 1, model 2) world;
+   bf16, phase 15's batches, 3 steps, each against its one-device twin
+   (loss and gnorm within MA_BF16_REL), fp32 copies at 2 layers by
+   phase 15's rules, each rank's bytes against the specs', the
+   collectives against `cost.train_step`'s (`ma_tally_check`), the
+   flash kernels on the run's own calls, ms a step and gloo's ms.
 
 The last lines are the card's name and power limit, the kernels JSON
 line, and `{"ok": true, "device": {...}}`.
@@ -1083,10 +1099,17 @@ def phase_new_paths(torch, engine, bundles, counters, dense_states):
     return found, {"spec": spec_states, "paged": paged_states}
 
 
+# steps in a breakdown's profiled window (10 until phase 16 came: the
+# profiler's own time over ~2600 kernels a step took most of phase 6's
+# 56.5 s; the wall and dispatch times still take `steps` unprofiled steps)
+PROFILE_STEPS = 2
+
+
 def _step_breakdown(torch, label, step, steps=10, share_of=()):
     """Where one decode step's time goes: the host's dispatch time (no
-    sync), the synced wall time, and the device busy time summed over the
-    kernels the profiler saw in the window; busy / wall is the card's busy
+    sync) and the synced wall time over `steps` steps, and the device
+    busy time summed over the kernels the profiler saw in a window of
+    min(steps, PROFILE_STEPS) steps; busy / wall is the card's busy
     share. `share_of` names kernels whose launches, device ms per step and
     share of the busy time are printed too."""
     from torch.autograd import DeviceType
@@ -1100,29 +1123,33 @@ def _step_breakdown(torch, label, step, steps=10, share_of=()):
     dispatch = (time.perf_counter() - t0) / steps
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
+    window = min(steps, PROFILE_STEPS)
+    t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
+        for _ in range(window):
             step()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kern) / steps
-    launches = sum(e.count for e in kern) / steps
+    t_prof = time.perf_counter() - t_prof
+    busy_us = sum(e.self_device_time_total for e in kern) / window
+    launches = sum(e.count for e in kern) / window
     busy = (f"device busy {busy_us / 1e3:.4f} ms/step, busy share "
             f"{busy_us / 1e3 / (wall * 1e3):.3f}" if busy_us > 0 else
             "device busy not measured (the profiler saw no device time)")
-    log(f"{label} ({steps} steps): wall {wall * 1e3:.4f} ms/step, host "
-        f"dispatch {dispatch * 1e3:.4f} ms/step; {busy}; {launches:.0f} "
-        f"kernels/step")
+    log(f"{label} ({steps} steps, {window} profiled in {t_prof:.1f} s): "
+        f"wall "
+        f"{wall * 1e3:.4f} ms/step, host dispatch {dispatch * 1e3:.4f} "
+        f"ms/step; {busy}; {launches:.0f} kernels/step")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     log("  top kernels (ms/step): " + "; ".join(
-        f"{e.key[:60]} {e.self_device_time_total / steps / 1e3:.4f}"
+        f"{e.key[:60]} {e.self_device_time_total / window / 1e3:.4f}"
         for e in top))
     for name in share_of if busy_us > 0 else ():
         mine = [e for e in kern if name in e.key]
-        us = sum(e.self_device_time_total for e in mine) / steps
-        n = sum(e.count for e in mine) / steps
+        us = sum(e.self_device_time_total for e in mine) / window
+        n = sum(e.count for e in mine) / window
         log(f"  {name}: {n:.0f} launches/step, {us / 1e3:.4f} ms/step "
             f"device, {us / busy_us:.3f} of device busy")
 
@@ -4856,35 +4883,45 @@ def phase_trunk(torch, np):
 
 # ------------------------------------- phase 15: data-parallel training
 
-# smollm-360m at full width and depth in bf16 on phase 9's global batch
-# (B 8 x S 1024 of json batches, with a planted loss_mask: row r masks
-# its first (5 r + 1) S / 128 positions, so the ranks' and the
-# microbatches' counts differ), trained by `train(..., mesh=)` on a
-# (data 2, model 1) gloo world on the one card, 3 steps a run; the twin
-# is the one-device port step on the same seeded weights and batches
-# (at microbatch 2 its plain accumulation, no DataParallelStep)
+# smollm-360m at full width in bf16 on phase 9's global batch (B 8 x S
+# 1024 of json batches, with a planted loss_mask: row r masks its first
+# (5 r + 1) S / 128 positions, so the ranks' and the microbatches'
+# counts differ), trained by `train(..., mesh=)` on a (data 2, model 1)
+# gloo world on the one card, 3 steps a run; the twin is the one-device
+# port step on the same seeded weights and batches (at microbatch 2 its
+# plain accumulation, no DataParallelStep). DP_DEPTH of its 32 layers
+# since phase 16 came (all 32 before), for the script's time (the seconds
+# this saves: `scripts/phase_seconds.py`)
 DP_ARCH, DP_B, DP_S, DP_STEPS, DP_WORLD = "smollm-360m", 8, 1024, 3, 2
+DP_DEPTH = 16
 # (label, microbatch, FSDP forced)
 DP_RUNS = (("dp", 1, False), ("fsdp", 1, True), ("mb2", 2, False))
 DP_FP32_DEPTH = 2       # the fp32 copies' layers
-# fp32 against the twin after each step: the loss relative, each moment
-# leaf (after the last step) relative to its largest magnitude; the
-# params by the one-device parity test's rule
-# (tests/test_torch_train_parity.py), with lr the steps' summed lr:
-# within 2 lr everywhere (Adam's update is g / (|g| + eps): where the
-# clipped |g| is near or below eps, sum-order noise decides its size and
-# sign) and within 1e-6 + 1e-5 lr wherever |mu| is at least 1e-3 of its
-# leaf's largest (a skipped, stale or sign-flipped update of a block
-# moves such elements by about lr). Over several steps an element whose
-# clipped gradient was below 100 eps at an earlier step keeps that
-# step's noisy update after its |mu| has grown, so the second rule
-# holds the elements whose gradient never fell below 100 eps; the
-# others are counted and logged (at 100 eps a gradient noise of 1e-6 of
-# the leaf's largest moves the update by about 1e-4 of lr)
+# fp32: before each step the one-device twin is set to the run's own
+# gathered params and moments and stepped on the same batch (so Adam's
+# eps noise of an earlier step, which a free-running twin carries into
+# the later steps' gradients, does not enter the comparison: phase 16's
+# qwen1.5 read 1.021e-5 free-running at its third step's moments); after
+# each step the loss relative and each moment leaf relative to its
+# largest magnitude; the params by the one-device parity test's rule
+# (tests/test_torch_train_parity.py) with lr the step's: within 2 lr
+# everywhere (Adam's update is g / (|g| + eps): where the clipped |g| is
+# near or below eps, sum-order noise decides its size and sign) and
+# within 1e-6 + 1e-5 lr wherever |mu| is at least 1e-3 of its leaf's
+# largest and the clipped gradient is at least 100 eps (a skipped, stale
+# or sign-flipped update of a block moves such elements by about lr);
+# the elements past 1e-5 of their leaf's largest are counted and logged
 DP_FP32_REL = 1e-5
 # and the last step's new params against the AdamW formula applied to the
 # run's own gathered params and moments (fp32 rounding only)
 DP_UPDATE_REL = 1e-6
+# and each step's loss, gnorm and moments (each leaf relative to its
+# largest) against the same twin run free from the seeded weights, so
+# that what the run carries from step to step is held too; set before
+# its first card run from `scripts/train_shard_tolerance.py --dtype
+# float32` (PERF.md section 2) and the card's free-running reading of
+# run A's moments, 1.021e-5
+DP_FREE_REL = 1e-4
 # bf16: each step's loss and gnorm against the twin's, relative; from
 # `scripts/train_shard_tolerance.py` (PERF.md section 2: on the CPU at 8
 # layers and S 512 the sound splits read at most 1.26e-3, the planted
@@ -4912,12 +4949,13 @@ def dp_batches(vocab, steps=DP_STEPS, B=DP_B, S=DP_S):
     return out
 
 
-def dp_model(torch, dtype="bfloat16", depth=None, device="cuda"):
-    """(model, seeded whole params) of DP_ARCH."""
+def dp_model(torch, dtype="bfloat16", depth=None, device="cuda",
+             arch=DP_ARCH):
+    """(model, seeded whole params) of `arch` (DP_ARCH)."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    cfg = replace(get_config(DP_ARCH), dtype=dtype)
+    cfg = replace(get_config(arch), dtype=dtype)
     if depth:
         cfg = replace(cfg, num_layers=depth)
     model = build_model(cfg, device=device)
@@ -5034,7 +5072,8 @@ def dp_held_bytes(model, mesh, fsdp, mb):
     from repro_torch.training.optimizer import block_shape
     from repro_torch.training.tree import leaves
     whole = model.abstract_params()
-    plan = train_plan(whole, mesh, fsdp=fsdp, rank=mesh.rank)
+    plan = train_plan(whole, mesh, fsdp=fsdp, rank=mesh.mesh_rank,
+                      cfg=model.cfg)
     p = sum(math.prod(block_shape(lp.param)) * t.element_size()
             for lp, t in zip(plan.leaves, leaves(whole)))
     m = sum(math.prod(block_shape(lp.moment)) * 4 for lp in plan.leaves)
@@ -5099,52 +5138,60 @@ def dp_tally_check(who, calls, cfg, mb, fsdp, steps):
     return line
 
 
-def dp_rank(rank, n, batches):
-    """One rank of phase 15's gloo world: each of DP_RUNS through
-    `train(..., mesh=)` in bf16 at full depth, then the fp32 copies at
-    DP_FP32_DEPTH layers step by step (rank 0 steps the one-device twin
-    beside them and compares after each step). -> {label: ...}."""
-    import torch
+def sharded_bf16_run(torch, mesh, who, batches, steps, mb=1, fsdp=False,
+                     depth=DP_DEPTH, arch=DP_ARCH):
+    """One bf16 run of `arch` (`depth` layers) through `train(...,
+    mesh=)` on this rank -> its losses, gnorms, held and specs' bytes,
+    collectives by call, attention launches, ms a step after the first,
+    gloo ms a step and calls, flash on the run's own calls (`who` names
+    it) and the config."""
     from repro_torch.distributed.api import (collective_calls,
                                              reset_collective_tally)
     from repro_torch.kernels.flash_attention.ops import (attention,
                                                          attention_backward)
-    from repro_torch.launch.mesh import make_train_mesh
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_loop import train
+    model, params = dp_model(torch, depth=depth, arch=arch)
+    init = [params]
+    del params
+    want = dp_held_bytes(model, mesh, fsdp, mb)
+    data = _TimedIter(iter(batches))
+    reset_collective_tally()
+    attention.launches = attention_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _CollectiveClock(torch) as clock, _TrainFlashSpy() as spy:
+        _, result = train(model, init.pop(), data, steps,
+                          opt_cfg=AdamWConfig(**DP_OPT), log_every=1,
+                          verbose=False, device="cuda", mesh=mesh,
+                          microbatch=mb, fsdp=fsdp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rec = {"losses": result.losses,
+           "gnorms": [m["gnorm"] for m in result.metrics],
+           "held": result.held, "want": want, "calls": collective_calls(),
+           "launches": (attention.launches, attention_backward.launches),
+           "step_ms": data.later_steps_ms(t0 + secs),
+           "gloo_ms": clock.ms / steps, "gloo_calls": clock.calls,
+           "flash": spy.check(who), "cfg": model.cfg}
+    del model, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dp_rank(rank, n, batches, depth):
+    """One rank of phase 15's gloo world: each of DP_RUNS through
+    `train(..., mesh=)` in bf16 at `depth` layers, then the fp32 copies
+    at DP_FP32_DEPTH layers step by step (rank 0 steps the one-device
+    twin beside them and compares after each step). -> {label: ...}."""
+    import torch
+    from repro_torch.launch.mesh import make_train_mesh
     mesh = make_train_mesh(n, device="cuda")
-    opt = AdamWConfig(**DP_OPT)
-    out = {}
-    for label, mb, fsdp in DP_RUNS:
-        model, params = dp_model(torch)
-        init = [params]
-        del params
-        want = dp_held_bytes(model, mesh, fsdp, mb)
-        data = _TimedIter(iter(batches))
-        reset_collective_tally()
-        attention.launches = attention_backward.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with _CollectiveClock(torch) as clock, _TrainFlashSpy() as spy:
-            _, result = train(model, init.pop(), data, DP_STEPS,
-                              opt_cfg=opt, log_every=1, verbose=False,
-                              device="cuda", mesh=mesh, microbatch=mb,
-                              fsdp=fsdp)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        rec = {"losses": result.losses,
-               "gnorms": [m["gnorm"] for m in result.metrics],
-               "held": result.held, "want": want,
-               "calls": collective_calls(),
-               "launches": (attention.launches, attention_backward.launches),
-               "step_ms": data.later_steps_ms(t0 + secs),
-               "gloo_ms": clock.ms / DP_STEPS, "gloo_calls": clock.calls,
-               "flash": spy.check(f"phase 15 {label} rank {rank}"),
-               "cfg": model.cfg}
-        out[label] = rec
-        del model, result
-        gc.collect()
-        torch.cuda.empty_cache()
+    out = {label: sharded_bf16_run(torch, mesh, f"phase 15 {label} rank "
+                                   f"{rank}", batches, DP_STEPS, mb, fsdp,
+                                   depth)
+           for label, mb, fsdp in DP_RUNS}
     for label, mb, fsdp in DP_RUNS:
         out[label]["fp32"] = dp_fp32(torch, mesh, batches, mb, fsdp)
         gc.collect()
@@ -5152,90 +5199,193 @@ def dp_rank(rank, n, batches):
     return out
 
 
-def dp_fp32(torch, mesh, batches, mb, fsdp, depth=DP_FP32_DEPTH):
-    """The fp32 copy of one run at `depth` layers, step by step; rank 0
-    steps the plain one-device twin (no mesh) beside it and compares
-    after each step -> the worst readings (rank 0; zeros elsewhere):
-    "loss" relative; "moments" (after the last step) of each leaf's
-    largest; "params" of each leaf's largest and "params_lr" over the
-    steps' summed lr; "sure" over 1e-6 + 1e-5 lr where |mu| is at least
-    1e-3 of its leaf's largest and the element's clipped gradient (the
-    twin's, read from its mu) never fell below 100 eps (DP_FP32 rule);
-    the largest count in a step of "over" (elements past 1e-5 of their
-    leaf's largest), "over_near" (of them, those whose gradient did fall
-    below 100 eps), "past_sure" (|mu|-sure elements past 1e-6 + 1e-5 lr)
-    and "near_eps" (of them, those whose gradient fell below 100 eps);
-    "update" the last step against the AdamW formula (`dp_update_err`)."""
+def dp_fp32(torch, mesh, batches, mb, fsdp, depth=DP_FP32_DEPTH,
+            arch=DP_ARCH):
+    """The fp32 copy of one run at `depth` layers, step by step; before
+    each step the lead rank sets the plain one-device twin (no mesh) to
+    the run's own gathered params and moments, steps it on the same
+    batch and compares (so Adam's eps noise of an earlier step does not
+    carry into a later step's comparison) -> the worst readings over the
+    steps (the lead rank; zeros elsewhere): "loss" relative; "moments"
+    of each leaf's largest ("moments_leaf" the worst leaf,
+    "moments_top" the four worst of the last step); "params" of each
+    leaf's largest and "params_lr" over the step's lr; "sure" over
+    1e-6 + 1e-5 lr where |mu| is at least 1e-3 of its leaf's largest
+    and the element's clipped gradient (the twin's, read from its mu) is
+    at least 100 eps (DP_FP32 rule); the largest count in a step of
+    "over" (elements past 1e-5 of their leaf's largest), "over_near" (of
+    them, those whose gradient was below 100 eps), "past_sure" (|mu|-sure
+    elements past 1e-6 + 1e-5 lr) and "near_eps" (of them, those whose
+    gradient was below 100 eps); "update" the last step against the
+    AdamW formula (`dp_update_err`)."""
+    from repro_torch.distributed.sharding import train_plan
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_loop import make_train_step
-    from repro_torch.training.tree import leaves
+    from repro_torch.training.tree import flatten_with_path, leaves, tree_map
     opt = AdamWConfig(**DP_OPT)
-    model, whole = dp_model(torch, "float32", depth, device=mesh.device)
+    model, whole = dp_model(torch, "float32", depth, device=mesh.device,
+                            arch=arch)
     step = make_train_step(model, opt, mesh, mb, fsdp)
     params = step.shard(whole)
     state = step.init_state(params)
-    lead = mesh.rank == 0
-    if lead:        # the plain one-device step
+    lead = mesh.lead
+    # every rank's plan, in global rank order (rank r is mesh place r)
+    abstract = model.abstract_params()
+    plans = [train_plan(abstract, mesh, fsdp=step.fsdp, rank=r,
+                        cfg=model.cfg)
+             for r in range(mesh.shape["data"] * mesh.shape["model"])]
+    if lead:        # the plain one-device step, from the run's own state
         twin_step = make_train_step(model, opt, None, mb)
-        twin, twin_state = [whole], init_opt_state(whole)
-        small = None        # per leaf: |g| fell below 100 eps at a step
+        free = dp_free_run(torch, twin_step, whole, batches, mesh.device)
+        prev, prev_state = whole, init_opt_state(whole)
     del whole
-    worst = {"loss": 0.0, "moments": 0.0, "params_lr": 0.0, "params": 0.0,
-             "sure": 0.0, "over": 0, "over_near": 0, "past_sure": 0,
-             "near_eps": 0, "update": 0.0}
+    worst = {"loss": 0.0, "moments": 0.0, "moments_leaf": None,
+             "moments_top": [],
+             "params_lr": 0.0, "params": 0.0, "sure": 0.0, "over": 0,
+             "over_near": 0, "past_sure": 0, "near_eps": 0, "update": 0.0,
+             "free": 0.0, "free_of": None}
     rel = lambda a, w: ((a - w).abs().max()
                         / w.abs().max().clamp(min=1e-30)).item()
-    lr_sum, prev = 0.0, None
-    for b in batches:
+    for i, b in enumerate(batches):
         tb = {k: torch.from_numpy(v).to(mesh.device) for k, v in b.items()}
         params, state, m = step(params, state, tb)
-        last = b is batches[-1]
-        got = step.gather(params)
-        mom = step.gather_moments(state) if last else None
-        if lead:
-            mu0 = [t.clone() for t in leaves(twin_state["mu"])]
-            tp, twin_state, tm = twin_step(twin.pop(), twin_state, tb)
-            twin.append(tp)
-            lr_sum += float(tm["lr"])
-            worst["loss"] = max(worst["loss"], abs(
-                float(m["loss"]) - float(tm["loss"])) / abs(float(tm["loss"])))
-            for k in ("mu", "nu") if last else ():
-                for a, w in zip(leaves(mom[k]), leaves(twin_state[k])):
-                    worst["moments"] = max(worst["moments"], rel(a, w))
-            # the twin's clipped gradient of this step, from its mu
-            g = [(mu - opt.beta1 * m0).abs() / (1 - opt.beta1)
-                 for mu, m0 in zip(leaves(twin_state["mu"]), mu0)]
-            now = [x < 100 * opt.eps for x in g]
-            small = now if small is None else [
-                a | b for a, b in zip(small, now)]
-            bound = 1e-6 + 1e-5 * lr_sum
-            n = {"over": 0, "over_near": 0, "past_sure": 0, "near_eps": 0}
-            for a, w, mu, sm in zip(leaves(got), leaves(tp),
-                                    leaves(twin_state["mu"]), small):
-                d = (a - w).abs()
-                worst["params"] = max(worst["params"], rel(a, w))
-                worst["params_lr"] = max(worst["params_lr"],
-                                         d.max().item() / lr_sum)
-                mu = mu.abs()
-                sure = mu >= 1e-3 * mu.max().clamp(min=1e-30)
-                held = sure & ~sm
-                if held.any():
-                    worst["sure"] = max(worst["sure"],
-                                        d[held].max().item() / bound)
-                past = sure & (d > bound)
-                big = d > 1e-5 * w.abs().max()
-                for k, x in (("over", big), ("over_near", big & sm),
-                             ("past_sure", past),
-                             ("near_eps", past & sm)):
-                    n[k] += int(x.sum().item())
-            for k, v in n.items():
-                worst[k] = max(worst[k], v)
-            if last:
-                worst["update"] = dp_update_err(opt, prev, got, mom,
-                                                state["step"], m["lr"])
-        prev = got
-        del got, mom
+        got = lead_whole(torch, params, plans, lambda lp: lp.param, lead)
+        mom = {k: lead_whole(torch, state[k], plans, lambda lp: lp.moment,
+                             lead) for k in ("mu", "nu")}
+        # every rank's cached blocks back to the card before the lead
+        # steps the twin (phase 16's four ranks share one card)
+        torch.cuda.empty_cache()
+        if not lead:
+            continue
+        # the free-running twin's step i against the run's
+        f_loss, f_gnorm, f_mom = free[i]
+        for e, what in [
+                (abs(float(m["loss"]) - f_loss) / abs(f_loss), "loss"),
+                (abs(float(m["gnorm"]) - f_gnorm) / abs(f_gnorm), "gnorm"),
+                *((rel(a, w.to(a.device)), f"{k}{path}")
+                  for k in ("mu", "nu")
+                  for (path, a), w in zip(flatten_with_path(mom[k]),
+                                          f_mom[k]))]:
+            if e > worst["free"]:
+                worst["free"], worst["free_of"] = e, f"{what} step {i + 1}"
+        mu0 = [t.clone() for t in leaves(prev_state["mu"])]
+        tp, ts, tm = twin_step(prev, prev_state, tb)   # moments in place
+        lr = float(tm["lr"])
+        worst["loss"] = max(worst["loss"], abs(
+            float(m["loss"]) - float(tm["loss"])) / abs(float(tm["loss"])))
+        top = []
+        for k in ("mu", "nu"):
+            for (path, a), w in zip(flatten_with_path(mom[k]),
+                                    leaves(ts[k])):
+                e = rel(a, w)
+                top.append((e, f"{k}{path}", float(w.abs().max())))
+                if e > worst["moments"]:
+                    worst["moments"] = e
+                    worst["moments_leaf"] = f"{k}{path}"
+        worst["moments_top"] = sorted(top, reverse=True)[:4]
+        # the twin's clipped gradient of this step, from its mu
+        g = [(mu - opt.beta1 * m0).abs() / (1 - opt.beta1)
+             for mu, m0 in zip(leaves(ts["mu"]), mu0)]
+        bound = 1e-6 + 1e-5 * lr
+        n = {"over": 0, "over_near": 0, "past_sure": 0, "near_eps": 0}
+        for a, w, mu, gl in zip(leaves(got), leaves(tp), leaves(ts["mu"]),
+                                g):
+            sm = gl < 100 * opt.eps
+            d = (a - w).abs()
+            worst["params"] = max(worst["params"], rel(a, w))
+            worst["params_lr"] = max(worst["params_lr"], d.max().item() / lr)
+            mu = mu.abs()
+            sure = mu >= 1e-3 * mu.max().clamp(min=1e-30)
+            held = sure & ~sm
+            if held.any():
+                worst["sure"] = max(worst["sure"],
+                                    d[held].max().item() / bound)
+            past = sure & (d > bound)
+            big = d > 1e-5 * w.abs().max()
+            for k, x in (("over", big), ("over_near", big & sm),
+                         ("past_sure", past), ("near_eps", past & sm)):
+                n[k] += int(x.sum().item())
+        for k, v in n.items():
+            worst[k] = max(worst[k], v)
+        if b is batches[-1]:    # the twin's own step counter and lr
+            worst["update"] = dp_update_err(opt, prev, got, mom,
+                                            ts["step"], tm["lr"])
+        # copies: a gathered moment may be the rank's own tensor, which
+        # the next step updates in place; the step counter the twin's own
+        prev, prev_state = got, tree_map(torch.clone, {
+            "mu": mom["mu"], "nu": mom["nu"], "step": ts["step"]})
+        del tp, ts
     return worst
+
+
+def dp_free_run(torch, twin_step, whole, batches, device):
+    """The one-device fp32 twin run free from the seeded params `whole`
+    (left as they are) over `batches` -> per step (loss, gnorm, {"mu",
+    "nu": the moment leaves in host memory})."""
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.tree import leaves
+    params, state, out = whole, init_opt_state(whole), []
+    for b in batches:
+        tb = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        params, state, m = twin_step(params, state, tb)
+        out.append((float(m["loss"]), float(m["gnorm"]),
+                    {k: [t.to("cpu", copy=True) for t in leaves(state[k])]
+                     for k in ("mu", "nu")}))
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_fp32_check(who, fp, depth):
+    """Log `dp_fp32`'s readings of one run and raise past a bound."""
+    log(f"{who}: fp32 at {depth} layers against the twin set to the run's "
+        f"own params and moments before each step (its own step counter): "
+        f"loss {fp['loss']:.3e} relative, moments {fp['moments']:.3e} of "
+        f"their leaf's largest ({fp['moments_leaf']}; bound {DP_FP32_REL} "
+        f"each, every step); params {fp['params_lr']:.3e} x the step's lr "
+        f"(bound 2), where |mu| >= 1e-3 of its leaf's largest and |g| at "
+        f"least 100 eps {fp['sure']:.3e} x 1e-6 + 1e-5 lr (bound 1; "
+        f"{fp['past_sure']} |mu|-sure elements past it in a step, "
+        f"{fp['near_eps']} of them with |g| below 100 eps); "
+        f"{fp['params']:.3e} of their leaf's largest, {fp['over']} "
+        f"elements over 1e-5 of it in a step, {fp['over_near']} of them "
+        f"with |g| below 100 eps; the last step's update "
+        f"{fp['update']:.3e} from the AdamW formula (bound "
+        f"{DP_UPDATE_REL}); against the free-running twin, loss, gnorm and "
+        f"moments over the steps {fp['free']:.3e} ({fp['free_of']}; bound "
+        f"{DP_FREE_REL})")
+    log(f"{who}: fp32 moments, the worst leaves (error of the leaf's "
+        f"largest, leaf, its largest): {fp['moments_top']}")
+    if not (fp["loss"] <= DP_FP32_REL and fp["moments"] <= DP_FP32_REL
+            and fp["params_lr"] <= 2.0 and fp["sure"] <= 1.0
+            and fp["update"] <= DP_UPDATE_REL
+            and fp["free"] <= DP_FREE_REL):
+        raise AssertionError(f"{who}: fp32 beyond the bound")
+
+
+def lead_whole(torch, tree, plans, block_of, lead):
+    """The whole tree from every rank's blocks of `tree` (params or
+    moments; `block_of(leaf plan)` the rank's slices), on the lead rank
+    (global rank 0), else None: each split leaf's blocks gathered to the
+    lead in host memory (an all-gather would hand every rank the whole
+    tree), a leaf every rank holds whole taken as the lead's own."""
+    import torch.distributed as dist
+    from repro_torch.training.tree import leaves, unflatten
+    out = []
+    for i, t in enumerate(leaves(tree)):
+        shape = plans[0].leaves[i].shape
+        if tuple(t.shape) == tuple(shape):
+            out.append(t)
+            continue
+        src = t.detach().cpu().contiguous()
+        bufs = [torch.empty_like(src) for _ in plans] if lead else None
+        dist.gather(src, bufs, dst=0)
+        if lead:
+            whole = torch.empty(shape, dtype=t.dtype)
+            for p, b in zip(plans, bufs):
+                whole[block_of(p.leaves[i])] = b
+            out.append(whole.to(t.device))
+    return unflatten(tree, out) if lead else None
 
 
 def dp_update_err(opt, prev, got, mom, step, lr):
@@ -5262,19 +5412,20 @@ def dp_update_err(opt, prev, got, mom, step, lr):
     return err
 
 
-def dp_twin(torch, batches, mb):
+def dp_twin(torch, batches, mb, steps=DP_STEPS, depth=DP_DEPTH,
+            arch=DP_ARCH):
     """The one-device bf16 run of the same weights and batches through
     `train()` with no mesh (at microbatch 2 the plain accumulation of
     `make_train_step`, no `DataParallelStep`) -> (losses, gnorms, ms a
     step)."""
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_loop import train
-    model, params = dp_model(torch)
+    model, params = dp_model(torch, depth=depth, arch=arch)
     init = [params]
     del params
     data = _TimedIter(iter(batches))
     torch.cuda.synchronize()
-    _, result = train(model, init.pop(), data, DP_STEPS,
+    _, result = train(model, init.pop(), data, steps,
                       opt_cfg=AdamWConfig(**DP_OPT), log_every=1,
                       verbose=False, device="cuda", microbatch=mb)
     torch.cuda.synchronize()
@@ -5286,10 +5437,10 @@ def dp_twin(torch, batches, mb):
     return out
 
 
-def phase_data_parallel(torch, np):
+def phase_data_parallel(torch, np, depth=DP_DEPTH):
     """Phase 15: data-parallel training (`train(..., mesh=)`) of
-    smollm-360m at full width and depth in bf16 on a (data 2, model 1)
-    gloo world on the one card: plain DP + ZeRO-1, FSDP forced and
+    smollm-360m at full width (`depth` layers) in bf16 on a (data 2,
+    model 1) gloo world on the one card: plain DP + ZeRO-1, FSDP forced and
     microbatch 2, each 3 steps of phase 9's json batches with the
     planted loss_mask, against the one-device port step on the same
     seeded weights (bf16 within DP_BF16_REL; fp32 copies at
@@ -5301,11 +5452,11 @@ def phase_data_parallel(torch, np):
     from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
     batches = dp_batches(get_config(DP_ARCH).vocab_size)
-    twins = {1: dp_twin(torch, batches, 1), 2: dp_twin(torch, batches, 2)}
+    twins = {mb: dp_twin(torch, batches, mb, depth=depth) for mb in (1, 2)}
     log(f"[phase 15 twins done at {time.perf_counter() - t0:.1f} s]")
     t1 = time.perf_counter()
-    ranks = spawn(DP_WORLD, dp_rank, DP_WORLD, batches, backend="gloo",
-                  device="cuda")
+    ranks = spawn(DP_WORLD, dp_rank, DP_WORLD, batches, depth,
+                  backend="gloo", device="cuda")
     log(f"[phase 15 world of {DP_WORLD}: {time.perf_counter() - t1:.1f} s]")
     launches = {}
     for label, mb, fsdp in DP_RUNS:
@@ -5322,25 +5473,7 @@ def phase_data_parallel(torch, np):
             f"{worst:.3e} (bound {DP_BF16_REL})")
         if not worst <= DP_BF16_REL:
             raise AssertionError(f"{who}: bf16 beyond the bound")
-        fp = r0["fp32"]
-        log(f"{who}: fp32 at {DP_FP32_DEPTH} layers against the twin: loss "
-            f"{fp['loss']:.3e} relative, moments {fp['moments']:.3e} of "
-            f"their leaf's largest (bound {DP_FP32_REL} each); params "
-            f"{fp['params_lr']:.3e} x the steps' summed lr (bound 2), "
-            f"where |mu| >= 1e-3 of its leaf's largest and |g| stayed above "
-            f"100 eps {fp['sure']:.3e} x 1e-6 + 1e-5 lr (bound 1; "
-            f"{fp['past_sure']} |mu|-sure elements past it in a step, "
-            f"{fp['near_eps']} of them with |g| below 100 eps at a step); "
-            f"{fp['params']:.3e} of their leaf's largest, {fp['over']} "
-            f"elements over 1e-5 of it in a step, {fp['over_near']} of them "
-            f"with |g| below 100 eps at a step")
-        log(f"{who}: the last step's update on the run's own gathered "
-            f"params and moments: {fp['update']:.3e} of each leaf's largest "
-            f"from the AdamW formula (bound {DP_UPDATE_REL})")
-        if not (fp["loss"] <= DP_FP32_REL and fp["moments"] <= DP_FP32_REL
-                and fp["params_lr"] <= 2.0 and fp["sure"] <= 1.0
-                and fp["update"] <= DP_UPDATE_REL):
-            raise AssertionError(f"{who}: fp32 beyond the bound")
+        dp_fp32_check(who, r0["fp32"], DP_FP32_DEPTH)
         for rank, res in enumerate(ranks):
             r = res[label]
             log(f"{who} rank {rank}: holds {r['held']} bytes, the specs "
@@ -5363,6 +5496,200 @@ def phase_data_parallel(torch, np):
                                       r["cfg"], mb, fsdp, DP_STEPS))
         launches[label] = r0["launches"]
     log(f"[phase 15 done in {time.perf_counter() - t0:.1f} s]")
+    return launches
+
+
+# ------------------------------------- phase 16: the model axis in training
+
+# (label, arch, layers (None: all), data, model). Run A, the Megatron
+# path with whole heads: qwen1.5-0.5b at full width and depth (24 layers,
+# 16/16 heads of 64, QKV bias, d_ff 2816, V 151936, untied) on a (data 2,
+# model 2) world of 4 gloo ranks. Run B, the gathers branch: smollm-360m
+# (15/5 heads: wq/wk/wv cut inside heads and gathered into whole heads;
+# tied) at 8 of 32 layers on a (data 1, model 2) world. bf16, remat, phase
+# 15's json batches (B 8 x S 1024, its planted loss_mask), 3 steps
+# through `train(..., mesh=)`; each run's twin is the one-device port
+# step on the same seeded weights and batches; fp32 copies at 2 layers
+# by phase 15's rules (`dp_fp32`)
+MA_RUNS = (("A", "qwen1.5-0.5b", None, 2, 2), ("B", "smollm-360m", 8, 1, 2))
+MA_STEPS, MA_FP32_DEPTH = 3, 2
+# bf16: each step's loss and gnorm against the twin's, relative; from
+# `scripts/train_shard_tolerance.py --axis model --device cuda
+# --model-depths 24,8 --seq 1024` (PERF.md section 2), set before this
+# phase first ran: the sound splits read 5.879e-4 (run A) and 1.002e-4
+# (run B) on the card, the planted faults 1.797e-3 (`norm-m-times`, the
+# weakest), 0.4632 and 0.7519; 1e-3 lies just under their geometric
+# middle (1.028e-3)
+MA_BF16_REL = 1e-3
+
+
+def ma_rank(rank, label, arch, depth, D, M, batches, spawned):
+    """One rank of a phase 16 world: the bf16 run through `train(...,
+    mesh=)`, then the fp32 copy at MA_FP32_DEPTH layers (`dp_fp32`: the
+    lead rank steps the one-device twin beside it). `spawned` is the
+    parent's clock (time.time()) when it started the world."""
+    import torch
+    from repro_torch.launch.mesh import make_train_mesh
+    started = time.time() - spawned
+    mesh = make_train_mesh(D, M, device="cuda")
+    meshed = time.time() - spawned
+    t0 = time.perf_counter()
+    rec = sharded_bf16_run(torch, mesh, f"phase 16 run {label} rank {rank}",
+                           batches, MA_STEPS, depth=depth, arch=arch)
+    t1 = time.perf_counter()
+    rec["coords"] = (mesh.rank, mesh.model_rank)
+    rec["fp32"] = dp_fp32(torch, mesh, batches, 1, False,
+                          depth=MA_FP32_DEPTH, arch=arch)
+    rec["secs"] = (t1 - t0, time.perf_counter() - t1)
+    rec["clock"] = (started, meshed, time.time() - spawned)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ma_tally_check(who, calls, cfg, D, M, steps):
+    """A run's collectives a step (the final gather left out) against
+    `cost.train_step`'s count at the same (data, model) mesh. GSPMD's on
+    the model axis (the row blocks', the lookup's and the column inputs'
+    gradient all-reduces): cost.py's all-reduces less its three
+    cross-entropy ones, less one a layer under remat (torch's recompute
+    stops at the last tensor the backward needs, before the FFN's
+    row-sum; cost.py counts it). The data axis' ZeRO-1 reduce-scatters
+    (fp32, against cost.py's at the param's dtype) and all-gathers:
+    cost.py's. The port's own, pinned: the cross-entropy's 6 (max, sum,
+    gold, again in the chunk's recompute), the norm's, the q/k/v gathers
+    and reduce-scatters where M does not divide the kv heads, the QKV
+    biases' gradients, the loss's on the data axis. -> the line."""
+    from repro_torch.distributed import cost
+    from repro_torch.distributed.sharding import trunk_plan
+    from repro_torch.launch.mesh import MeshShape
+    mesh = MeshShape({"data": D, "model": M}, ("data", "model"))
+    orig = cost.needs_fsdp
+    cost.needs_fsdp = lambda *a, **k: False
+    try:
+        want = cost.train_step(cfg, DP_B, DP_S, 1, mesh=mesh)["collectives"]
+    finally:
+        cost.needs_fsdp = orig
+    rem, L = int(cfg.remat), cfg.num_layers
+    it = 2 if cfg.dtype == "bfloat16" else 4
+    tp = trunk_plan(cfg, M)
+    rows = DP_B * DP_S // D
+    ce = 3 * cost.wire("all-reduce", rows * 4, M)
+    drop = rem * L if tp.ff_split else 0
+    data = cost._Tally(mesh)
+    cost._grad_collectives(data, cfg, mesh, False, rem)
+    zero = {"count": 0.0, "wire_bytes": 0.0}
+    dar = data.coll.get("all-reduce", zero)
+    per = lambda names, k: sum(calls.get(c, {}).get(k, 0)
+                               for c in names) / steps
+    got_ar = (per(("row-sum", "lookup", "col-grad"), "count"),
+              per(("row-sum", "lookup", "col-grad"), "wire_bytes"))
+    exp_ar = (want["all-reduce"]["count"] - 3 - dar["count"] - drop,
+              want["all-reduce"]["wire_bytes"] - ce - dar["wire_bytes"]
+              - drop * cost.wire("all-reduce", rows * cfg.d_model * it, M))
+    ok = abs(got_ar[0] - exp_ar[0]) < 1e-9 and \
+        math.isclose(got_ar[1], exp_ar[1], rel_tol=1e-9)
+    data_got = {}
+    for kind in ("reduce-scatter", "all-gather"):
+        d = data.coll.get(kind, zero)
+        g = (per((kind,), "count"), per((kind,), "wire_bytes")
+             * (it / 4 if kind == "reduce-scatter" else 1))
+        data_got[kind] = g
+        ok = ok and abs(g[0] - d["count"]) < 1e-9 and \
+            math.isclose(g[1], d["wire_bytes"], rel_tol=1e-9, abs_tol=1e-9)
+    pinned = {"ce": 6, "model-gnorm": 1}
+    if tp.gathers:
+        pinned.update({"qkv-gather": (1 + rem) * L, "qkv-scatter": L})
+    if cfg.qkv_bias:
+        pinned["bias-grad"] = 3 * L
+    if D > 1:
+        pinned.update({"loss": 1, "gnorm": 1})
+    own = {c: d["count"] / steps for c, d in calls.items()
+           if c not in ("row-sum", "lookup", "col-grad", "reduce-scatter",
+                        "all-gather", "gather")}
+    ok = ok and own == pinned
+    line = (f"{who}: a step's model-axis all-reduces (row-sum, lookup, "
+            f"col-grad) {got_ar[0]:.0f} of {got_ar[1]:.6g} wire bytes, "
+            f"cost.py's less its 3 CE and {drop} recompute ones "
+            f"{exp_ar[0]:.0f} of {exp_ar[1]:.6g}; data axis "
+            f"{json.dumps(data_got)} (ZeRO-1's fp32 reduce-scatter at "
+            f"{it}-byte gradients), cost.py "
+            f"{json.dumps({k: v for k, v in data.coll.items()})}; the port's "
+            f"own a step {json.dumps(own)}, pinned {json.dumps(pinned)}; "
+            f"cost.py's all-to-all {json.dumps(want.get('all-to-all'))}")
+    if not ok:
+        raise AssertionError(line)
+    return line
+
+
+def phase_model_axis(torch, np):
+    """Phase 16: the model axis in training (`train(..., mesh=)` on
+    (data, model) worlds of gloo ranks on the one card, MA_RUNS): each
+    run's bf16 loss and gnorm against its one-device twin within
+    MA_BF16_REL; fp32 copies at MA_FP32_DEPTH layers by phase 15's rules
+    (`dp_fp32`); each rank's bytes against the specs'; the collectives
+    against cost.py's (`ma_tally_check`); the flash kernels on the run's
+    own calls against their plain versions. -> {run: the lead rank's
+    attention launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    launches = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase 16: this process holds {torch.cuda.memory_allocated()} B "
+        f"on the card, {torch.cuda.memory_reserved()} B reserved]")
+    for label, arch, depth, D, M in MA_RUNS:
+        t1 = time.perf_counter()
+        batches = dp_batches(get_config(arch).vocab_size, MA_STEPS, DP_B,
+                             DP_S)
+        losses, gnorms, twin_ms = dp_twin(torch, batches, 1, MA_STEPS,
+                                          depth, arch)
+        t2 = time.perf_counter()
+        ranks = spawn(D * M, ma_rank, label, arch, depth, D, M, batches,
+                      time.time(), backend="gloo", device="cuda")
+        r0 = ranks[0]
+        cfg = r0["cfg"]
+        who = f"phase 16 run {label}, {arch} ({cfg.num_layers} layers, " \
+              f"data {D}, model {M})"
+        log(f"[{who}: twin {t2 - t1:.1f} s, world of {D * M} "
+            f"{time.perf_counter() - t2:.1f} s]")
+        worst = max(max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                            losses)),
+                    max(abs(a - b) / abs(b) for a, b in zip(r0["gnorms"],
+                                                            gnorms)))
+        log(f"{who}: losses {r0['losses']} vs the twin's {losses}; gnorms "
+            f"{r0['gnorms']} vs {gnorms}; worst relative difference "
+            f"{worst:.3e} (bound {MA_BF16_REL})")
+        if not worst <= MA_BF16_REL:
+            raise AssertionError(f"{who}: bf16 beyond the bound")
+        dp_fp32_check(who, r0["fp32"], MA_FP32_DEPTH)
+        n_attn = cfg.num_layers * MA_STEPS
+        for rank, r in enumerate(ranks):
+            log(f"{who} rank {rank} at {r['coords']}: in its process "
+                f"{r['clock'][0]:.1f} s after the spawn, its mesh at "
+                f"{r['clock'][1]:.1f} s, done at {r['clock'][2]:.1f} s; bf16 "
+                f"run {r['secs'][0]:.1f} s, fp32 copy {r['secs'][1]:.1f} s; "
+                f"holds "
+                f"{r['held']} bytes, the specs {r['want']}; attention launches "
+                f"{r['launches'][0]} forward, {r['launches'][1]} backward; "
+                f"flash on the run's own calls {r['flash']}; "
+                f"{r['step_ms']:.1f} ms a step after the first (twin "
+                f"{twin_ms:.1f}); {r['gloo_ms']:.1f} ms a step in "
+                f"{r['gloo_calls'] / MA_STEPS:.0f} gloo collectives")
+            if r["held"] != r["want"]:
+                raise AssertionError(f"{who} rank {rank}: held bytes differ "
+                                     f"from the specs'")
+            want = (n_attn * (1 + int(cfg.remat)), n_attn)
+            if tuple(r["launches"]) != want:
+                raise AssertionError(f"{who} rank {rank}: attention "
+                                     f"launched {r['launches']}, want {want}")
+            log("  " + ma_tally_check(f"{who} rank {rank}", r["calls"], cfg,
+                                      D, M, MA_STEPS))
+        launches[label] = r0["launches"]
+        del ranks
+        gc.collect()
+    log(f"[phase 16 done in {time.perf_counter() - t0:.1f} s]")
     return launches
 
 
@@ -5467,6 +5794,15 @@ def main():
                 k: v[r["name"] == "flash_attention_bwd"]
                 for k, v in dp_launches.items()}
     stamp("phase 15")
+    ma_launches = phase_model_axis(torch, np)
+    for r in rows:          # the smollm training rows of phase 9
+        if r.get("model") == DP_ARCH and r.get("case") and \
+                r["name"] in ("flash_attention", "flash_attention_bwd"):
+            r["model_axis_launches_a_rank"] = {
+                f"{label} {arch} (data {D}, model {M})":
+                    ma_launches[label][r["name"] == "flash_attention_bwd"]
+                for label, arch, _, D, M in MA_RUNS}
+    stamp("phase 16")
 
     for r in rows:
         r.pop("key", None)

@@ -132,14 +132,14 @@ def plant(fault):
     """Break this process's trunk split as `fault` says."""
     from repro_torch.models import common, layers, moe, rglru, ssm
     if fault == "ffn-no-all-reduce":
-        ffn, reduce = layers.ffn, common.trunk_all_reduce
+        ffn, reduce = layers.ffn, common.model_sum
 
         def unreduced(p, x):
-            common.trunk_all_reduce = lambda y, mesh: y
+            common.model_sum = lambda y, mesh, call=None: y
             try:
                 return ffn(p, x)
             finally:
-                common.trunk_all_reduce = reduce
+                common.model_sum = reduce
         layers.ffn = unreduced
     elif fault == "bias-columns":
         def other_cols(b, span):

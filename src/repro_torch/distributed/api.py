@@ -23,18 +23,19 @@ The collectives of sharded serving, over the mesh's process group
     zeros (exact);
   * `all_gather_last`: blocks joined on the last dim, each padded to the
     widest block for the collective and trimmed after: the masked
-    logits before the selection, and under trunk_shard the MoE router's
-    expert columns, the SSM's in-projection and conv output channels
-    and the RG-LRU's conv output (the gates contract over all of R);
+    logits before the selection, and under trunk_shard the SSM's
+    in-projection and conv output channels and the RG-LRU's conv output
+    (the gates contract over all of R);
   * `all_gather_stack` (trunk_shard, the sequence split): every rank's
-    equal-shaped tensor, stacked in rank order: the q/k/v column blocks
-    joined into whole heads, and the partial attention outputs with
-    their log-sum-exp before the combine;
-  * `trunk_all_reduce` (trunk_shard): the SUM of the ranks' partial
-    row-parallel products (attention out, FFN down, the experts'
-    combine, the recurrent layers' w_out; the SSM's carries its gated
-    norm's sum of squares beside the partial), not exact: the sum runs in another order than the
-    one-device product's;
+    equal-shaped tensor, stacked in rank order: the partial attention
+    outputs with their log-sum-exp before the combine;
+  * `trunk_all_reduce` (trunk_shard): the SUM of the recurrent layers'
+    partial w_out products (the SSM's carries its gated norm's sum of
+    squares beside the partial), not exact: the sum runs in another
+    order than the one-device product's;
+  * the attention, FFN and MoE blocks of a trunk split call the model
+    axis' Functions below, whose forwards are these same SUMs and
+    gathers (under no_grad their backwards cost nothing);
   * `broadcast_control`: the step loop's per-iteration record of what
     rank 0 decided (admissions, cancellations, deadlines, hot loads),
     always in host memory over a gloo group.
@@ -57,6 +58,41 @@ data group (`launch/mesh.py::TrainMesh`; identities without a group):
 `use_data(mesh)` marks the model calls of a step whose rows are split
 over the data ranks: `current_data()` is then the mesh, and
 `Model.loss` and `moe_ffn` normalise over the global batch with it.
+
+The collectives of a trunk split's attention, FFN and MoE blocks, in
+serving (the engine's mesh) and in a train step's model axis (a (data,
+model) mesh: `TrainMesh.model_mesh`, the ranks of this rank's data
+coordinate), each an autograd Function whose backward is its forward's
+dual, counted under its call:
+  * `model_copy` (Megatron's f): the identity forward, the SUM of the
+    ranks' gradients backward, before every split column block's
+    product ("col-grad": wq/wk/wv, w_gate/w_up, the lm head; "experts-
+    grad": the router and the expert dispatch; "bias-grad": the columns
+    a rank takes of a whole QKV bias; "kv-grad": a whole k/v that
+    attention under a partial output gradient feeds);
+  * `model_sum` (Megatron's g): the SUM forward, the identity backward,
+    after every row block ("row-sum": wo, w_down; "experts-sum": the
+    experts' combine), after the vocabulary-parallel lookup ("lookup")
+    and for the cross-entropy's sums ("ce", beside `model_max`, its row
+    max, which takes no gradient); `model_all_reduce` is the same SUM
+    outside autograd (the gradient norm's share, "model-gnorm"); the
+    SUM runs in place (no product before it saves its output);
+  * `model_gather_stack`: the q/k/v column blocks joined into whole heads
+    ("qkv-gather"); the gradient that reaches them is a partial (the
+    rank uses only its rows of the attention output before wo's rows),
+    so the backward is a reduce-scatter ("qkv-scatter");
+  * `model_gather_router`: the router's expert columns joined into the
+    whole row ("router-gather"), as two outputs: one for the routing,
+    whose gradient is a partial (the gates weight only the rank's own
+    experts), and one for the aux losses, whose gradient is the same on
+    every rank; the backward sums the first ("router-scatter") and adds
+    the rank's columns of the second once.
+`use_model(mesh, trunk, vocab)` marks the model calls of such a step:
+`current_trunk()` and `current_mesh()` then answer as in a trunk-sharded
+engine, and `train_model()` gives the model group and the rank's
+vocabulary rows. `recompute_context` carries all three contexts into a
+checkpointed layer's recompute, which runs in the backward, on the
+autograd engine's device thread on the card.
 The tensor collectives take tensors where they lie, on NCCL and gloo
 alike (gloo took CUDA tensors in torch 2.11 on the H100, so no host
 staging is written), and add their count, result bytes and ring wire
@@ -137,6 +173,47 @@ def use_data(mesh):
 def current_data():
     """The active `use_data` mesh, or None (the batch is whole here)."""
     return getattr(_state, "data", None)
+
+
+@contextlib.contextmanager
+def use_model(mesh, trunk, vocab=None):
+    """Mark the model calls of a train step whose trunk is split over
+    `mesh` (a `TrainMesh.model_mesh`): `trunk` is this rank's
+    `TrunkPlan`, `vocab` its rows (v0, v1) of embed and lm_head, or None
+    where the vocabulary is whole."""
+    prev = (_ctx(), getattr(_state, "model", None))
+    _state.ctx = (mesh, None, trunk)
+    _state.model = (mesh, vocab)
+    try:
+        yield
+    finally:
+        _state.ctx, _state.model = prev
+
+
+def train_model():
+    """(the model group's mesh, this rank's vocabulary rows or None)
+    inside `use_model`, else None."""
+    return getattr(_state, "model", None)
+
+
+@contextlib.contextmanager
+def _restored(snapshot):
+    prev = (_ctx(), getattr(_state, "data", None),
+            getattr(_state, "model", None))
+    _state.ctx, _state.data, _state.model = snapshot
+    try:
+        yield
+    finally:
+        _state.ctx, _state.data, _state.model = prev
+
+
+def recompute_context():
+    """`torch.utils.checkpoint`'s context_fn: the contexts active at the
+    forward, entered again around the recompute (the contexts are per
+    thread, and the backward of card tensors runs on another thread)."""
+    snap = (_ctx(), getattr(_state, "data", None),
+            getattr(_state, "model", None))
+    return contextlib.nullcontext(), _restored(snap)
 
 
 def current_trunk():
@@ -320,3 +397,126 @@ def fsdp_gather(block: torch.Tensor, dim: int, mesh,
     reduce-scattered into the block, or, where every rank ran the same
     rows (`replicated`), this rank's block of its own gradient."""
     return _FsdpGather.apply(block, dim, mesh, replicated)
+
+
+# ------------------------ the model axis in training ------------------------
+
+def model_all_reduce(x: torch.Tensor, mesh, call, op=None) -> torch.Tensor:
+    """The SUM (or `op`) over the model ranks of x, in place, outside
+    autograd; returns x. Identity without a group."""
+    import torch.distributed as dist
+    if mesh is None or mesh.group is None:
+        return x
+    _note("all-reduce", x.numel() * x.element_size(), mesh, call)
+    dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=mesh.group)
+    return x
+
+
+class _ModelCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, call):
+        ctx.mesh, ctx.call = mesh, call
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_all_reduce(grad.contiguous().clone(), ctx.mesh,
+                                ctx.call), None, None
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, call):
+        # in place: no caller's product saves its output for its backward
+        ctx.mark_dirty(x)
+        return model_all_reduce(x, mesh, call)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def model_copy(x: torch.Tensor, mesh, call="col-grad") -> torch.Tensor:
+    """x forward; backward, the SUM over the model ranks of the gradient
+    (the input of a split column block: each rank's gradient is the part
+    its columns give)."""
+    return _ModelCopy.apply(x, mesh, call)
+
+
+def model_sum(x: torch.Tensor, mesh, call="row-sum") -> torch.Tensor:
+    """The SUM over the model ranks of x (contiguous), in place; returns
+    x. Backward, the gradient as it is (the sum feeds work every rank
+    runs alike). Not exact where x holds partial products: each rank
+    rounds its partial sum, and the collective adds the partials in its
+    own order."""
+    return _ModelSum.apply(x, mesh, call)
+
+
+def model_max(x: torch.Tensor, mesh, call="ce") -> torch.Tensor:
+    """The elementwise MAX over the model ranks of x (a tensor that takes
+    no gradient), in place; returns x."""
+    import torch.distributed as dist
+    return model_all_reduce(x, mesh, call, dist.ReduceOp.MAX)
+
+
+def _reduce_scatter0(x, mesh, call):
+    """x [M, *s] on every rank -> the SUM over the ranks of x[rank]."""
+    import torch.distributed as dist
+    out = x.new_empty(x.shape[1:])
+    dist.reduce_scatter_tensor(out.view(-1), x.contiguous().view(-1),
+                               group=mesh.group)
+    _note("reduce-scatter", out.numel() * out.element_size(), mesh, call)
+    return out
+
+
+class _GatherStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, call):
+        ctx.mesh, ctx.call = mesh, call
+        import torch.distributed as dist
+        x = x.contiguous()
+        out = x.new_empty((mesh.size, *x.shape))
+        dist.all_gather_into_tensor(out.view(-1), x.view(-1),
+                                    group=mesh.group)
+        _note("all-gather", out.numel() * out.element_size(), mesh,
+              call + "-gather")
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter0(grad, ctx.mesh, ctx.call + "-scatter"), \
+            None, None
+
+
+def model_gather_stack(x: torch.Tensor, mesh, call="qkv") -> torch.Tensor:
+    """Every model rank's x stacked in rank order -> [M, *x.shape];
+    backward, the SUM over the ranks of each one's gradient of this
+    rank's entry (a reduce-scatter: the gradient reaching the stack is a
+    partial on each rank)."""
+    return _GatherStack.apply(x, mesh, call)
+
+
+class _GatherRouter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, call):
+        ctx.mesh, ctx.call, ctx.w = mesh, call, x.shape[-1]
+        got = _GatherStack.forward(ctx, x, mesh, call)   # [M, ..., w]
+        whole = got.movedim(0, -2).reshape(*x.shape[:-1], -1)
+        return whole, whole.view_as(whole)
+
+    @staticmethod
+    def backward(ctx, partial, same):
+        w, r = ctx.w, ctx.mesh.rank
+        g = partial.reshape(*partial.shape[:-1], ctx.mesh.size, w)
+        own = _reduce_scatter0(g.movedim(-2, 0), ctx.mesh,
+                               ctx.call + "-scatter")
+        return own + same[..., r * w:(r + 1) * w], None, None
+
+
+def model_gather_router(x: torch.Tensor, mesh, call="router"):
+    """Every model rank's [..., w] block joined on the last dim ->
+    (routed, aux), both [..., M w] with the same values. The gradient of
+    `routed` is a partial on each rank (summed over the ranks into the
+    block: a reduce-scatter), that of `aux` the same on every rank (the
+    block's columns taken once)."""
+    return _GatherRouter.apply(x, mesh, call)

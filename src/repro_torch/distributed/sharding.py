@@ -32,10 +32,10 @@ training rules (FSDP `param_spec(fsdp=True)` when `needs_fsdp`, ZeRO-1
 `opt_state_specs`, `batch_specs`) and `cache_specs` are what the dry run
 (`launch/dryrun.py`) cuts each device's arguments with and what the
 static cost count (`distributed/cost.py`) splits FLOPs, bytes and
-collectives by, as the reference's dry run does, and what a
-data-parallel train step cuts each rank's params, moments and batch rows
-with (`train_plan`: the reference's `_jit_target` train step on a
-(data, 1) mesh). Under `trunk_shard=True` the
+collectives by, as the reference's dry run does, and what a sharded
+train step cuts each rank's params, moments and batch rows with
+(`train_plan`: the reference's `_jit_target` train step on a (data,
+model) mesh). Under `trunk_shard=True` the
 serving engine cuts each trunk leaf by `serving_param_spec(...,
 trunk_shard=True)` and each cache and pool leaf by `serving_cache_specs`
 (`trunk_plan` says what that splits: a cache by its kv heads, its
@@ -731,13 +731,18 @@ def trunk_slice(path_str: str, shape, mesh, rank: int,
     return shard_slice(spec, tuple(shape), mesh, rank)
 
 
-# ====================== data-parallel training plan =======================
+# ======================== the sharded training plan ========================
 # The reference's sharded train step (`launch/dryrun.py::_jit_target`,
 # train mode) places params by `params_shardings(fsdp=...)`, AdamW's
 # moments by `opt_state_shardings` (ZeRO-1) and the batch by
 # `batch_shardings`, and GSPMD inserts the collectives. The port's rank
-# holds the blocks those specs give it on a (data, 1) mesh and calls the
-# collectives itself (`training/optimizer.py`, `training/train_loop.py`).
+# holds the blocks those specs give it on a (data, model) mesh and calls
+# the collectives itself (`training/optimizer.py`,
+# `training/train_loop.py`, and under a model axis the model code through
+# `distributed/api.py::use_model`).
+
+# the layer kinds a train step splits over a model axis above 1
+TRAIN_MODEL_KINDS = ("attn", "moe")
 
 
 def _data_dim(spec):
@@ -750,13 +755,26 @@ def _data_dim(spec):
     return None
 
 
+def _model_part(spec) -> tuple:
+    """A spec with its data axes taken out (the model axis alone)."""
+    return tuple(e if e == "model" else None for e in spec)
+
+
+def _rel(sl, block) -> tuple:
+    return tuple(slice(a.start - b.start, a.stop - b.start)
+                 for a, b in zip(sl, block))
+
+
 @dataclass(frozen=True)
 class LeafPlan:
-    """One param leaf in a data-parallel step: `shape` the whole leaf's;
-    `pdim` the dim FSDP splits over data (None: every rank holds the
-    whole leaf); `odim` the dim ZeRO-1 splits its moments (and the
-    gradient accumulator) over (None: whole on every rank); `param` and
-    `moment` the rank's blocks as slices of the whole leaf. The two dims
+    """One param leaf in a sharded step: `shape` the whole leaf's;
+    `block` the rank's block on the model axis (the whole leaf at model
+    1), the tensor its forward runs over, and `mdim` the dim the model
+    axis splits (None: whole); `pdim` the dim FSDP splits over data
+    (None: every rank of the data group holds the model block); `odim`
+    the dim ZeRO-1 splits its moments (and the gradient accumulator)
+    over (None: whole on the data group); `param` and `moment` the
+    rank's blocks as slices of the whole leaf. The FSDP and moment dims
     need not agree: the moments' rule looks at every dim of the leaf,
     FSDP's never at the stacked layer dim."""
     path: str
@@ -765,22 +783,44 @@ class LeafPlan:
     odim: Optional[int]
     param: tuple
     moment: tuple
+    block: tuple
+    mdim: Optional[int] = None
+
+    @property
+    def param_in_block(self) -> tuple:
+        """`param` as slices of the model block."""
+        return _rel(self.param, self.block)
+
+    @property
+    def moment_in_block(self) -> tuple:
+        """`moment` as slices of the model block (a gradient arrives as
+        the model block)."""
+        return _rel(self.moment, self.block)
 
 
 @dataclass(frozen=True)
 class TrainPlan:
-    """What rank `rank` of a (data, 1) mesh holds in the reference's
-    sharded train step: `leaves` in the params' flattening order."""
+    """What one rank of a (data, model) mesh holds in the reference's
+    sharded train step: `rank` its data coordinate, `model_rank` its
+    model coordinate, `leaves` in the params' flattening order. Under a
+    model axis above 1, `trunk` is the rank's `TrunkPlan` (read from the
+    leaves' own blocks) and `vocab` its rows (v0, v1) of embed and
+    lm_head, or None where the vocabulary is whole."""
     data: int
     rank: int
     fsdp: bool
     leaves: tuple
+    model: int = 1
+    model_rank: int = 0
+    trunk: Optional[TrunkPlan] = None
+    vocab: Optional[tuple] = None
 
     def rows(self, B: int, microbatch: int = 1) -> tuple:
         """-> (replicated, [slice of global rows a microbatch]). The
         reference reshapes the batch [B, ...] to [microbatch, B/mb, ...]:
         microbatch i is global rows [i*B/mb, (i+1)*B/mb), and its rows
-        split over the data ranks as `batch_specs` splits B. Where
+        split over the data ranks as `batch_specs` splits B (the model
+        ranks of a data coordinate run the same rows). Where
         `batch_specs` replicates the batch (B does not divide over the
         data ways), every rank runs every row of each microbatch:
         `replicated` is True and the gradients must not be summed over
@@ -801,27 +841,97 @@ class TrainPlan:
                             for i in range(mb)]
 
 
-def train_plan(params, mesh, fsdp: bool = False,
-               rank: int = 0) -> TrainPlan:
-    """The per-rank plan of a data-parallel train step for the WHOLE
-    param tree `params` (tensors, meta tensors or anything with
-    `.shape`): each leaf's param block from `param_specs(fsdp=...)`, its
-    moment block from `opt_state_specs(zero=True)`, both cut with
-    `shard_slice`, in the reference's leaf order (dict keys sorted, as
-    `training/tree.py` flattens). `mesh` is a (data, model) mesh of
-    model 1."""
-    if mesh.shape.get("model", 1) != 1:
-        raise ValueError(
-            f"training mesh {dict(mesh.shape)}: the model axis in training "
-            f"is not ported yet (a later slice)")
+def _trunk_blocks(cfg, M, m, tp: TrunkPlan) -> dict:
+    """Leaf name -> (dim from the end, (start, stop)) of the model block
+    `tp` runs each layer leaf over (None: whole)."""
+    F, E = cfg.d_ff, cfg.num_experts
+    ff = (m * F // M, (m + 1) * F // M) if tp.ff_split else None
+    ex = (m * E // M, (m + 1) * E // M) if tp.experts_split else None
+    q, kv, wo = tp.q_cols, tp.kv_cols, tp.wo_rows
+    return {"attn": {"wq": (1, q), "wk": (1, kv), "wv": (1, kv),
+                     "wo": (2, wo)},
+            "ffn": {"w_gate": (1, ff), "w_up": (1, ff), "w_down": (2, ff)},
+            "moe": {"router": (1, ex), "w_gate": (3, ex), "w_up": (3, ex),
+                    "w_down": (3, ex)}}
+
+
+def _check_trunk(path, shape, block, blocks, where):
+    """Raise where a layer leaf's model block is not the one the trunk
+    plan runs it over."""
+    if "['groups']" not in path:
+        return
+    name = _leaf_name(path)
+    sub = "moe" if "['moe']" in path else "ffn" if "['ffn']" in path \
+        else "attn" if "['attn']" in path else None
+    want = blocks.get(sub, {}).get(name)
+    have = [(i, (sl.start, sl.stop)) for i, (sl, n) in
+            enumerate(zip(block, shape)) if (sl.start, sl.stop) != (0, n)]
+    if want is None or want[1] is None:
+        ok = not have
+    else:
+        ok = have == [(len(shape) - want[0], want[1])]
+    if not ok:
+        raise ValueError(f"{where}: {path} has model block {have}, the "
+                         f"trunk plan runs it over {want}")
+
+
+def train_plan(params, mesh, fsdp: bool = False, rank: int = 0,
+               cfg=None) -> TrainPlan:
+    """The per-rank plan of a sharded train step for the WHOLE param tree
+    `params` (tensors, meta tensors or anything with `.shape`) on a
+    (data, model) mesh, for the rank at place `rank` of the mesh
+    (row-major: data coordinate x model + model coordinate; at model 1,
+    the data coordinate): each leaf's model block from `param_spec` (no
+    FSDP: the model axis alone), its param block from
+    `param_specs(fsdp=...)`, its moment block from
+    `opt_state_specs(zero=True)`, all cut with `shard_slice`, in the
+    reference's leaf order (dict keys sorted, as `training/tree.py`
+    flattens). Above model 1 `cfg` is the params' config: the rank's
+    `TrunkPlan` is `trunk_plan(cfg, M, m)` (no cache: training has none),
+    checked leaf by leaf against the blocks the specs give; its
+    vocabulary rows are embed's model block. Raises ValueError (naming
+    the config, M and the kinds) for a layer kind other than attn and
+    moe under a model axis above 1, or where a leaf's blocks and the
+    trunk plan disagree."""
     from ..training.tree import flatten_with_path
-    out = []
+    M = mesh.shape.get("model", 1)
+    coords = mesh_coords(mesh, rank)
+    m = coords.get("model", 0)
+    tp = blocks = None
+    where = f"training mesh {dict(mesh.shape)}"
+    if M > 1:
+        if cfg is None:
+            raise ValueError(f"{where}: a model axis needs the config")
+        where = f"{where}: {cfg.name} at M = {M}"
+        other = sorted(_trunk_kinds(cfg) - set(TRAIN_MODEL_KINDS))
+        if other:
+            raise ValueError(f"{where}: layer kinds {other} "
+                             f"({cfg.arch_type}) are not split over the "
+                             f"model axis in training; the port splits "
+                             f"only {TRAIN_MODEL_KINDS}")
+        tp = trunk_plan(cfg, M, m)
+        blocks = _trunk_blocks(cfg, M, m, tp)
+    out, vocab = [], None
     for path, leaf in flatten_with_path(params):
         shape = tuple(leaf.shape)
         pspec = param_spec(path, shape, mesh, fsdp=fsdp)
         ospec = opt_state_spec("['mu']" + path, shape, mesh)
+        mspec = param_spec(path, shape, mesh)
+        if _model_part(pspec) != _model_part(mspec) or \
+                _model_part(ospec) != _model_part(mspec):
+            raise ValueError(f"{where}: {path}'s param, FSDP and moment "
+                             f"specs {mspec}, {pspec}, {ospec} split the "
+                             f"model axis unlike each other")
+        block = shard_slice(mspec, shape, mesh, rank)
+        mdim = next((i for i, e in enumerate(mspec) if e == "model"),
+                    None) if M > 1 else None
+        if blocks is not None:
+            _check_trunk(path, shape, block, blocks, where)
+            if _leaf_name(path) in ("embed", "lm_head") and mdim is not None:
+                vocab = (block[mdim].start, block[mdim].stop)
         out.append(LeafPlan(
             path, shape, _data_dim(pspec), _data_dim(ospec),
             shard_slice(pspec, shape, mesh, rank),
-            shard_slice(ospec, shape, mesh, rank)))
-    return TrainPlan(mesh.shape["data"], rank, bool(fsdp), tuple(out))
+            shard_slice(ospec, shape, mesh, rank), block, mdim))
+    return TrainPlan(mesh.shape["data"], coords["data"], bool(fsdp),
+                     tuple(out), M, m, tp, vocab)

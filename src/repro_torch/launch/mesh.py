@@ -6,12 +6,14 @@ a rank, every rank the same program. `spawn(n, fn)` starts the ranks (a
 file store in a temp dir, no network), `make_serving_mesh(n)` is the
 serving engine's mesh over them: axes ("data", "model"), data 1, model n
 (the engine's slot pool is the batch dim and stays host-driven, as in the
-reference). `make_train_mesh(n)` is a train step's mesh: data n, model 1
-(the reference's `make_local_mesh`; the model axis in training is not
-ported yet and raises). A serving mesh carries the process group, its
-backend and this rank's device, a train mesh the data group and the
-device; `.shape` and `.axis_names` are what the sharding rules
-read (`distributed/sharding.py`). The production meshes have no host to
+reference). `make_train_mesh(data, model)` is a train step's (data,
+model) mesh over data x model ranks, rank r at (r // model, r % model),
+the layout of the reference's `devices.reshape(data, model)`. A serving
+mesh carries the process group, its backend and this rank's device, a
+train mesh its data group, its model group (as a serving mesh over those
+ranks, which the trunk's collectives read) and the device; `.shape` and
+`.axis_names` are what the sharding rules read
+(`distributed/sharding.py`). The production meshes have no host to
 run on here: `make_production_mesh` returns their shape only, for the
 rules.
 """
@@ -59,44 +61,80 @@ class ServingMesh(MeshShape):
 
 @dataclass(frozen=True, eq=False)
 class TrainMesh(MeshShape):
-    """A data-parallel train step's mesh on one rank: `rank` is this
-    process's coordinate on the data axis, `group` the data group (None
-    for one process with no group: every collective is then the
-    identity), `device` this rank's device."""
+    """A sharded train step's (data, model) mesh on one rank: `rank` is
+    this process's coordinate on the data axis and `group` its data group
+    (the ranks of its model coordinate; None for one data rank: its
+    collectives are then identities); `model_rank` its coordinate on the
+    model axis and `model_mesh` its model group (the ranks of its data
+    coordinate) as a `ServingMesh` of data 1, model M (None at model 1);
+    `device` this rank's device. `size` is the data group's: the
+    collectives that take the mesh run over it."""
     rank: int = 0
     group: object = None
     device: torch.device = field(default_factory=lambda:
                                  torch.device("cpu"))
+    model_rank: int = 0
+    model_mesh: Optional[ServingMesh] = None
+
+    @property
+    def size(self) -> int:
+        return self.shape["data"]
+
+    @property
+    def mesh_rank(self) -> int:
+        """This rank's place on the mesh, row-major (its global rank)."""
+        return self.rank * self.shape["model"] + self.model_rank
+
+    @property
+    def lead(self) -> bool:
+        """True on the rank at (0, 0), which logs and writes."""
+        return self.rank == 0 and self.model_rank == 0
 
 
 def make_train_mesh(data: Optional[int] = None, model: int = 1,
                     device="cuda") -> TrainMesh:
     """The (data, model) mesh of a sharded train step over the ranks of
-    the initialized process group (`spawn` starts them): data `data`
-    (default: the world size), model 1. Rank r trains on device
-    `cuda:{r % device_count}` (or the CPU when asked). Without a process
-    group, data must be 1 and the mesh's collectives are identities.
-    Raises ValueError for model > 1 (the model axis in training is a
-    later slice), data < 1, or data other than the group's world size."""
+    the initialized process group (`spawn` starts them): model `model`,
+    data `data` (default: the world size over model). Rank r sits at
+    (r // model, r % model) and trains on device `cuda:{r %
+    device_count}` (or the CPU when asked). Every rank creates every
+    group, in one order: the data groups (one a model coordinate), then
+    the model groups (one a data coordinate). Without a process group,
+    data and model must be 1 and the mesh's collectives are identities.
+    Raises ValueError for data or model below 1, or data x model other
+    than the group's world size."""
     import torch.distributed as dist
     world = _world()
-    d = world if data is None else int(data)
-    if int(model) != 1:
-        raise ValueError(
-            f"training mesh (data {d}, model {model}): the model axis in "
-            f"training is not ported yet (a later slice); use model 1")
-    if d < 1 or d != world:
-        raise ValueError(f"training mesh (data {d}, model 1) needs a "
-                         f"process group of {d} ranks, got {world}")
+    m = int(model)
+    d = world // max(m, 1) if data is None else int(data)
+    if d < 1 or m < 1 or d * m != world:
+        raise ValueError(f"training mesh (data {d}, model {m}) needs a "
+                         f"process group of {d * m} ranks, got {world}")
     dev = resolve_device(device)
-    shape = {"data": d, "model": 1}
+    shape = {"data": d, "model": m}
     if not dist.is_initialized():
         return TrainMesh(shape, ("data", "model"), device=dev)
     rank = dist.get_rank()
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
-    return TrainMesh(shape, ("data", "model"), rank=rank,
-                     group=dist.group.WORLD if d > 1 else None, device=dev)
+    if m == 1:
+        return TrainMesh(shape, ("data", "model"), rank=rank,
+                         group=dist.group.WORLD if d > 1 else None,
+                         device=dev)
+    ranks_of = lambda i: [i + m * j for j in range(d)]
+    rows_of = lambda j: [m * j + i for i in range(m)]
+    data_groups = [dist.new_group(ranks_of(i)) for i in range(m)] \
+        if d > 1 else None
+    model_groups = [dist.new_group(rows_of(j)) for j in range(d)] \
+        if d > 1 else [dist.group.WORLD]
+    di, mi = divmod(rank, m)
+    model_mesh = ServingMesh({"data": 1, "model": m}, ("data", "model"),
+                             rank=mi, group=model_groups[di],
+                             backend=dist.get_backend(), device=dev,
+                             ranks=tuple(rows_of(di)))
+    return TrainMesh(shape, ("data", "model"), rank=di,
+                     group=data_groups[mi] if data_groups else None,
+                     device=dev, model_rank=mi, model_mesh=model_mesh)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

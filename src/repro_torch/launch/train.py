@@ -5,17 +5,20 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
       --grammar json --steps 20 --batch 8 --seq 1024 \
       [--checkpoint build/smollm.msgpack] [--num-layers N] [--device cpu]
-      [--data N]
+      [--data N] [--model M]
 
-`--data N` trains data-parallel on N ranks (`launch.mesh.spawn`): the
-reference's sharded train step on a (data N, model 1) mesh, with
-ZeRO-1 moments and FSDP weights where `needs_fsdp` asks for them
-(`training/train_loop.py`). Every rank draws the whole global batch
-from the same seeded pipeline and trains on its rows; rank 0 prints the
-log lines and writes the checkpoint. The ranks meet over NCCL when the
-host has a card a rank, else over gloo (NCCL refuses two ranks on one
-card); with `--device cpu`, over gloo. The backend is printed.
-Without `--data` the launcher trains on one device, as before.
+`--data N --model M` trains on N x M ranks (`launch.mesh.spawn`; either
+flag alone takes the other as 1): the reference's sharded train step on
+a (data N, model M) mesh, with ZeRO-1 moments, FSDP weights where
+`needs_fsdp` asks for them, and above model 1 the Megatron blocks, the
+vocabulary-parallel loss and expert parallelism of the dense and MoE
+families (`training/train_loop.py`). Every rank draws the whole global
+batch from the same seeded pipeline and trains on its data coordinate's
+rows; rank 0 prints the log lines and writes the checkpoint. The ranks
+meet over NCCL when the host has a card a rank, else over gloo (NCCL
+refuses two ranks on one card); with `--device cpu`, over gloo. The
+backend is printed. Without either flag the launcher trains on one
+device, as before.
 
 `--arch` takes the port's configs (dense, moe, ssm, hybrid, vlm,
 audio); `--reduced` trains the config's small variant, `--num-layers`
@@ -48,8 +51,8 @@ from ..training.tree import leaves
 
 
 def main(argv=None):
-    """-> (params, TrainResult); with `--data`, (None, rank 0's
-    TrainResult)."""
+    """-> (params, TrainResult); with `--data` or `--model`, (None, rank
+    0's TrainResult)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="syncode-demo")
     ap.add_argument("--reduced", action="store_true",
@@ -68,28 +71,34 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--data", type=int, default=None,
-                    help="train data-parallel on N ranks")
+                    help="train on N data ranks (a data axis of N)")
+    ap.add_argument("--model", type=int, default=None,
+                    help="split the model over M ranks (a model axis of M)")
     args = ap.parse_args(argv)
-    if args.data is None:
+    if args.data is None and args.model is None:
         return run(args)
+    args.data, args.model = args.data or 1, args.model or 1
+    n = args.data * args.model
     dev = resolve_device(args.device)
     backend = "gloo" if dev.type != "cuda" or \
-        torch.cuda.device_count() < args.data else "nccl"
-    print(f"data-parallel training on {args.data} ranks over {backend}")
-    out = spawn(args.data, _rank, args, backend=backend, device=dev)
+        torch.cuda.device_count() < n else "nccl"
+    what = "data-parallel" if args.model == 1 else \
+        f"(data {args.data}, model {args.model})"
+    print(f"{what} training on {n} ranks over {backend}")
+    out = spawn(n, _rank, args, backend=backend, device=dev)
     return out[0]
 
 
 def _rank(rank, args):
-    """One rank of `--data N`: the run on its mesh -> (None, its
-    TrainResult); the trained params stay in the checkpoint."""
-    return None, run(args, make_train_mesh(args.data,
+    """One rank of `--data N --model M`: the run on its mesh -> (None,
+    its TrainResult); the trained params stay in the checkpoint."""
+    return None, run(args, make_train_mesh(args.data, args.model,
                                            device=args.device))[1]
 
 
 def run(args, mesh=None):
     """Build, train and report one run (on `mesh`'s rank, or alone)."""
-    lead = mesh is None or mesh.rank == 0
+    lead = mesh is None or mesh.lead
     dev = resolve_device(args.device) if mesh is None else mesh.device
     cfg = get_config(args.arch)
     if args.reduced:

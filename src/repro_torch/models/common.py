@@ -7,16 +7,26 @@ points follow the reference: `rms_norm` reduces in fp32 and rounds the
 inverse to x's dtype before the multiply; `apply_rope` works in fp32 and
 casts back; matrix products take operands in their dtype.
 
-Under a trunk-sharded engine (`distributed.api.current_trunk()`) a rank
-holds the column blocks of wq/wk/wv/w_gate/w_up and the row blocks of
-wo/w_down (Megatron), runs over the rank-local config (H/M, K/M heads):
-`attn_out` and `ffn` all-reduce their partial products, and `qkv_proj`
-takes the rank's columns of the whole 1-D QKV biases. Where M does not
-divide the kv heads (`TrunkPlan.gathers`: the caches then split their
-sequence or head_dim, or stay whole) the column blocks may cut inside a
-head: `qkv_proj` gathers them into whole heads (one all-gather), and
-`attn_out` takes the rank's columns of the whole attention output before
-its wo rows.
+Under a trunk split (`distributed.api.current_trunk()`: a trunk-sharded
+engine, or a train step on a (data, model) mesh) a rank holds the column
+blocks of wq/wk/wv/w_gate/w_up and the row blocks of wo/w_down
+(Megatron) and runs over the rank-local config (H/M, K/M heads), with
+Megatron's collectives, autograd Functions that serving runs under
+no_grad: `api.model_copy` before each split column block (the identity;
+backward, the input's gradient summed over the model ranks) and
+`api.model_sum` after each row block (`attn_out`, `ffn`: the partial
+products summed). `qkv_proj` takes the rank's columns of the whole 1-D
+QKV biases. Where M does not divide the kv heads (`TrunkPlan.gathers`:
+the caches then split their sequence or head_dim, or stay whole) the
+column blocks may cut inside a head: `qkv_proj` gathers them into whole
+heads (`api.model_gather_stack`, whose backward sums the ranks' partial
+gradients), and `attn_out` takes the rank's columns of the whole
+attention output before its wo rows.
+
+In a train step whose vocabulary splits (`distributed.api.train_model()`)
+the rank holds the V/M rows `param_spec` gives embed and lm_head: the
+lookup sums one true row and zeros (`model_sum`), the head takes
+`model_copy` before its columns (`lm_logits`).
 """
 from __future__ import annotations
 
@@ -28,9 +38,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..distributed.api import (all_gather_stack, current_mesh,
-                               current_trunk, current_vocab,
-                               trunk_all_reduce, vocab_all_reduce)
+from ..distributed.api import (current_mesh, current_trunk, current_vocab,
+                               model_copy, model_gather_stack, model_sum,
+                               train_model, vocab_all_reduce)
 
 NEG_INF = -1e30
 
@@ -177,14 +187,14 @@ def _cols(b, span):
 
 def _whole_cols(parts):
     """A gathering split's [(y [B, S, n], span)] -> each y whole: the
-    column blocks (span not None) go in one all-gather, whose rank order
-    is the columns' order."""
+    column blocks (span not None) go in one `model_gather_stack`, whose
+    rank order is the columns' order."""
     out = [y for y, _ in parts]
     cut = [i for i, (_, span) in enumerate(parts) if span is not None]
     if not cut:
         return out
-    got = all_gather_stack(torch.cat([out[i] for i in cut], -1),
-                           current_mesh())                # [M, B, S, sum]
+    got = model_gather_stack(torch.cat([out[i] for i in cut], -1),
+                             current_mesh())              # [M, B, S, sum]
     off = 0
     for i in cut:
         n = out[i].shape[-1]
@@ -195,29 +205,45 @@ def _whole_cols(parts):
 
 
 def qkv_proj(p, x, cfg):
+    """q [B, S, H, Dh], k and v [B, S, K, Dh]. Under a trunk split the
+    column blocks read x through `model_copy` (in a train step their
+    input's gradient is summed over the ranks), a whole leaf reads x
+    itself (every rank computes its whole gradient), and a whole bias's
+    columns go through `model_copy` (the rank's gradient covers only its
+    columns). Where the rank gathers whole heads, the attention's output
+    gradient is a partial (the rank uses only its wo rows), so a whole
+    k/v takes `model_copy` as well, and the blocks join by
+    `model_gather_stack`. `model_copy` is the identity forward."""
     B, S, D = x.shape
     H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    tp = current_trunk()
-    qc, kc = (None, None) if tp is None else (tp.q_cols, tp.kv_cols)
-    q = matmul(x, p["wq"])
-    k = matmul(x, p["wk"])
-    v = matmul(x, p["wv"])
-    if "bq" in p:
-        q = q + _cols(p["bq"], qc)
-        k = k + _cols(p["bk"], kc)
-        v = v + _cols(p["bv"], kc)
-    if tp is not None and tp.gathers:
-        q, k, v = _whole_cols([(q, qc), (k, kc), (v, kc)])
+    tp, mesh = current_trunk(), current_mesh()
+    spans = (None,) * 3 if tp is None else \
+        (tp.q_cols, tp.kv_cols, tp.kv_cols)
+    gathers = tp is not None and tp.gathers
+    xs = model_copy(x, mesh) if any(spans) else x
+    out = []
+    for (w, b), span in zip((("wq", "bq"), ("wk", "bk"), ("wv", "bv")),
+                            spans):
+        y = matmul(x if span is None else xs, p[w])
+        if b in p:
+            y = y + (p[b] if span is None else
+                     _cols(model_copy(p[b], mesh, "bias-grad"), span))
+        if span is None and gathers and any(spans):
+            y = model_copy(y, mesh, "kv-grad")
+        out.append(y)
+    if gathers:
+        out = _whole_cols(list(zip(out, spans)))
+    q, k, v = out
     return (q.reshape(B, S, H, Dh), k.reshape(B, S, K, Dh),
             v.reshape(B, S, K, Dh))
 
 
 def attn_out(p, o):
     """o [B,S,H,Dh] @ wo; under a trunk split of wo's rows (`wo_rows`)
-    the rank's rows give a partial sum over H*Dh, all-reduced: o holds
-    the rank's heads (head split), or every head, of which the rank
-    takes its rows' columns (where it gathers; wo whole where M does not
-    divide H*Dh, and nothing to reduce)."""
+    the rank's rows give a partial sum over H*Dh, summed over the ranks
+    (`model_sum`): o holds the rank's heads (head split), or every head,
+    of which the rank takes its rows' columns (where it gathers; wo
+    whole where M does not divide H*Dh, and nothing to reduce)."""
     B, S, H, Dh = o.shape
     o = o.reshape(B, S, H * Dh)
     tp = current_trunk()
@@ -226,7 +252,7 @@ def attn_out(p, o):
         o = o[..., rows[0]:rows[1]]
     y = matmul(o, p["wo"])
     if rows is not None:
-        y = trunk_all_reduce(y, current_mesh())
+        y = model_sum(y, current_mesh())
     return y
 
 
@@ -241,14 +267,18 @@ def init_ffn(gen, d_model, d_ff, dtype, lead=()):
 
 
 def ffn(p, x):
-    """SwiGLU; under a trunk split of d_ff the rank's block gives a
-    partial sum over d_ff, all-reduced (an FFN kept whole is not)."""
+    """SwiGLU; under a trunk split of d_ff the rank's block reads x
+    through `model_copy` and gives a partial sum over d_ff, summed over
+    the ranks (`model_sum`); an FFN kept whole is neither."""
+    tp = current_trunk()
+    split = tp is not None and tp.ff_split
+    if split:
+        x = model_copy(x, current_mesh())
     h = torch.nn.functional.silu(matmul(x, p["w_gate"])) * \
         matmul(x, p["w_up"])
     y = matmul(h, p["w_down"])
-    tp = current_trunk()
-    if tp is not None and tp.ff_split:
-        y = trunk_all_reduce(y, current_mesh())
+    if split:
+        y = model_sum(y, current_mesh())
     return y
 
 
@@ -270,7 +300,18 @@ def embed_tokens(p, tokens):
     is split (`distributed.api.current_vocab()`), `p["embed"]` holds only
     this rank's rows [v0, v1): each rank looks up the ids it owns, zeros
     elsewhere, and one all-reduce SUM adds the single true row to zeros,
-    which is exact."""
+    which is exact. In a train step whose vocabulary is split
+    (`api.train_model()`), the rank holds embed's rows [v0, v1) of
+    `param_spec` and the sum is `model_sum` (the lookup's gradient goes
+    to the rank's own rows)."""
+    tm = train_model()
+    if tm is not None and tm[1] is not None:
+        (v0, v1), n = tm[1], tm[1][1] - tm[1][0]
+        local = tokens.long() - v0
+        own = (local >= 0) & (local < n)
+        rows = p["embed"][local.clamp(0, n - 1)]
+        rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+        return model_sum(rows, tm[0], "lookup")
     vs = current_vocab()
     if vs is None or not vs.split:
         return p["embed"][tokens.long()]
@@ -285,8 +326,13 @@ def lm_logits(p, x, cfg):
     """-> logits [..., V], or [..., V_s] of this rank's vocab ids when the
     params are a rank's shard (`bridge.shard_params`): each column is the
     whole contraction over D, as in the unsharded product (tied configs
-    use the embed's rows transposed)."""
+    use the embed's rows transposed). In a train step whose vocabulary
+    is split, the rank's rows of the vocabulary -> [..., V/M], its input
+    through `model_copy`."""
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    tm = train_model()
+    if tm is not None and tm[1] is not None:
+        x = model_copy(x, tm[0])
     if cfg.tie_embeddings:
         return x @ p["embed"].T
     return x @ p["lm_head"]

@@ -49,7 +49,12 @@ scan body in `jax.checkpoint`. Inside a data-parallel train step
 is the reference's loss over the GLOBAL batch: the CE's (tot, cnt) and
 the MoE layers' router sums are all-reduced over the data ranks before
 they are divided (`global_ce`, `moe.moe_ffn`), and each rank's gradient
-is its rows' share of the global loss's. Paged KV
+is its rows' share of the global loss's. Inside a train step split over
+a model axis (`distributed.api.use_model`) the model runs over the
+rank's blocks and the rank-local config, and where the vocabulary is
+split `loss` is the vocabulary-parallel cross-entropy
+(`vocab_parallel_nll`); a checkpointed layer's or loss chunk's recompute
+runs in the contexts of its forward (`api.recompute_context`). Paged KV
 pools (`init_paged_caches`) keep the reference's leaf layout
 {"k","v": [count, P, ps, K, Dh]}; a page table in `batch_ctx` routes the
 attention layers to them.
@@ -70,7 +75,8 @@ from .rglru import init_rglru_cache
 from .ssm import init_ssm_cache
 from ..device import resolve_device
 from ..distributed.api import (current_data, current_trunk,
-                               data_all_reduce, global_share)
+                               data_all_reduce, global_share, model_max,
+                               model_sum, recompute_context, train_model)
 from ..distributed.sharding import (leaves_with_path, map_with_path,
                                     ring_len)
 
@@ -130,6 +136,34 @@ def global_ce(tot: torch.Tensor, cnt: torch.Tensor, mesh) -> torch.Tensor:
     g = data_all_reduce(torch.stack([tot.detach(), cnt.detach()]), mesh,
                         call="loss")
     return global_share(tot, g[0]) / torch.clamp(g[1], min=1.0)
+
+
+def vocab_parallel_nll(logits, labels, v0: int, mesh) -> torch.Tensor:
+    """The NLL [...] of each position from this rank's fp32 logits
+    [..., Vb] of vocab ids [v0, v0 + Vb): the row max all-reduced (MAX,
+    no gradient), the sum of exponentials below it and the gold logit
+    (the owning rank's; zeros elsewhere) each all-reduced by `model_sum`.
+    Its gradient on the rank's columns is softmax - one-hot."""
+    Vb = logits.shape[-1]
+    m = model_max(logits.detach().amax(dim=-1), mesh)
+    s = model_sum(torch.exp(logits - m[..., None]).sum(-1), mesh, "ce")
+    local = labels.long() - v0
+    own = (local >= 0) & (local < Vb)
+    gold = torch.gather(logits, -1, local.clamp(0, Vb - 1)[..., None])[..., 0]
+    gold = model_sum(torch.where(own, gold, torch.zeros_like(gold)), mesh,
+                     "ce")
+    return m + torch.log(s) - gold
+
+
+def _nll(eb, x, labels, cfg):
+    """The NLL of each position of x [B, C, D] (fp32): the vocabulary-
+    parallel form where a train step splits the vocabulary."""
+    logits = lm_logits(eb, x, cfg).float()
+    tm = train_model()
+    if tm is not None and tm[1] is not None:
+        return vocab_parallel_nll(logits, labels, tm[1][0], tm[0])
+    return torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, labels.long()[..., None])[..., 0]
 
 
 @dataclass
@@ -197,7 +231,8 @@ class Model:
         and grad is on (the backward recomputes the layer instead of
         keeping its activations)."""
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(fn, x, use_reentrant=False)
+            return checkpoint(fn, x, use_reentrant=False,
+                              context_fn=recompute_context)
         return fn(x)
 
     # --------------------------- encoder (audio) --------------------------
@@ -274,31 +309,29 @@ class Model:
         C = min(seq_chunk, S)
         eb = params["embed_block"]
         data = current_data()
-        if S % C != 0 and data is None:
+        if S % C != 0 and data is None and train_model() is None:
             ce = cross_entropy_loss(lm_logits(eb, x, cfg), labels, mask)
         elif S % C != 0:
-            logits = lm_logits(eb, x, cfg).float()
-            nll = torch.logsumexp(logits, dim=-1) - torch.gather(
-                logits, -1, labels.long()[..., None])[..., 0]
+            nll = _nll(eb, x, labels, cfg)
             if mask is None:
                 mask = torch.ones_like(nll)
-            ce = global_ce((nll * mask).sum(), mask.sum(), data)
+            tot, cnt = (nll * mask).sum(), mask.sum()
+            ce = tot / torch.clamp(cnt, min=1.0) if data is None else \
+                global_ce(tot, cnt, data)
         else:
             if mask is None:
                 mask = torch.ones((B, S), dtype=torch.float32,
                                   device=x.device)
 
             def chunk_nll(xc, lc, mc):
-                logits = lm_logits(eb, xc, cfg).float()
-                logz = torch.logsumexp(logits, dim=-1)
-                gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
-                return ((logz - gold) * mc).sum(), mc.sum()
+                return (_nll(eb, xc, lc, cfg) * mc).sum(), mc.sum()
 
             tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
             for c in range(S // C):
                 sl = slice(c * C, (c + 1) * C)
                 s, m = checkpoint(chunk_nll, x[:, sl], labels[:, sl],
-                                  mask[:, sl], use_reentrant=False)
+                                  mask[:, sl], use_reentrant=False,
+                                  context_fn=recompute_context)
                 tot, cnt = tot + s, cnt + m
             ce = tot / torch.clamp(cnt, min=1.0) if data is None else \
                 global_ce(tot, cnt, data)

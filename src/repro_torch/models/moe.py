@@ -17,13 +17,19 @@ Parity points with the reference:
   adds an exact zero at (expert 0, slot 0), as the reference's
   `.at[].add` does, so the kept set and its values are exact.
 
-Expert parallelism (a trunk-sharded engine whose plan splits the
-experts, `distributed.api.current_trunk()`): rank r holds experts [r*E/M,
-(r+1)*E/M) and their router columns. The rank's router logits are
-gathered into the whole [B, S, E] row (`all_gather_last`), so top-k, the
-positions and the drops are computed on every rank from the same row
-with the global E and capacity; the rank dispatches and runs only its
-experts' pairs, and one all-reduce sums the ranks' combined outputs.
+Expert parallelism (a trunk split whose plan splits the experts,
+`distributed.api.current_trunk()`: a trunk-sharded engine, or a train
+step on a (data, model) mesh): rank r holds experts [r*E/M, (r+1)*E/M)
+and their router columns. x reaches the router and the dispatch through
+`api.model_copy` (the identity; in a train step its gradient is summed
+over the ranks). The rank's router logits are gathered into the whole
+[B, S, E] row (`api.model_gather_router`), so top-k, the positions and
+the drops are computed on every rank from the same row with the global E
+and capacity; the rank dispatches and runs only its experts' pairs, and
+`api.model_sum` adds the ranks' combined outputs. The gather gives the
+row twice: the routing's copy carries a partial gradient (the gates
+weight only the rank's own experts), the aux losses' a whole one (lb and
+z run alike on every rank).
 
 Aux outputs: load-balance loss (Switch-style f.P) and router z-loss,
 both over every token of the batch. In a data-parallel train step
@@ -40,9 +46,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.api import (all_gather_last, current_data, current_mesh,
-                               current_trunk, data_all_reduce,
-                               global_share, trunk_all_reduce)
+from ..distributed.api import (current_data, current_mesh, current_trunk,
+                               data_all_reduce, global_share, model_copy,
+                               model_gather_router, model_sum)
 from .common import dense_init
 
 
@@ -71,10 +77,12 @@ def moe_ffn(params, x, cfg):
 
     tp = current_trunk()
     split = tp is not None and tp.experts_split
+    if split:
+        x = model_copy(x, current_mesh(), "experts-grad")
     logits = x.float() @ params["router"]                     # [B,S,E]
-    if split:           # this rank's expert columns -> the whole row
-        logits = all_gather_last(logits, (tp.experts,) * tp.size,
-                                 current_mesh())
+    aux_logits = None
+    if split:           # the routing's row and the aux losses' row
+        logits, aux_logits = model_gather_router(logits, current_mesh())
     probs = torch.softmax(logits, dim=-1)
     srt, order_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = srt[..., :k], order_e[..., :k]               # [B,S,k]
@@ -119,9 +127,11 @@ def moe_ffn(params, x, cfg):
     out_pairs = out_pairs * gates.reshape(B, S * k)[..., None].to(x.dtype)
     y = out_pairs.reshape(B, S, k, D).sum(dim=2)
     if split:           # the other ranks' experts' share
-        y = trunk_all_reduce(y, current_mesh())
+        y = model_sum(y, current_mesh(), "experts-sum")
 
     # ---- aux losses (Switch f.P, router z-loss) ----
+    if aux_logits is not None:
+        logits, probs = aux_logits, torch.softmax(aux_logits, dim=-1)
     data = current_data()
     if data is not None:
         lb_loss, z_loss = global_aux(probs, counts, logits, k, data)

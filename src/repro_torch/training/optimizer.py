@@ -27,6 +27,14 @@ whole leaf, or its FSDP block. Where a leaf's FSDP dim and moment dim
 differ, its gradient and param are gathered along the one and cut along
 the other. The reference's compiled step (jax 0.9 on host devices) sums
 the gradients in fp32, after the cast, and so does this form.
+
+On a (data, model) mesh a rank's gradient arrives as its model block
+(`LeafPlan.block`): the data group reduces it as above, the moment block
+taken relative to the model block, and the global norm takes each
+element once: a block split over the data group, the model group or
+both is all-reduced over the groups that split it, a leaf whole on both
+(the norms; an FFN, the experts or the vocabulary a model axis does not
+divide) is added once.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from dataclasses import dataclass
 import torch
 
 from ..distributed.api import (all_gather_block, data_all_reduce,
-                               reduce_scatter_block)
+                               model_all_reduce, reduce_scatter_block)
 from .tree import leaves, tree_map, unflatten
 
 
@@ -107,9 +115,9 @@ def moment_grads(grads, plan, mesh, replicated: bool = False) -> list:
         if lp.pdim is not None:
             if lp.odim != lp.pdim:
                 g = all_gather_block(g, lp.pdim, mesh, call="reshard")
-                g = g[lp.moment]
+                g = g[lp.moment_in_block]
         elif replicated:
-            g = g[lp.moment]
+            g = g[lp.moment_in_block]
         elif lp.odim is None:
             g = data_all_reduce(g, mesh, call="grad-all-reduce")
         else:
@@ -120,25 +128,36 @@ def moment_grads(grads, plan, mesh, replicated: bool = False) -> list:
 
 def _norm_sq(blocks, plan, mesh) -> torch.Tensor:
     """The gradient's global sum of squares from the rank's moment
-    blocks: the split leaves' sums all-reduced, each whole leaf (the same
-    on every rank) added once."""
-    split = [b for b, lp in zip(blocks, plan.leaves) if lp.odim is not None]
-    whole = [b for b, lp in zip(blocks, plan.leaves) if lp.odim is None]
+    blocks: each block's sum all-reduced over the groups that split it
+    (data, model or both: one all-reduce a group), each leaf whole on
+    both (the same on every rank) added once."""
+    def where(d, m):
+        return [b for b, lp in zip(blocks, plan.leaves)
+                if (lp.odim is not None) == d and (lp.mdim is not None) == m]
     sq = lambda bs: sum(torch.sum(torch.square(b)) for b in bs)
-    dev = blocks[0].device
-    part = torch.zeros((), dtype=torch.float32, device=dev) + sq(split)
-    return data_all_reduce(part, mesh, call="gnorm") + sq(whole)
+    zero = lambda: torch.zeros((), dtype=torch.float32,
+                               device=blocks[0].device)
+    if plan.model == 1:
+        part = zero() + sq(where(True, False))
+        return data_all_reduce(part, mesh, call="gnorm") + \
+            sq(where(False, False))
+    part = data_all_reduce(torch.stack([zero() + sq(where(True, False)),
+                                        zero() + sq(where(True, True))]),
+                           mesh, call="gnorm")
+    split = model_all_reduce(part[1] + sq(where(False, True)),
+                             mesh.model_mesh, call="model-gnorm")
+    return part[0] + split + sq(where(False, False))
 
 
 def _param_block(p, lp, mesh) -> torch.Tensor:
     """The rank's moment block of param leaf p (whole, or its FSDP block)
     in fp32."""
     if lp.pdim is None:
-        return p[lp.moment].float()
+        return p[lp.moment_in_block].float()
     if lp.pdim == lp.odim:
         return p.float()
     return all_gather_block(p, lp.pdim, mesh, call="reshard")[
-        lp.moment].float()
+        lp.moment_in_block].float()
 
 
 def _to_param_layout(new, lp, mesh) -> torch.Tensor:
@@ -148,7 +167,7 @@ def _to_param_layout(new, lp, mesh) -> torch.Tensor:
         return new
     if lp.odim is not None:
         new = all_gather_block(new, lp.odim, mesh)
-    return new if lp.pdim is None else new[lp.param].contiguous()
+    return new if lp.pdim is None else new[lp.param_in_block].contiguous()
 
 
 @torch.no_grad()

@@ -7,28 +7,36 @@ fresh leaf that requires grad, runs `model.loss`, takes
 `torch.autograd.grad` and applies `apply_updates`; the step's metrics
 stay tensors on the device until a logged step reads them.
 
-Data parallelism (`make_train_step(..., mesh=, microbatch=, fsdp=)`,
+The sharded step (`make_train_step(..., mesh=, microbatch=, fsdp=)`,
 `train(..., mesh=)`) is the reference's sharded train step
-(`launch/dryrun.py::_jit_target`, train mode) on a (data, 1) mesh,
+(`launch/dryrun.py::_jit_target`, train mode) on a (data, model) mesh,
 computing the same function of the GLOBAL batch: each rank holds the
-blocks `distributed/sharding.py::train_plan` gives it (its FSDP param
-blocks, its ZeRO-1 moment blocks), runs its rows of each microbatch
-(`TrainPlan.rows`), gathers each FSDP param at its use
-(`api.fsdp_gather`), normalises the loss over the global batch
-(`api.use_data`), accumulates fp32 gradients in the moments' blocks
-(divided by `microbatch`, as the reference's scan) and updates with
-`apply_updates`' ZeRO-1 form. The step takes the global batch.
+blocks `distributed/sharding.py::train_plan` gives it (its model blocks,
+cut further into its FSDP param blocks and ZeRO-1 moment blocks), runs
+its rows of each microbatch (`TrainPlan.rows`; the model ranks of a data
+coordinate run the same rows), gathers each FSDP param at its use
+(`api.fsdp_gather`, over the data group), normalises the loss over the
+global batch (`api.use_data`), runs the forward over its model blocks
+(`api.use_model`: the Megatron blocks with their backward collectives,
+the vocabulary-parallel lookup and loss, expert parallelism; the
+rank-local config of `TrunkPlan.local_config`), accumulates fp32
+gradients in the moments' blocks (divided by `microbatch`, as the
+reference's scan) and updates with `apply_updates`' ZeRO-1 form. The
+step takes the global batch.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
 import torch
 
 from ..device import resolve_device
-from ..distributed.api import all_gather_block, fsdp_gather, use_data
+from ..distributed.api import (all_gather_block, fsdp_gather, use_data,
+                               use_model)
 from ..distributed.sharding import needs_fsdp, train_plan
+from ..models.model import Model
 from . import optimizer
 from .checkpoint import save_checkpoint
 from .optimizer import AdamWConfig, apply_updates, init_opt_state
@@ -41,48 +49,67 @@ class DataParallelStep:
     with `params` and `opt_state` the rank's blocks (`shard`,
     `init_state`) and `batch` the global batch. `acc_bytes` is the
     fp32 gradient accumulator's size on this rank in the last
-    microbatched step (0 with one microbatch)."""
+    microbatched step (0 with one microbatch). Under a model axis the
+    loss runs on `local`, the model of the rank-local config."""
 
     def __init__(self, model, opt_cfg, mesh, microbatch=1, fsdp=None):
         whole = model.abstract_params()
         self.model, self.opt_cfg, self.mesh = model, opt_cfg, mesh
         self.microbatch = int(microbatch)
         self.fsdp = needs_fsdp(whole, mesh) if fsdp is None else bool(fsdp)
-        self.plan = train_plan(whole, mesh, fsdp=self.fsdp, rank=mesh.rank)
+        self.plan = train_plan(whole, mesh, fsdp=self.fsdp,
+                               rank=mesh.mesh_rank, cfg=model.cfg)
+        tp = self.plan.trunk
+        self.local = model if tp is None else \
+            Model(tp.local_config(model.cfg), device=model.device)
         self.acc_bytes = 0
 
     def shard(self, params):
-        """The whole param tree -> this rank's (its FSDP blocks, copied)."""
+        """The whole param tree -> this rank's (its model and FSDP blocks,
+        copied)."""
         return unflatten(params, [
-            p[lp.param].contiguous() if lp.pdim is not None else p
+            p[lp.param].contiguous()
+            if lp.pdim is not None or lp.mdim is not None else p
             for p, lp in zip(leaves(params), self.plan.leaves)])
 
     def init_state(self, params):
         return init_opt_state(params, self.plan)
 
+    def _join(self, tensors, dim_of):
+        """The rank's blocks joined over the data group along dim_of(lp),
+        then over the model group along `mdim` (a collective)."""
+        out = []
+        for t, lp in zip(tensors, self.plan.leaves):
+            if dim_of(lp) is not None:
+                t = all_gather_block(t, dim_of(lp), self.mesh, call="gather")
+            if lp.mdim is not None:
+                t = all_gather_block(t, lp.mdim, self.mesh.model_mesh,
+                                     call="gather")
+            out.append(t)
+        return out
+
     def gather(self, params):
         """This rank's params -> the whole tree (a collective: every rank
         calls it)."""
-        return unflatten(params, [
-            all_gather_block(p, lp.pdim, self.mesh, call="gather")
-            if lp.pdim is not None else p
-            for p, lp in zip(leaves(params), self.plan.leaves)])
+        return unflatten(params, self._join(leaves(params),
+                                            lambda lp: lp.pdim))
 
     def gather_moments(self, state):
         """This rank's moment blocks -> {"mu", "nu"} whole (a collective)."""
-        return {k: unflatten(state[k], [
-            all_gather_block(m, lp.odim, self.mesh, call="gather")
-            if lp.odim is not None else m
-            for m, lp in zip(leaves(state[k]), self.plan.leaves)])
-            for k in ("mu", "nu")}
+        return {k: unflatten(state[k], self._join(leaves(state[k]),
+                                                  lambda lp: lp.odim))
+                for k in ("mu", "nu")}
 
     def _loss_grads(self, params, batch, replicated):
         blocks = [p.detach().requires_grad_() for p in leaves(params)]
         whole = [fsdp_gather(b, lp.pdim, self.mesh, replicated)
                  if lp.pdim is not None else b
                  for b, lp in zip(blocks, self.plan.leaves)]
-        with use_data(None if replicated else self.mesh):
-            loss, metrics = self.model.loss(unflatten(params, whole), batch)
+        tp = self.plan.trunk
+        split = contextlib.nullcontext() if tp is None else use_model(
+            self.mesh.model_mesh, tp, self.plan.vocab)
+        with use_data(None if replicated else self.mesh), split:
+            loss, metrics = self.local.loss(unflatten(params, whole), batch)
         grads = torch.autograd.grad(loss, blocks)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
@@ -208,11 +235,11 @@ def train(model, params, data_iter, steps: int,
         dev = step_fn.mesh.device
         params = step_fn.shard(params)
         opt_state = step_fn.init_state(params)
-        verbose = verbose and step_fn.mesh.rank == 0
+        verbose = verbose and step_fn.mesh.lead
     else:
         opt_state = init_opt_state(params)
     whole = step_fn.gather if sharded else (lambda p: p)
-    lead = not sharded or step_fn.mesh.rank == 0
+    lead = not sharded or step_fn.mesh.lead
     result = TrainResult()
     t0 = time.time()
     for i in range(steps):

@@ -30,7 +30,8 @@ loss_mask (fp32; XLA and torch sum in other orders):
     a norm over the local block only, gradients summed where the batch
     is replicated) each break at least one of these checks;
   * the collectives of a step against `cost.train_step`'s count;
-  * a model axis above 1 is refused.
+  * a model axis above 1 is refused for the layer kinds it does not
+    split, and a mesh that is not the world's size is refused.
 """
 import os
 import pickle
@@ -345,13 +346,28 @@ def test_collectives_against_the_cost_count(runs, case):
     assert not cfg.remat        # no recompute: one gather a microbatch
 
 
-def test_model_axis_is_refused():
-    """model > 1 raises, naming the mesh."""
-    with pytest.raises(ValueError, match=r"data 1, model 2.*later slice"):
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
+                                  "llama-3.2-vision-90b", "whisper-base"])
+def test_model_axis_is_refused(arch):
+    """Under a model axis above 1, a config with a layer kind other than
+    attn and moe (ssm, rec, cross, enc, dec) raises, naming the config,
+    M and the kinds; a mesh whose data x model is not the world's size
+    raises, naming both."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).reduced()
+    whole = Model(cfg, device="meta").abstract_params()
+    kinds = {"mamba2-370m": r"\['ssm'\]",
+             "recurrentgemma-9b": r"\['rec'\]",
+             "llama-3.2-vision-90b": r"\['cross'\]",
+             "whisper-base": r"\['dec', 'enc'\]"}[arch]
+    with pytest.raises(ValueError, match=rf"{cfg.name} at M = 2: layer "
+                                         rf"kinds {kinds}"):
+        port.train_plan(whole, MeshShape({"data": 1, "model": 2},
+                                         ("data", "model")), cfg=cfg)
+    with pytest.raises(ValueError, match=r"\(data 1, model 2\) needs a "
+                                         r"process group of 2 ranks, got 1"):
         make_train_mesh(1, model=2, device="cpu")
-    with pytest.raises(ValueError, match=r"model.*2.*later slice"):
-        port.train_plan({"w": np.zeros((4, 4))}, MeshShape(
-            {"data": 1, "model": 2}, ("data", "model")))
 
 
 def test_microbatch_rows_follow_the_reference_reshape():
